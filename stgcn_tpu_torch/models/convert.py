@@ -1,0 +1,61 @@
+"""Carry weights from the JAX package's pytrees into the port's ``STGCN``.
+
+The port's own copy of ``export_state_dict``
+(``stgcn_tpu/models/importer.py:106-155``): JAX ``(params, state)`` pytrees,
+given as numpy arrays, become a reference-named state dict of tensors.  In
+mask mode ``A ⊙ M`` is folded into ``spatialConv.A``, which is exactly the
+eval ``effective_adjacency``; in fixed mode ``spatialConv.A`` is the fixed
+adjacency.  ``STGCN.load_state_dict(state_dict_from_jax(...))`` then makes
+both packages compute the same function.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x)
+
+
+def state_dict_from_jax(params: dict, state: dict, *, residual: bool,
+                        adjacency: np.ndarray) -> dict[str, torch.Tensor]:
+    """``(params, state)`` pytrees -> reference-named state dict.
+
+    ``adjacency``: the model's constant normalized ``(K, V, V)`` adjacency,
+    for the blocks whose parameters hold a mask or no graph weights.  The
+    dead ``Masks.{i}`` entries of the reference format are ones.
+    """
+    out: dict[str, np.ndarray] = {}
+    for i, (p, s) in enumerate(zip(params["blocks"], state["blocks"])):
+        pre = f"conv.{i}."
+        c_in, k, c_out = _np(p["spatial"]["w"]).shape
+        out[pre + "spatialConv.W.weight"] = (
+            np.transpose(_np(p["spatial"]["w"]), (1, 2, 0))
+            .reshape(k * c_out, c_in, 1, 1))
+        out[pre + "spatialConv.W.bias"] = _np(p["spatial"]["b"]).reshape(-1)
+        out[pre + "temporalConv.weight"] = np.transpose(
+            _np(p["temporal"]["w"]), (3, 2, 0, 1))
+        out[pre + "temporalConv.bias"] = _np(p["temporal"]["b"])
+        for name, key in (("batch_n", "bn1"), ("batch_n_2", "bn2")):
+            out[f"{pre}{name}.weight"] = _np(p[key]["scale"])
+            out[f"{pre}{name}.bias"] = _np(p[key]["offset"])
+            out[f"{pre}{name}.running_mean"] = _np(s[key]["mean"])
+            out[f"{pre}{name}.running_var"] = _np(s[key]["var"])
+        if "A" in p:
+            a_eff = _np(p["A"])
+        elif "mask" in p:
+            a_eff = _np(adjacency) * _np(p["mask"])
+        else:
+            a_eff = _np(adjacency)
+        out[pre + "spatialConv.A"] = a_eff
+        out[f"Masks.{i}"] = np.ones_like(a_eff)
+        if residual and "residual_proj" in p:
+            out[pre + "apply_residual.weight"] = (
+                _np(p["residual_proj"]["w"]).T[:, :, None, None])
+            out[pre + "apply_residual.bias"] = _np(p["residual_proj"]["b"])
+    out["fc_layer.weight"] = _np(params["fc"]["w"]).T
+    out["fc_layer.bias"] = _np(params["fc"]["b"])
+    return {k: torch.from_numpy(np.array(v, copy=True))
+            for k, v in out.items()}

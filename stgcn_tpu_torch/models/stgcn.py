@@ -1,0 +1,248 @@
+"""The ST-GCN network as ``nn.Module``s (port of ``models/stgcn.py``).
+
+Ten spatial-temporal blocks, global average pool and a linear classifier,
+with the channel/stride plan of the reference (src/lightning_model.py:65-88,
+src/network/stgcn.py:40-53).  Parameter names and shapes are the
+reference's state-dict names (``conv.{i}.spatialConv.W.weight``,
+``conv.{i}.batch_n.*``, ``conv.{i}.batch_n_2.*``, ``conv.{i}.temporalConv.*``,
+``conv.{i}.apply_residual.*``, ``Masks.{i}``, ``fc_layer.*``), so a
+reference-format state dict, or one made by
+:func:`stgcn_tpu_torch.models.convert.state_dict_from_jax`, loads with
+``load_state_dict``.
+
+``spatialConv.A`` holds each block's effective adjacency: the whole trained
+adjacency in ``"reference"`` mode, ``A ⊙ M`` in ``"mask"`` mode (the
+reference format folds the mask into ``A``), and the fixed normalized
+adjacency, as a buffer, in ``"fixed"`` mode.
+
+``forward`` is the eval forward on the op path (:mod:`stgcn_tpu_torch.ops`),
+the oracle of the fused forward in :mod:`stgcn_tpu_torch.models.fused`.
+Training belongs to a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn.utils import skip_init
+
+from stgcn_tpu_torch.graph import adjacency as adj
+from stgcn_tpu_torch.ops.block import ADJACENCY_MODES, block_forward
+from stgcn_tpu_torch.ops.common import global_avg_pool, linear
+
+# (c_out, temporal stride) per block.
+DEFAULT_PLAN: tuple[tuple[int, int], ...] = (
+    (64, 1), (64, 1), (64, 1), (64, 1),
+    (128, 2), (128, 1), (128, 1),
+    (256, 2), (256, 1), (256, 1),
+)
+
+# The 9-layer variant of the course report (stgcn.txt:39-49).
+PLAN_9: tuple[tuple[int, int], ...] = (
+    (64, 1), (64, 1), (64, 1),
+    (128, 2), (128, 1), (128, 1),
+    (256, 2), (256, 1), (256, 1),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class STGCNConfig:
+    """The fields of ``stgcn_tpu.models.stgcn.STGCNConfig`` the eval path
+    reads.  ``dtype`` is the parameter and activation dtype;
+    ``compute_dtype`` (e.g. ``torch.bfloat16``) the dtype activations and
+    weights are rounded to, ``None`` meaning ``dtype``."""
+
+    c_in: int = 2
+    num_classes: int = 6
+    gamma: int = 9
+    strategy: adj.Strategy = adj.Strategy.UNI_LABELING
+    d: int = 1
+    norm_mode: str = "symmetric"
+    adjacency_mode: str = "mask"
+    residual: bool = False
+    final_softmax: bool = False
+    plan: tuple[tuple[int, int], ...] = DEFAULT_PLAN
+    dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype | None = None
+
+    def __post_init__(self):
+        if self.adjacency_mode not in ADJACENCY_MODES:
+            raise ValueError(f"adjacency_mode must be one of "
+                             f"{ADJACENCY_MODES}, got {self.adjacency_mode!r}")
+        if self.gamma % 2 != 1:
+            raise ValueError(f"gamma must be odd, got {self.gamma}")
+
+
+def _uniform_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """torch's default Conv/Linear init, U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+    drawn from ``gen`` (the layers are built with ``skip_init``, so the
+    global generator is never drawn from)."""
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=gen)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm2d's parameters and running statistics under its names
+    (``weight``, ``bias``, ``running_mean``, ``running_var``)."""
+
+    def __init__(self, c: int, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(c, dtype=dtype))
+        self.register_buffer("running_mean", torch.zeros(c, dtype=dtype))
+        self.register_buffer("running_var", torch.ones(c, dtype=dtype))
+
+    def params(self) -> dict:
+        return {"scale": self.weight, "offset": self.bias}
+
+    def state(self) -> dict:
+        return {"mean": self.running_mean, "var": self.running_var}
+
+
+class SpatialConv(nn.Module):
+    """The partition-expanding 1x1 conv ``W`` and the adjacency ``A``."""
+
+    def __init__(self, c_in: int, c_out: int, a: torch.Tensor,
+                 trainable_a: bool, dtype: torch.dtype,
+                 gen: torch.Generator):
+        super().__init__()
+        k = a.shape[0]
+        self.W = skip_init(nn.Conv2d, c_in, k * c_out, 1, dtype=dtype)
+        _uniform_(self.W.weight, c_in, gen)
+        _uniform_(self.W.bias, c_in, gen)
+        a = a.to(dtype, copy=True)  # each block owns its adjacency
+        if trainable_a:
+            self.A = nn.Parameter(a)
+        else:
+            self.register_buffer("A", a)
+
+
+class STGCNBlock(nn.Module):
+    def __init__(self, c_in: int, c_out: int, stride: int, a: torch.Tensor,
+                 cfg: STGCNConfig, gen: torch.Generator):
+        super().__init__()
+        dt, g = cfg.dtype, cfg.gamma
+        self.stride = stride
+        self.residual = cfg.residual
+        self.batch_n = BatchNorm(c_in, dt)
+        self.spatialConv = SpatialConv(c_in, c_out, a,
+                                       cfg.adjacency_mode != "fixed", dt, gen)
+        self.batch_n_2 = BatchNorm(c_out, dt)
+        self.temporalConv = skip_init(nn.Conv2d, c_out, c_out, (g, 1),
+                                      stride=(stride, 1),
+                                      padding=((g - 1) // 2, 0), dtype=dt)
+        _uniform_(self.temporalConv.weight, c_out * g, gen)
+        _uniform_(self.temporalConv.bias, c_out * g, gen)
+        if cfg.residual and not (c_in == c_out and stride == 1):
+            self.apply_residual = skip_init(nn.Conv2d, c_in, c_out, 1,
+                                            stride=(stride, 1), dtype=dt)
+            _uniform_(self.apply_residual.weight, c_in, gen)
+            _uniform_(self.apply_residual.bias, c_in, gen)
+        else:
+            self.apply_residual = None
+
+    def params_and_state(self, dtype: torch.dtype | None = None
+                         ) -> tuple[dict, dict]:
+        """This block's parameters in the JAX package's layout, cast to
+        ``dtype`` if given, and its BN running statistics (never cast)."""
+        w = self.spatialConv.W.weight            # (K*C_out, C_in, 1, 1)
+        k = self.spatialConv.A.shape[0]
+        c_in = w.shape[1]
+        c_out = w.shape[0] // k
+        tw = self.temporalConv.weight            # (C_out, C_in, gamma, 1)
+        p = {
+            "spatial": {
+                "w": w.reshape(k, c_out, c_in).permute(2, 0, 1),
+                "b": self.spatialConv.W.bias.reshape(k, c_out),
+            },
+            "temporal": {"w": tw.permute(2, 3, 1, 0),
+                         "b": self.temporalConv.bias},
+            "bn1": self.batch_n.params(),
+            "bn2": self.batch_n_2.params(),
+            "A": self.spatialConv.A,
+        }
+        if self.apply_residual is not None:
+            p["residual_proj"] = {
+                "w": self.apply_residual.weight[:, :, 0, 0].t(),
+                "b": self.apply_residual.bias,
+            }
+        if dtype is not None:
+            p = _cast_tree(p, dtype)
+        return p, {"bn1": self.batch_n.state(), "bn2": self.batch_n_2.state()}
+
+
+def _cast_tree(tree: dict, dtype: torch.dtype) -> dict:
+    return {k: _cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+class STGCN(nn.Module):
+    """ST-GCN with random weights drawn from ``seed``.
+
+    ``distances``: per-joint gravity-center distances, needed by the
+    spatial-configuration strategy.
+    """
+
+    def __init__(self, config: STGCNConfig,
+                 distances: np.ndarray | None = None, *, seed: int = 0):
+        super().__init__()
+        self.config = config
+        a_np = adj.get_normalized_adjacency(
+            config.strategy, config.d, mode=config.norm_mode,
+            distances=distances)
+        a = torch.from_numpy(a_np).to(config.dtype)
+        self.num_partitions, self.num_joints = a.shape[0], a.shape[1]
+        self.register_buffer("adjacency", a, persistent=False)
+        gen = torch.Generator().manual_seed(seed)
+        blocks = []
+        c_prev = config.c_in
+        for c_out, stride in config.plan:
+            blocks.append(STGCNBlock(c_prev, c_out, stride, a, config, gen))
+            c_prev = c_out
+        self.conv = nn.ModuleList(blocks)
+        # dead per-layer masks of the reference format, kept for its keys
+        self.Masks = nn.ParameterList(
+            nn.Parameter(torch.ones_like(a), requires_grad=False)
+            for _ in config.plan)
+        self.fc_layer = skip_init(nn.Linear, c_prev, config.num_classes,
+                                  dtype=config.dtype)
+        _uniform_(self.fc_layer.weight, c_prev, gen)
+        _uniform_(self.fc_layer.bias, c_prev, gen)
+
+    def head_params(self, dtype: torch.dtype | None = None) -> dict:
+        p = {"w": self.fc_layer.weight.t(), "b": self.fc_layer.bias}
+        return _cast_tree(p, dtype) if dtype is not None else p
+
+    def forward(self, x: torch.Tensor,
+                time_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """Eval logits on the op path.
+
+        Args:
+          x: ``(N, T, V, C_in)`` skeleton sequences.
+          time_mask: optional ``(N, T)`` validity mask for bucketed batches;
+            padded frames are zeroed before every block and the pool
+            averages the valid frames only.
+        """
+        cfg = self.config
+        cd = cfg.compute_dtype
+        h = x.to(cd or cfg.dtype)
+        if time_mask is not None:
+            h = h * time_mask[:, :, None, None].to(h.dtype)
+        for block in self.conv:
+            p, s = block.params_and_state(cd)
+            h = block_forward(p, s, h, self.adjacency, stride=block.stride,
+                              residual=cfg.residual, compute_dtype=cd)
+            if time_mask is not None:
+                if block.stride != 1:
+                    time_mask = time_mask[:, ::block.stride]
+                h = h * time_mask[:, :, None, None].to(h.dtype)
+        pooled = global_avg_pool(h, time_mask)
+        logits = linear(self.head_params(cd), pooled)
+        if cfg.final_softmax:
+            logits = torch.softmax(logits, dim=-1)
+        return logits

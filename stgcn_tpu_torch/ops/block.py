@@ -1,0 +1,65 @@
+"""The ST-GCN unit in eval mode (port of ``stgcn_tpu/ops/block.py:92-210``).
+
+This is the op-path oracle that the fused block kernel is held against.
+Behaviour follows the reference's ``SpatialTemporalConv``
+(src/network/st_graphconv.py:4-109):
+
+* non-residual order: BN -> spatial -> temporal -> BN -> ReLU;
+* residual order (full pre-activation): BN -> ReLU -> spatial -> BN -> ReLU
+  -> temporal, plus a shortcut (identity when shapes match, strided 1x1
+  projection otherwise), then the outer ReLU.
+
+Parameters are dictionaries of tensors in the JAX package's layout
+(``spatial.w`` is ``(C_in, K, C_out)``, ``temporal.w`` is
+``(gamma, 1, C_in, C_out)``), so one block's parameters carry over from a
+JAX pytree unchanged.  The adjacency modes (SURVEY.md Q2) are told apart as
+there: a block with ``"A"`` owns its whole adjacency (``"reference"``), one
+with ``"mask"`` multiplies the fixed adjacency by it (``"mask"``), one with
+neither uses the fixed adjacency (``"fixed"``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stgcn_tpu_torch.ops.batchnorm import batchnorm_eval
+from stgcn_tpu_torch.ops.spatial_conv import spatial_conv
+from stgcn_tpu_torch.ops.temporal_conv import pointwise_conv, temporal_conv
+
+ADJACENCY_MODES = ("reference", "mask", "fixed")
+
+
+def effective_adjacency(params: dict, adjacency: torch.Tensor) -> torch.Tensor:
+    """The ``(K, V, V)`` adjacency this block's forward uses."""
+    if "A" in params:
+        return params["A"]
+    if "mask" in params:
+        return adjacency * params["mask"]
+    return adjacency
+
+
+def block_forward(params: dict, state: dict, x: torch.Tensor,
+                  adjacency: torch.Tensor, *, stride: int = 1,
+                  residual: bool = False,
+                  compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """One eval-mode ST-GCN unit: ``(N, T, V, C_in) -> (N, T', V, C_out)``."""
+    a = effective_adjacency(params, adjacency)
+    if residual:
+        h = torch.relu(batchnorm_eval(params["bn1"], state["bn1"], x))
+        h = spatial_conv(params["spatial"], a, h, compute_dtype=compute_dtype)
+        h = torch.relu(batchnorm_eval(params["bn2"], state["bn2"], h))
+        h = temporal_conv(params["temporal"], h, stride=stride,
+                          compute_dtype=compute_dtype)
+        if "residual_proj" in params:
+            shortcut = pointwise_conv(params["residual_proj"], x,
+                                      stride=stride)
+        else:
+            shortcut = x
+        out = h + shortcut
+    else:
+        h = batchnorm_eval(params["bn1"], state["bn1"], x)
+        h = spatial_conv(params["spatial"], a, h, compute_dtype=compute_dtype)
+        h = temporal_conv(params["temporal"], h, stride=stride,
+                          compute_dtype=compute_dtype)
+        out = batchnorm_eval(params["bn2"], state["bn2"], h)
+    return torch.relu(out)

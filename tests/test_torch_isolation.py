@@ -1,0 +1,89 @@
+"""The port stands alone: it imports nothing of JAX or of ``stgcn_tpu``.
+
+The GPU machine the port runs on has torch, numpy, scipy, einops, pytest and
+hypothesis, and no jax, jaxlib, pandas, ml_dtypes or optax.  A subprocess
+recreates that with an import hook and serves a prediction on the CPU; an
+AST scan checks every module of the port and ``chip_smoke.py``.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "pandas", "ml_dtypes", "optax", "stgcn_tpu")
+PORT_FILES = sorted((ROOT / "stgcn_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+SCRIPT = textwrap.dedent("""
+    import sys
+
+    FORBIDDEN = {forbidden!r}
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in FORBIDDEN:
+                raise ImportError("blocked " + name)
+            return None
+
+    sys.meta_path.insert(0, Block())
+
+    import numpy as np
+    import stgcn_tpu_torch
+    from stgcn_tpu_torch.graph.adjacency import Strategy
+    from stgcn_tpu_torch.models.stgcn import STGCN, STGCNConfig
+    from stgcn_tpu_torch.serving import Predictor
+    import stgcn_tpu_torch.kernels._build
+    import stgcn_tpu_torch.models.convert
+
+    model = STGCN(STGCNConfig(plan=((8, 1), (16, 2)),
+                              strategy=Strategy.DISTANCE, residual=True))
+    pred = Predictor(model, max_batch=2, device="cpu")
+    rng = np.random.default_rng(0)
+    out = pred.predict([rng.normal(0, 1, (t, 25, 2)).astype(np.float32)
+                        for t in (40, 70, 90)])
+    assert out.probs.shape == (3, 6), out.probs.shape
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+    assert not loaded, loaded
+    print("ISOLATED-OK")
+""")
+
+
+def test_port_serves_without_jax_or_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c", SCRIPT.format(forbidden=FORBIDDEN)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ISOLATED-OK" in res.stdout
+
+
+def imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import(path):
+    assert not imported_roots(path) & set(FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_imports_only_torch_numpy_and_stdlib(path):
+    allowed = {"torch", "numpy", "stgcn_tpu_torch"}
+    third_party = {r for r in imported_roots(path)
+                   if r not in sys.stdlib_module_names}
+    assert third_party <= allowed, third_party - allowed
