@@ -12,10 +12,26 @@ Port kernel            Replaces
                        ``stgcn_tpu/kernels/block_packed.py``
                        ``fused_block_packed_eval`` (``_mega_packed_kernel``):
                        both compute one whole eval block
+``spatial_block``      ``stgcn_tpu/kernels/block_fused.py``
+(``csrc/spatial_block.cu``, ``spatial_block_vm`` (``_spatial_fwd_kernel``,
+forward and backward)  ``_spatial_bwd_kernel``), and
+                       ``stgcn_tpu/kernels/block_packed.py``
+                       ``spatial_block_packed`` (``_sp_fwd_kernel``,
+                       ``_sp_bwd_kernel``): both compute the train path's
+                       affine(+ReLU) + K-partition graph conv
+``temporal_block``     ``stgcn_tpu/kernels/block_fused.py``
+(``csrc/temporal_block.cu``, ``temporal_block_vm`` (``_temporal_fwd_kernel``,
+forward and backward)  ``_temporal_bwd_kernel``), and
+                       ``stgcn_tpu/kernels/block_packed.py``
+                       ``temporal_block_packed`` (``_tp_fwd_kernel``,
+                       ``_tp_bwd_kernel``): both compute the train path's
+                       affine(+ReLU) + gamma x 1 temporal conv
 =====================  =====================================================
 
 Every wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its kernel, or raises, for a CUDA tensor; it counts its launches in
-a ``launches`` attribute.  ``_build`` compiles ``csrc/`` with ``nvcc`` at
-first use and loads the library with ``ctypes``.
+a ``launches`` attribute (the train ops have one wrapper, and one count,
+for the forward and one for the backward kernel).  ``_build`` compiles
+``csrc/`` with ``nvcc`` at first use and loads the library with
+``ctypes``.
 """

@@ -1,10 +1,11 @@
 """Build the CUDA kernels with plain ``nvcc`` and load them with ``ctypes``.
 
-At first use the sources under ``csrc/`` are compiled, in one ``nvcc`` call,
-into ``build/stgcn_tpu_torch/libblock_eval-<sha256 of the sources>.so`` under
-the repository root.  The name carries the sources' hash, so a library built
-from other sources is never loaded, and the build writes to a temporary
-name and renames it into place, so no lock file is needed.  To force a
+At first use each ``csrc/*.cu`` source is compiled by its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links the objects
+into ``build/stgcn_tpu_torch/libstgcn_kernels-<sha256 of the sources>.so``
+under the repository root.  The name carries the sources' hash, so a
+library built from other sources is never loaded, and the build writes to
+a temporary name and renames it into place, so no lock file is needed.  To force a
 rebuild, delete ``build/stgcn_tpu_torch/``.
 
 The sources include no PyTorch header: the kernels have a plain C interface,
@@ -28,12 +29,28 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "stgcn_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 BUILD_TIMEOUT_S = 300
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # block_eval_launch(14 pointers, 17 ints, stream) -> cudaError_t
 BLOCK_EVAL_ARGTYPES = [_P] * 14 + [_I] * 17 + [_P]
+# spatial_block_fwd_launch(7 pointers, 9 ints, stream)
+SPATIAL_FWD_ARGTYPES = [_P] * 7 + [_I] * 9 + [_P]
+# spatial_block_bwd_launch(11 pointers, 11 ints, stream)
+SPATIAL_BWD_ARGTYPES = [_P] * 11 + [_I] * 11 + [_P]
+# temporal_block_fwd_launch(6 pointers, 12 ints, stream)
+TEMPORAL_FWD_ARGTYPES = [_P] * 6 + [_I] * 12 + [_P]
+# temporal_block_bwd_launch(8 pointers, 13 ints, stream)
+TEMPORAL_BWD_ARGTYPES = [_P] * 8 + [_I] * 13 + [_P]
+# every C entry point and its argument kinds; each returns a cudaError_t
+ENTRY_POINTS = {
+    "block_eval_launch": BLOCK_EVAL_ARGTYPES,
+    "spatial_block_fwd_launch": SPATIAL_FWD_ARGTYPES,
+    "spatial_block_bwd_launch": SPATIAL_BWD_ARGTYPES,
+    "temporal_block_fwd_launch": TEMPORAL_FWD_ARGTYPES,
+    "temporal_block_bwd_launch": TEMPORAL_BWD_ARGTYPES,
+}
 
 
 def sources() -> list[Path]:
@@ -41,11 +58,12 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
+    """The library's path, named by the hash of every source and header."""
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"libblock_eval-{digest.hexdigest()}.so"
+    return BUILD_DIR / f"libstgcn_kernels-{digest.hexdigest()}.so"
 
 
 def find_nvcc() -> str:
@@ -60,25 +78,50 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failures = []
+    for cmd, proc in zip(cmds, procs):
+        try:
+            _, err = proc.communicate(timeout=BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            raise RuntimeError(f"nvcc passed {BUILD_TIMEOUT_S} s: "
+                               f"{' '.join(cmd)}") from None
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}): "
+                            f"{' '.join(cmd)}\n{err}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 def build() -> tuple[Path, float]:
-    """Compile the library unless it exists; returns (path, seconds spent)."""
+    """Compile the library unless it exists; returns (path, seconds spent).
+
+    One ``nvcc -c`` per source, all at once, then one ``nvcc -shared`` link.
+    """
     lib = library_path()
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
+    nvcc = find_nvcc()
     start = time.perf_counter()
     try:
-        subprocess.run(cmd, check=True, capture_output=True, text=True,
-                       timeout=BUILD_TIMEOUT_S)
-    except subprocess.CalledProcessError as err:
-        raise RuntimeError(
-            f"nvcc failed ({err.returncode}): {' '.join(cmd)}\n"
-            f"{err.stderr}") from err
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(sources(), objs)])
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]])
     finally:
         seconds = time.perf_counter() - start
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)
     return lib, seconds
 
@@ -88,8 +131,10 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C interface."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    lib.block_eval_launch.argtypes = BLOCK_EVAL_ARGTYPES
-    lib.block_eval_launch.restype = ctypes.c_int
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.block_eval_error_string.argtypes = [ctypes.c_int]
     lib.block_eval_error_string.restype = ctypes.c_char_p
     return lib

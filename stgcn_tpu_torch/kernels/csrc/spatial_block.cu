@@ -1,0 +1,348 @@
+// spatial_block: affine(+ReLU) followed by the K-partition graph convolution,
+// forward and backward, for Hopper.  The train path's spatial op.
+//
+// Replaces two Pallas TPU kernels of the JAX package that compute the same
+// function in two layouts:
+//   * stgcn_tpu/kernels/block_fused.py  spatial_block_vm
+//       (_spatial_fwd_kernel, _spatial_bwd_kernel)
+//   * stgcn_tpu/kernels/block_packed.py spatial_block_packed
+//       (_sp_fwd_kernel, _sp_bwd_kernel)
+// The packed variant's two frames per 128-lane row and the 128-lane channel
+// padding were TPU layout workarounds; these kernels take the logical
+// V-major (V, M, C) layout, M = N*T frames, and any channel count (C_in = 2
+// for the first block).
+//
+// Function, for frame m, joint v, output channel o ("round" = to the
+// activation dtype T; sums in float32):
+//   h     = round(relu?(x * s1 + t1))
+//   y_k   = round(h . W_k + b_k)
+//   z     = sum_k A_k . y_k                        -> round
+// Backward, given g = dL/dz (rounding points of _spatial_bwd_kernel):
+//   t_k   = round(A_k^T . g)
+//   dh    = sum_k t_k . W_k^T
+//   dpre  = dh * [pre > 0] (relu1 only),  dx = round(dpre * s1)
+//   dW_k  = h^T . t_k,  db_k = sum t_k
+//   dA_k  = g . round(h . W_k + b_k)^T            (need_da only)
+//   ds1   = sum dpre * x,  dt1 = sum dpre
+// dW, db, dA, ds1 and dt1 sum over all M*V rows: each CTA of the backward
+// keeps float32 partial sums in its slice of a scratch tensor and a second
+// pass adds the slices in a fixed order (train_common.cuh).
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s).  The forward
+// needs 2*M*V*C_in*K*C_out + 2*M*K*V*V*C_out operations and moves
+// M*V*(C_in + C_out)*sizeof(T) bytes: at the main path's shapes (M = 19,456
+// or 9,728 frames, C <= 128) about 1 to 30 GFLOP against 5 to 125 MB, so
+// 0.03 ms of tensor-core time against up to 0.04 ms of memory time: the
+// bound is set by bytes for C_in = 2 and 64 and by operations above.  The
+// backward does two to three times the operations (the y_k recompute for
+// dA, the t_k and dh products) and moves x, g and dx.
+//
+// Design.  This first version is scalar FMA on the CUDA cores, far from that
+// bound on purpose: the simple kernel that is right.  A CTA of 256 threads
+// takes F whole frames (all V joints, since the aggregation mixes joints),
+// keeps h, y_k, g, t_k and the z-sums of those frames in shared memory as
+// float32, and runs each product as register tiles of 4x4 outputs
+// (tile_product).  The forward launches one CTA per F frames.  The backward
+// runs a fixed number of CTAs that each loop over F-frame chunks, so the
+// weight-gradient partials stay small (one slice per CTA).  F is the
+// largest of 8, 4, 2, 1 whose buffers fit in 227 KB (spatial_block.py
+// plan_frames).  Tensor-core tiles are later work.
+//
+// Launch contract (checked by the Python wrapper): x, g, w, b, a in T;
+// s1, t1 float32; w is (K, C_in, C_out) and wT (K, C_out, C_in); the
+// dynamic shared memory is 4*F*V*(C_in + 2*C_out) bytes for the forward and
+// 4*F*V*(2*C_in + 3*C_out) for the backward.  Each launcher returns
+// cudaGetLastError() after its launches.
+
+#include "train_common.cuh"
+
+namespace {
+
+using train::accumulate;
+using train::from_f;
+using train::kThreads;
+using train::rnd;
+using train::tile_product;
+using train::to_f;
+
+struct Dims {
+  int V, M, C_in, C_out, K, frames, relu1;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+spatial_fwd_kernel(const T* __restrict__ x, const float* __restrict__ s1,
+                   const float* __restrict__ t1, const T* __restrict__ w,
+                   const T* __restrict__ b, const T* __restrict__ a,
+                   T* __restrict__ out, Dims d) {
+  extern __shared__ __align__(16) float smem[];
+  const int V = d.V, C_in = d.C_in, C_out = d.C_out;
+  const size_t M = d.M;
+  const int m0 = blockIdx.x * d.frames;
+  const int fc = min(d.frames, d.M - m0);
+  const int R = fc * V;
+  float* hs = smem;                            // [R][C_in]  h
+  float* ys = hs + d.frames * V * C_in;        // [R][C_out] y_k
+  float* zs = ys + d.frames * V * C_out;       // [R][C_out] sum over k
+
+  for (int e = threadIdx.x; e < R * C_in; e += blockDim.x) {
+    const int r = e / C_in, i = e - r * C_in;
+    const int f = r / V, v = r - f * V;
+    const float xv = to_f(x[((size_t)v * M + m0 + f) * C_in + i]);
+    float h = __fadd_rn(__fmul_rn(xv, s1[i]), t1[i]);  // no FMA: as torch
+    if (d.relu1) h = fmaxf(h, 0.f);
+    hs[e] = rnd<T>(h);
+  }
+  __syncthreads();
+
+  for (int k = 0; k < d.K; ++k) {
+    const T* wk = w + (size_t)k * C_in * C_out;
+    const T* bk = b + (size_t)k * C_out;
+    const T* ak = a + (size_t)k * V * V;
+    tile_product<4, 4>(
+        1, R, C_out, 1, C_in,
+        [&](int, int r, int, int i) { return hs[r * C_in + i]; },
+        [&](int, int, int i, int o) { return to_f(wk[i * C_out + o]); },
+        [&](int, int r, int o, float acc) {
+          ys[r * C_out + o] = rnd<T>(acc + to_f(bk[o]));
+        });
+    __syncthreads();
+    const bool last = k == d.K - 1;
+    tile_product<4, 4>(
+        fc, V, C_out, 1, V,
+        [&](int, int v, int, int wj) { return to_f(ak[v * V + wj]); },
+        [&](int f, int, int wj, int o) { return ys[(f * V + wj) * C_out + o]; },
+        [&](int f, int v, int o, float acc) {
+          const int idx = (f * V + v) * C_out + o;
+          const float z = k == 0 ? acc : zs[idx] + acc;
+          if (last)
+            out[((size_t)v * M + m0 + f) * C_out + o] = from_f<T>(z);
+          else
+            zs[idx] = z;
+        });
+    __syncthreads();
+  }
+}
+
+// Partial-sum slice of one CTA: dW [K][C_in][C_out], db [K][C_out],
+// dA [K][V][V], ds1 [C_in], dt1 [C_in].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+spatial_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                   const float* __restrict__ s1, const float* __restrict__ t1,
+                   const T* __restrict__ w, const T* __restrict__ wT,
+                   const T* __restrict__ b, const T* __restrict__ a,
+                   T* __restrict__ dx, float* __restrict__ partial,
+                   long long E, int need_da, Dims d) {
+  extern __shared__ __align__(16) float smem[];
+  const int V = d.V, C_in = d.C_in, C_out = d.C_out, K = d.K;
+  const size_t M = d.M;
+  const int cap = d.frames * V;
+  float* hs = smem;                  // [R][C_in]  h, then dpre * x
+  float* dhs = hs + cap * C_in;      // [R][C_in]  dh, then dpre
+  float* gs = dhs + cap * C_in;      // [R][C_out] g
+  float* ts = gs + cap * C_out;      // [R][C_out] t_k
+  float* zs = ts + cap * C_out;      // [R][C_out] y_k recomputed for dA
+  float* p_dw = partial + (size_t)blockIdx.x * E;
+  float* p_db = p_dw + (size_t)K * C_in * C_out;
+  float* p_da = p_db + (size_t)K * C_out;
+  float* p_ds1 = p_da + (size_t)K * V * V;
+  float* p_dt1 = p_ds1 + C_in;
+  const int chunks = (d.M + d.frames - 1) / d.frames;
+
+  for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
+    const bool first = chunk == (int)blockIdx.x;
+    const int m0 = chunk * d.frames;
+    const int fc = min(d.frames, d.M - m0);
+    const int R = fc * V;
+    for (int e = threadIdx.x; e < R * C_in; e += blockDim.x) {
+      const int r = e / C_in, i = e - r * C_in;
+      const int f = r / V, v = r - f * V;
+      const float xv = to_f(x[((size_t)v * M + m0 + f) * C_in + i]);
+      float h = __fadd_rn(__fmul_rn(xv, s1[i]), t1[i]);
+      if (d.relu1) h = fmaxf(h, 0.f);
+      hs[e] = rnd<T>(h);
+      dhs[e] = 0.f;
+    }
+    for (int e = threadIdx.x; e < R * C_out; e += blockDim.x) {
+      const int r = e / C_out, o = e - r * C_out;
+      const int f = r / V, v = r - f * V;
+      gs[e] = to_f(g[((size_t)v * M + m0 + f) * C_out + o]);
+    }
+    __syncthreads();
+
+    for (int k = 0; k < K; ++k) {
+      const T* wk = w + (size_t)k * C_in * C_out;
+      const T* wTk = wT + (size_t)k * C_out * C_in;
+      const T* bk = b + (size_t)k * C_out;
+      const T* ak = a + (size_t)k * V * V;
+      // t_k = round(A_k^T . g), per frame
+      tile_product<4, 4>(
+          fc, V, C_out, 1, V,
+          [&](int, int wj, int, int v) { return to_f(ak[v * V + wj]); },
+          [&](int f, int, int v, int o) { return gs[(f * V + v) * C_out + o]; },
+          [&](int f, int wj, int o, float acc) {
+            ts[(f * V + wj) * C_out + o] = rnd<T>(acc);
+          });
+      if (need_da)  // y_k = round(h . W_k + b_k)
+        tile_product<4, 4>(
+            1, R, C_out, 1, C_in,
+            [&](int, int r, int, int i) { return hs[r * C_in + i]; },
+            [&](int, int, int i, int o) { return to_f(wk[i * C_out + o]); },
+            [&](int, int r, int o, float acc) {
+              zs[r * C_out + o] = rnd<T>(acc + to_f(bk[o]));
+            });
+      __syncthreads();
+      // dW_k += h^T . t_k
+      tile_product<4, 4>(
+          1, C_in, C_out, 1, R,
+          [&](int, int i, int, int r) { return hs[r * C_in + i]; },
+          [&](int, int, int r, int o) { return ts[r * C_out + o]; },
+          [&](int, int i, int o, float acc) {
+            accumulate(&p_dw[((size_t)k * C_in + i) * C_out + o], acc, first);
+          });
+      // dh += t_k . W_k^T
+      tile_product<4, 4>(
+          1, R, C_in, 1, C_out,
+          [&](int, int r, int, int o) { return ts[r * C_out + o]; },
+          [&](int, int, int o, int i) { return to_f(wTk[o * C_in + i]); },
+          [&](int, int r, int i, float acc) { dhs[r * C_in + i] += acc; });
+      // db_k += sum of t_k
+      for (int o = threadIdx.x; o < C_out; o += blockDim.x) {
+        float s = 0.f;
+        for (int r = 0; r < R; ++r) s += ts[r * C_out + o];
+        accumulate(&p_db[k * C_out + o], s, first);
+      }
+      // dA_k += g . y_k^T, summed over the chunk's frames and channels
+      if (need_da) {
+        tile_product<4, 4>(
+            1, V, V, fc, C_out,
+            [&](int, int v, int f, int o) { return gs[(f * V + v) * C_out + o]; },
+            [&](int, int f, int o, int wj) { return zs[(f * V + wj) * C_out + o]; },
+            [&](int, int v, int wj, float acc) {
+              accumulate(&p_da[((size_t)k * V + v) * V + wj], acc, first);
+            });
+      } else if (first) {
+        for (int e = threadIdx.x; e < V * V; e += blockDim.x)
+          p_da[(size_t)k * V * V + e] = 0.f;
+      }
+      __syncthreads();
+    }
+
+    // dpre = dh through the ReLU, dx = round(dpre * s1); keep dpre and
+    // dpre * x for the affine's gradients
+    for (int e = threadIdx.x; e < R * C_in; e += blockDim.x) {
+      const int r = e / C_in, i = e - r * C_in;
+      const int f = r / V, v = r - f * V;
+      const size_t gi = ((size_t)v * M + m0 + f) * C_in + i;
+      const float xv = to_f(x[gi]);
+      const float pre = __fadd_rn(__fmul_rn(xv, s1[i]), t1[i]);
+      float dp = dhs[e];
+      if (d.relu1 && !(pre > 0.f)) dp = 0.f;
+      dx[gi] = from_f<T>(dp * s1[i]);
+      dhs[e] = dp;
+      hs[e] = dp * xv;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < C_in; i += blockDim.x) {
+      float ss = 0.f, st = 0.f;
+      for (int r = 0; r < R; ++r) {
+        ss += hs[r * C_in + i];
+        st += dhs[r * C_in + i];
+      }
+      accumulate(&p_ds1[i], ss, first);
+      accumulate(&p_dt1[i], st, first);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+cudaError_t launch_fwd(const void* x, const void* s1, const void* t1,
+                       const void* w, const void* b, const void* a, void* out,
+                       const Dims& d, int smem_bytes, cudaStream_t stream) {
+  auto kernel = spatial_fwd_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const int grid = (d.M + d.frames - 1) / d.frames;
+  kernel<<<grid, kThreads, smem_bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(s1),
+      static_cast<const float*>(t1), static_cast<const T*>(w),
+      static_cast<const T*>(b), static_cast<const T*>(a),
+      static_cast<T*>(out), d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* g, const void* s1,
+                       const void* t1, const void* w, const void* wT,
+                       const void* b, const void* a, void* dx, void* partial,
+                       void* grads, int ctas, int need_da, const Dims& d,
+                       int smem_bytes, cudaStream_t stream) {
+  auto kernel = spatial_bwd_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const long long E = (long long)d.K * d.C_in * d.C_out + (long long)d.K * d.C_out +
+                      (long long)d.K * d.V * d.V + 2LL * d.C_in;
+  kernel<<<ctas, kThreads, smem_bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const float*>(s1), static_cast<const float*>(t1),
+      static_cast<const T*>(w), static_cast<const T*>(wT),
+      static_cast<const T*>(b), static_cast<const T*>(a),
+      static_cast<T*>(dx), static_cast<float*>(partial), E, need_da, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return train::launch_reduce(static_cast<const float*>(partial),
+                              static_cast<float*>(grads), ctas, E, stream);
+}
+
+Dims make_dims(int V, int M, int C_in, int C_out, int K, int frames,
+               int relu1) {
+  Dims d;
+  d.V = V;
+  d.M = M;
+  d.C_in = C_in;
+  d.C_out = C_out;
+  d.K = K;
+  d.frames = frames;
+  d.relu1 = relu1;
+  return d;
+}
+
+}  // namespace
+
+extern "C" int spatial_block_fwd_launch(
+    const void* x, const void* s1, const void* t1, const void* w,
+    const void* b, const void* a, void* out, int V, int M, int C_in,
+    int C_out, int K, int frames, int relu1, int is_bf16, int smem_bytes,
+    void* stream) {
+  if (frames < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(V, M, C_in, C_out, K, frames, relu1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? launch_fwd<__nv_bfloat16>(x, s1, t1, w, b, a, out, d,
+                                                   smem_bytes, s)
+                       : launch_fwd<float>(x, s1, t1, w, b, a, out, d,
+                                           smem_bytes, s));
+}
+
+// grads: float32 [dW | db | dA | ds1 | dt1], the sums of the CTAs' slices
+// of partial (ctas slices of the same layout).
+extern "C" int spatial_block_bwd_launch(
+    const void* x, const void* g, const void* s1, const void* t1,
+    const void* w, const void* wT, const void* b, const void* a, void* dx,
+    void* partial, void* grads, int V, int M, int C_in, int C_out, int K,
+    int frames, int ctas, int relu1, int need_da, int is_bf16,
+    int smem_bytes, void* stream) {
+  if (frames < 1 || M < 1 || ctas < 1 || ctas > (M + frames - 1) / frames)
+    return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(V, M, C_in, C_out, K, frames, relu1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? launch_bwd<__nv_bfloat16>(x, g, s1, t1, w, wT, b, a,
+                                                   dx, partial, grads, ctas,
+                                                   need_da, d, smem_bytes, s)
+                       : launch_bwd<float>(x, g, s1, t1, w, wT, b, a, dx,
+                                           partial, grads, ctas, need_da, d,
+                                           smem_bytes, s));
+}

@@ -7,12 +7,20 @@ mask mode ``A ⊙ M`` is folded into ``spatialConv.A``, which is exactly the
 eval ``effective_adjacency``; in fixed mode ``spatialConv.A`` is the fixed
 adjacency.  ``STGCN.load_state_dict(state_dict_from_jax(...))`` then makes
 both packages compute the same function.
+
+The train path keeps the JAX layout itself (``STGCN.init_params``), so
+:func:`params_from_jax` only turns the pytrees' arrays into tensors (the
+mask stays apart) and :func:`params_to_numpy` turns them back;
+:func:`state_dict_from_params` folds trained dictionaries into the
+reference-named state dict that ``Predictor`` serves.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from stgcn_tpu_torch.tree import tree_map
 
 
 def _np(x) -> np.ndarray:
@@ -59,3 +67,30 @@ def state_dict_from_jax(params: dict, state: dict, *, residual: bool,
     out["fc_layer.bias"] = _np(params["fc"]["b"])
     return {k: torch.from_numpy(np.array(v, copy=True))
             for k, v in out.items()}
+
+
+def params_from_jax(params: dict, state: dict, *,
+                    dtype: torch.dtype | None = None
+                    ) -> tuple[dict, dict]:
+    """JAX ``(params, state)`` pytrees of numpy arrays -> the port's train
+    dictionaries of tensors (same keys, ``mask`` kept apart), cast to
+    ``dtype`` if given."""
+    def leaf(x):
+        t = torch.from_numpy(np.array(x, copy=True))
+        return t.to(dtype) if dtype is not None else t
+    return tree_map(leaf, params), tree_map(leaf, state)
+
+
+def params_to_numpy(tree):
+    """The port's train dictionaries -> pytrees of numpy arrays."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def state_dict_from_params(params: dict, state: dict, *, residual: bool,
+                           adjacency: torch.Tensor
+                           ) -> dict[str, torch.Tensor]:
+    """Trained dictionaries -> the reference-named state dict for
+    ``STGCN.load_state_dict`` (mask mode folds ``adjacency * mask``)."""
+    return state_dict_from_jax(params_to_numpy(params),
+                               params_to_numpy(state), residual=residual,
+                               adjacency=params_to_numpy(adjacency))

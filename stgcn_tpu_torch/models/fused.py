@@ -1,6 +1,6 @@
-"""Whole-network eval forward built on the fused block kernel.
+"""Whole-network forwards built on the fused block kernels.
 
-Port of ``fused_block_args`` and ``fused_eval_forward``
+Eval: port of ``fused_block_args`` and ``fused_eval_forward``
 (``stgcn_tpu/models/fused.py:23-160``).  BatchNorms fold into per-channel
 affines from the running statistics, and every block runs as one
 :func:`stgcn_tpu_torch.kernels.block_eval.block_eval` call whose
@@ -10,6 +10,20 @@ packed-row chaining were layout workarounds for Mosaic and have no
 counterpart here, so the port also has no counterpart of the fault in the
 TPU chaining (``stgcn_tpu/models/fused.py:127``, ROADMAP.md queue 3).
 The global pool and the classifier head stay plain PyTorch.
+
+Train: port of ``_bn_affine_train``, ``block_forward_fused_train``,
+``fused_train_forward``, ``hybrid_fused_set`` and ``hybrid_train_forward``
+(``stgcn_tpu/models/fused.py:174-462``).  A fused train block is two
+differentiable ops, ``kernels.spatial_block.spatial_block`` and
+``kernels.temporal_block.temporal_block``, with the
+BatchNorm batch statistics outside them as a differentiable per-channel
+affine, so the whole BN gradient flows through the ops' ``ds``/``dt``.  The
+shortcut add, the final ReLU and dropout stay plain PyTorch.  The hybrid
+runs the blocks of ``hybrid_fused_set`` fused on V-major ``(V, N, T, C)``
+activations and the others on the ``(N, T, V, C)`` op chain, transposing
+only where the regime changes.  The parameters are the JAX package's
+dictionaries (:meth:`STGCN.init_params`), with the mask mode's ``mask``
+kept apart from the fixed adjacency.
 """
 
 from __future__ import annotations
@@ -17,9 +31,18 @@ from __future__ import annotations
 import torch
 
 from stgcn_tpu_torch.kernels.block_eval import block_eval
-from stgcn_tpu_torch.ops.batchnorm import fold_batchnorm_eval, stat_dtype
-from stgcn_tpu_torch.ops.block import effective_adjacency
-from stgcn_tpu_torch.ops.common import linear
+from stgcn_tpu_torch.kernels.spatial_block import spatial_block
+from stgcn_tpu_torch.kernels.temporal_block import temporal_block
+from stgcn_tpu_torch.ops.batchnorm import (
+    batch_moments,
+    batchnorm_train,
+    fold_batchnorm_eval,
+    running_update,
+    stat_dtype,
+)
+from stgcn_tpu_torch.ops.block import block_forward_train, effective_adjacency
+from stgcn_tpu_torch.ops.common import dropout, linear
+from stgcn_tpu_torch.models.stgcn import _cast_tree
 
 
 def fused_block_args(bp: dict, bs: dict, adjacency: torch.Tensor, *,
@@ -87,3 +110,123 @@ def fused_eval_forward(model, x: torch.Tensor,
     if cfg.final_softmax:
         logits = torch.softmax(logits, dim=-1)
     return logits
+
+
+def bn_affine_train(bn_params: dict, bn_state: dict, x: torch.Tensor, *,
+                    momentum: float = 0.1, eps: float = 1e-5
+                    ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Batch-statistic BN as a differentiable affine ``(s, t, new_state)``.
+
+    Statistics over every axis but the last, as ``batchnorm_train`` takes
+    them; ``x * s + t`` is the normalized ``x``, and ``s``, ``t`` depend on
+    ``x`` through the mean and variance, so autograd carries the full BN
+    gradient through the fused ops' ``ds`` and ``dt``.
+    """
+    mean, var, n = batch_moments(x)
+    s = bn_params["scale"].to(mean.dtype) * torch.rsqrt(var + eps)
+    t = bn_params["offset"].to(mean.dtype) - mean * s
+    return s, t, running_update(bn_state, mean, var, n, momentum)
+
+
+def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
+                              adjacency: torch.Tensor, *, stride: int,
+                              residual: bool, dropout_rate: float = 0.0,
+                              generator: torch.Generator | None = None
+                              ) -> tuple[torch.Tensor, dict]:
+    """One train-mode block on V-major ``(V, N, T, C_in)``: the spatial and
+    temporal ops, BN statistics, shortcut, ReLU and dropout.  Returns
+    ``(out, new_state)``."""
+    cd = x.dtype
+    a = effective_adjacency(bp, adjacency).to(cd)
+    wt = bp["temporal"]["w"][:, 0].to(cd)
+    bt = bp["temporal"]["b"].to(torch.float32)
+    new_state = {}
+    s1, t1, new_state["bn1"] = bn_affine_train(bp["bn1"], bs["bn1"], x)
+    # a fixed graph has no trained adjacency: skip the backward's y_k pass
+    need_da = "A" in bp or "mask" in bp
+    z = spatial_block(x, s1, t1, bp["spatial"]["w"].to(cd),
+                      bp["spatial"]["b"].to(cd), a, relu1=residual,
+                      need_da=need_da)
+    acc = stat_dtype(x)
+    if residual:
+        s2, t2, new_state["bn2"] = bn_affine_train(bp["bn2"], bs["bn2"], z)
+        u = temporal_block(z, s2, t2, wt, bt, stride=stride, relu2=True)
+        if "residual_proj" in bp:
+            rp = bp["residual_proj"]
+            xs = x[:, :, ::stride] if stride != 1 else x
+            short = ((xs.to(acc) @ rp["w"].to(cd).to(acc)).to(cd)
+                     + rp["b"].to(cd))
+        else:
+            short = x
+        out = torch.relu(u.to(acc) + short.to(acc)).to(cd)
+    else:
+        c_out = wt.shape[-1]
+        ident_s = torch.ones(c_out, dtype=torch.float32, device=x.device)
+        u = temporal_block(z, ident_s, torch.zeros_like(ident_s), wt, bt,
+                           stride=stride, relu2=False)
+        out, new_state["bn2"] = batchnorm_train(bp["bn2"], bs["bn2"], u)
+        out = torch.relu(out)
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("dropout_rate > 0 in train mode needs a "
+                             "generator")
+        out = dropout(out, dropout_rate, generator=generator)
+    return out, new_state
+
+
+def hybrid_fused_set(cfg) -> frozenset:
+    """The block indices the hybrid runs fused: ``fused_blocks`` if given,
+    else the ``[fused_from, n)`` suffix."""
+    if cfg.fused_blocks is not None:
+        return frozenset(cfg.fused_blocks)
+    return frozenset(range(cfg.fused_from, len(cfg.plan)))
+
+
+def _train_forward(model, params: dict, state: dict, x: torch.Tensor,
+                   fused_set, generator) -> tuple[torch.Tensor, dict]:
+    cfg = model.config
+    cd = cfg.compute_dtype
+    h, layout = x.to(cd or cfg.dtype), "ntvc"
+    new_blocks = []
+    for i, (_, stride) in enumerate(cfg.plan):
+        want = "vntc" if i in fused_set else "ntvc"
+        if want != layout:
+            h = h.permute((2, 0, 1, 3) if want == "vntc" else (1, 2, 0, 3))
+            h = h.contiguous()
+            layout = want
+        if want == "vntc":
+            h, s = block_forward_fused_train(
+                params["blocks"][i], state["blocks"][i], h, model.adjacency,
+                stride=stride, residual=cfg.residual,
+                dropout_rate=cfg.dropout_rate, generator=generator)
+        else:
+            h, s = block_forward_train(
+                _cast_tree(params["blocks"][i], cd) if cd else
+                params["blocks"][i], state["blocks"][i], h,
+                model.adjacency, stride=stride, residual=cfg.residual,
+                compute_dtype=cd, dropout_rate=cfg.dropout_rate,
+                generator=generator)
+        new_blocks.append(s)
+    pooled = h.to(stat_dtype(h)).mean(dim=(0, 2) if layout == "vntc"
+                                      else (1, 2))
+    logits = linear(_cast_tree(params["fc"], h.dtype), pooled.to(h.dtype))
+    if cfg.final_softmax:
+        logits = torch.softmax(logits, dim=-1)
+    return logits, {"blocks": new_blocks}
+
+
+def fused_train_forward(model, params: dict, state: dict, x: torch.Tensor, *,
+                        generator: torch.Generator | None = None
+                        ) -> tuple[torch.Tensor, dict]:
+    """Train logits and new BN state with every block on the fused ops."""
+    return _train_forward(model, params, state, x,
+                          frozenset(range(len(model.config.plan))), generator)
+
+
+def hybrid_train_forward(model, params: dict, state: dict, x: torch.Tensor,
+                         *, generator: torch.Generator | None = None
+                         ) -> tuple[torch.Tensor, dict]:
+    """Train logits and new BN state: the blocks of
+    :func:`hybrid_fused_set` on the fused ops, the rest on the op chain."""
+    return _train_forward(model, params, state, x,
+                          hybrid_fused_set(model.config), generator)

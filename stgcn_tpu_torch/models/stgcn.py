@@ -17,7 +17,14 @@ adjacency, as a buffer, in ``"fixed"`` mode.
 
 ``forward`` is the eval forward on the op path (:mod:`stgcn_tpu_torch.ops`),
 the oracle of the fused forward in :mod:`stgcn_tpu_torch.models.fused`.
-Training belongs to a later slice of the port.
+
+Training works on parameter dictionaries in the JAX package's layout, as
+its ``STGCN.init``/``apply`` do: :meth:`STGCN.init_params` draws them
+(mask mode keeps ``mask`` apart from the fixed adjacency, since Adam walks
+the mask), and :meth:`STGCN.apply` runs the train forward on the op path,
+the fused ops or the hybrid (``block_impl``), returning ``(logits,
+new_state)``.  ``stgcn_tpu_torch.models.convert.state_dict_from_params``
+folds trained dictionaries back into the reference-named state dict.
 """
 
 from __future__ import annotations
@@ -31,8 +38,13 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from stgcn_tpu_torch.graph import adjacency as adj
-from stgcn_tpu_torch.ops.block import ADJACENCY_MODES, block_forward
+from stgcn_tpu_torch.ops.block import (
+    ADJACENCY_MODES,
+    block_forward,
+    block_forward_train,
+)
 from stgcn_tpu_torch.ops.common import global_avg_pool, linear
+from stgcn_tpu_torch.tree import tree_map
 
 # (c_out, temporal stride) per block.
 DEFAULT_PLAN: tuple[tuple[int, int], ...] = (
@@ -51,10 +63,18 @@ PLAN_9: tuple[tuple[int, int], ...] = (
 
 @dataclasses.dataclass(frozen=True)
 class STGCNConfig:
-    """The fields of ``stgcn_tpu.models.stgcn.STGCNConfig`` the eval path
-    reads.  ``dtype`` is the parameter and activation dtype;
+    """The fields of ``stgcn_tpu.models.stgcn.STGCNConfig`` the eval and
+    train paths read.  ``dtype`` is the parameter and activation dtype;
     ``compute_dtype`` (e.g. ``torch.bfloat16``) the dtype activations and
-    weights are rounded to, ``None`` meaning ``dtype``."""
+    weights are rounded to, ``None`` meaning ``dtype``.
+
+    Train fields: ``dropout_rate`` after each block's outer ReLU;
+    ``dropout_impl`` "exact" (the JAX package's "bits8" is not ported);
+    ``mask_jitter`` for the initial mask / trained adjacency;
+    ``block_impl`` "ops" (op chain), "fused" (every block on the fused
+    spatial and temporal ops) or "hybrid" (the blocks ``fused_blocks``, else
+    ``[fused_from, n)``, fused, the rest on the op chain).
+    """
 
     c_in: int = 2
     num_classes: int = 6
@@ -68,6 +88,12 @@ class STGCNConfig:
     plan: tuple[tuple[int, int], ...] = DEFAULT_PLAN
     dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype | None = None
+    mask_jitter: float = 0.0
+    dropout_rate: float = 0.0
+    dropout_impl: str = "exact"
+    block_impl: str = "ops"
+    fused_from: int = 4
+    fused_blocks: tuple[int, ...] | None = None
 
     def __post_init__(self):
         if self.adjacency_mode not in ADJACENCY_MODES:
@@ -75,6 +101,27 @@ class STGCNConfig:
                              f"{ADJACENCY_MODES}, got {self.adjacency_mode!r}")
         if self.gamma % 2 != 1:
             raise ValueError(f"gamma must be odd, got {self.gamma}")
+        if self.dropout_impl not in ("exact", "bits8"):
+            raise ValueError(f"dropout_impl must be 'exact' or 'bits8', got "
+                             f"{self.dropout_impl!r}")
+        if self.dropout_impl == "bits8":
+            raise NotImplementedError("dropout_impl='bits8' is not ported; "
+                                      "use 'exact'")
+        if self.block_impl not in ("ops", "fused", "hybrid"):
+            raise ValueError(f"block_impl must be 'ops', 'fused' or "
+                             f"'hybrid', got {self.block_impl!r}")
+        if (self.block_impl == "hybrid" and self.fused_blocks is None
+                and not 0 <= self.fused_from <= len(self.plan)):
+            raise ValueError(f"fused_from must be in [0, {len(self.plan)}], "
+                             f"got {self.fused_from}")
+        if self.fused_blocks is not None:
+            fb = tuple(self.fused_blocks)
+            if sorted(set(fb)) != list(fb) or any(
+                    not 0 <= i < len(self.plan) for i in fb):
+                raise ValueError(
+                    f"fused_blocks must be sorted unique indices in "
+                    f"[0, {len(self.plan)}), got {self.fused_blocks}")
+            object.__setattr__(self, "fused_blocks", fb)
 
 
 def _uniform_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -176,9 +223,13 @@ class STGCNBlock(nn.Module):
         return p, {"bn1": self.batch_n.state(), "bn2": self.batch_n_2.state()}
 
 
-def _cast_tree(tree: dict, dtype: torch.dtype) -> dict:
-    return {k: _cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
-            for k, v in tree.items()}
+def _cast_tree(tree, dtype: torch.dtype):
+    return tree_map(lambda t: t.to(dtype), tree)
+
+
+def _detached(tree):
+    """Contiguous copies of every tensor, outside any autograd graph."""
+    return tree_map(lambda t: t.detach().contiguous().clone(), tree)
 
 
 class STGCN(nn.Module):
@@ -192,6 +243,7 @@ class STGCN(nn.Module):
                  distances: np.ndarray | None = None, *, seed: int = 0):
         super().__init__()
         self.config = config
+        self.distances = distances
         a_np = adj.get_normalized_adjacency(
             config.strategy, config.d, mode=config.norm_mode,
             distances=distances)
@@ -246,3 +298,97 @@ class STGCN(nn.Module):
         if cfg.final_softmax:
             logits = torch.softmax(logits, dim=-1)
         return logits
+
+    def init_params(self, seed: int = 0) -> tuple[dict, dict]:
+        """Fresh ``(params, state)`` dictionaries in the JAX package's layout
+        (``{"blocks": [...], "fc": {...}}``), float tensors on the CPU.
+
+        The weights are those of ``STGCN(self.config, seed=seed)``.  With
+        ``j = 2*(randn - 0.5)*mask_jitter``, drawn from a generator of its
+        own, mask mode's ``mask`` is ``1 + j`` and reference mode's ``A`` is
+        ``adjacency * (1 + j)``, as at ``stgcn_tpu/ops/block.py:71-81``;
+        fixed mode has neither.
+        """
+        cfg = self.config
+        fresh = STGCN(cfg, self.distances, seed=seed)
+        jit_gen = torch.Generator().manual_seed(
+            int(np.random.SeedSequence([seed, 1]).generate_state(1)[0]))
+        a = fresh.adjacency
+        blocks_p, blocks_s = [], []
+        for block in fresh.conv:
+            p, s = block.params_and_state()
+            p = _detached(p)
+            del p["A"]
+            jitter = 0.0
+            if cfg.mask_jitter:
+                jitter = 2.0 * (torch.randn(a.shape, generator=jit_gen,
+                                            dtype=a.dtype) - 0.5
+                                ) * cfg.mask_jitter
+            if cfg.adjacency_mode == "reference":
+                p["A"] = a * (1.0 + jitter)
+            elif cfg.adjacency_mode == "mask":
+                p["mask"] = torch.ones_like(a) + jitter
+            blocks_p.append(p)
+            blocks_s.append({k: {n: v.detach().to(torch.float32).clone()
+                                 for n, v in d.items()}
+                             for k, d in s.items()})
+        fc = _detached(fresh.head_params())
+        return {"blocks": blocks_p, "fc": fc}, {"blocks": blocks_s}
+
+    def apply(self, params: dict, state: dict, x: torch.Tensor, *,
+              train: bool = False, generator: torch.Generator | None = None,
+              time_mask: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, dict]:
+        """Forward of the parameter dictionaries: ``(logits, new_state)``.
+
+        ``train=True`` uses batch statistics, returns new running
+        statistics and applies dropout from ``generator`` (on ``x``'s
+        device); ``block_impl`` picks the op chain, the fused ops or the
+        hybrid.  ``train=False`` runs the op path whatever ``block_impl``
+        says (the fused eval forward of parameter dictionaries is not ported)
+        and returns ``state`` unchanged.  ``time_mask`` works on the op path
+        only, as in the JAX package's train step.
+        """
+        cfg = self.config
+        if train and cfg.block_impl != "ops":
+            if time_mask is not None:
+                raise ValueError(
+                    f"block_impl={cfg.block_impl!r} cannot train with a "
+                    "time_mask; use block_impl='ops' for masked training")
+            from stgcn_tpu_torch.models.fused import (
+                fused_train_forward,
+                hybrid_train_forward,
+            )
+
+            forward = (hybrid_train_forward if cfg.block_impl == "hybrid"
+                       else fused_train_forward)
+            return forward(self, params, state, x, generator=generator)
+        if train and cfg.dropout_rate > 0 and generator is None:
+            raise ValueError("training with dropout needs a generator")
+        cd = cfg.compute_dtype
+        if cd is not None:
+            params = _cast_tree(params, cd)
+        h = x.to(cd or cfg.dtype)
+        if time_mask is not None:
+            h = h * time_mask[:, :, None, None].to(h.dtype)
+        new_blocks = []
+        for i, (_, stride) in enumerate(cfg.plan):
+            bp, bs = params["blocks"][i], state["blocks"][i]
+            if train:
+                h, s = block_forward_train(
+                    bp, bs, h, self.adjacency, stride=stride,
+                    residual=cfg.residual, compute_dtype=cd,
+                    dropout_rate=cfg.dropout_rate, generator=generator)
+                new_blocks.append(s)
+            else:
+                h = block_forward(bp, bs, h, self.adjacency, stride=stride,
+                                  residual=cfg.residual, compute_dtype=cd)
+            if time_mask is not None:
+                if stride != 1:
+                    time_mask = time_mask[:, ::stride]
+                h = h * time_mask[:, :, None, None].to(h.dtype)
+        pooled = global_avg_pool(h, time_mask)
+        logits = linear(params["fc"], pooled)
+        if cfg.final_softmax:
+            logits = torch.softmax(logits, dim=-1)
+        return logits, ({"blocks": new_blocks} if train else state)

@@ -1,13 +1,16 @@
-"""The ST-GCN unit in eval mode (port of ``stgcn_tpu/ops/block.py:92-210``).
+"""The ST-GCN unit, eval and train mode (port of
+``stgcn_tpu/ops/block.py:92-210``).
 
-This is the op-path oracle that the fused block kernel is held against.
+This is the op-path oracle that the fused block kernels are held against.
 Behaviour follows the reference's ``SpatialTemporalConv``
 (src/network/st_graphconv.py:4-109):
 
 * non-residual order: BN -> spatial -> temporal -> BN -> ReLU;
 * residual order (full pre-activation): BN -> ReLU -> spatial -> BN -> ReLU
   -> temporal, plus a shortcut (identity when shapes match, strided 1x1
-  projection otherwise), then the outer ReLU.
+  projection otherwise), then the outer ReLU;
+* in train mode dropout follows the outer ReLU, and the BatchNorms use the
+  batch statistics and return new running statistics.
 
 Parameters are dictionaries of tensors in the JAX package's layout
 (``spatial.w`` is ``(C_in, K, C_out)``, ``temporal.w`` is
@@ -22,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from stgcn_tpu_torch.ops.batchnorm import batchnorm_eval
+from stgcn_tpu_torch.ops.batchnorm import batchnorm_eval, batchnorm_train
+from stgcn_tpu_torch.ops.common import dropout
 from stgcn_tpu_torch.ops.spatial_conv import spatial_conv
 from stgcn_tpu_torch.ops.temporal_conv import pointwise_conv, temporal_conv
 
@@ -63,3 +67,45 @@ def block_forward(params: dict, state: dict, x: torch.Tensor,
                           compute_dtype=compute_dtype)
         out = batchnorm_eval(params["bn2"], state["bn2"], h)
     return torch.relu(out)
+
+
+def block_forward_train(params: dict, state: dict, x: torch.Tensor,
+                        adjacency: torch.Tensor, *, stride: int = 1,
+                        residual: bool = False,
+                        compute_dtype: torch.dtype | None = None,
+                        dropout_rate: float = 0.0,
+                        generator: torch.Generator | None = None
+                        ) -> tuple[torch.Tensor, dict]:
+    """One train-mode ST-GCN unit: ``(N, T, V, C_in) -> (N, T', V, C_out)``.
+
+    Returns ``(out, new_state)``.  In mask mode the gradient lands on
+    ``params["mask"]`` through ``adjacency * mask``.
+    """
+    a = effective_adjacency(params, adjacency)
+    new_state = {}
+    h, new_state["bn1"] = batchnorm_train(params["bn1"], state["bn1"], x)
+    if residual:
+        h = torch.relu(h)
+    h = spatial_conv(params["spatial"], a, h, compute_dtype=compute_dtype)
+    if residual:
+        h, new_state["bn2"] = batchnorm_train(params["bn2"], state["bn2"], h)
+        h = temporal_conv(params["temporal"], torch.relu(h), stride=stride,
+                          compute_dtype=compute_dtype)
+        if "residual_proj" in params:
+            shortcut = pointwise_conv(params["residual_proj"], x,
+                                      stride=stride)
+        else:
+            shortcut = x
+        out = h + shortcut
+    else:
+        h = temporal_conv(params["temporal"], h, stride=stride,
+                          compute_dtype=compute_dtype)
+        out, new_state["bn2"] = batchnorm_train(params["bn2"], state["bn2"],
+                                                h)
+    out = torch.relu(out)
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("dropout_rate > 0 in train mode needs a "
+                             "generator")
+        out = dropout(out, dropout_rate, generator=generator)
+    return out, new_state

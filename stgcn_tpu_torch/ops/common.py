@@ -1,8 +1,10 @@
-"""Linear head and global pooling (port of ``stgcn_tpu/ops/common.py:49-76``).
+"""Dropout, linear head and global pooling (port of
+``stgcn_tpu/ops/common.py:17-76``).
 
-Counterparts of the reference's ``F.avg_pool2d`` global pool
+Counterparts of the reference's ``nn.Dropout`` (src/network/
+st_graphconv.py:53-58), ``F.avg_pool2d`` global pool
 (src/lightning_model.py:105) and ``nn.Linear`` classifier head
-(src/lightning_model.py:88).  Dropout belongs to the training slice.
+(src/lightning_model.py:88).
 """
 
 from __future__ import annotations
@@ -10,6 +12,23 @@ from __future__ import annotations
 import torch
 
 from stgcn_tpu_torch.ops.batchnorm import stat_dtype
+
+
+def dropout(x: torch.Tensor, rate: float, *, generator: torch.Generator,
+            train: bool = True) -> torch.Tensor:
+    """Inverted dropout, torch's train-time scaling by ``1/(1-rate)``.
+
+    The keep mask is drawn from ``generator``, which must live on ``x``'s
+    device.  This is the JAX package's ``impl="exact"``; its ``"bits8"``
+    variant is not ported.  The two packages' random bits differ, so the
+    masks agree in distribution only.
+    """
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 def global_avg_pool(x: torch.Tensor,

@@ -1,0 +1,67 @@
+"""Train state: parameters, BN state, optimizer, step and seed (port of
+``stgcn_tpu/training/train_state.py``).
+
+The JAX package keeps an immutable pytree; here the parameter dictionaries
+hold leaf tensors with ``requires_grad`` that the optimizer updates in
+place, and the train step replaces ``model_state`` and advances ``step``.
+Dropout draws from a generator made per step from ``(seed, step)``, which
+stands where the JAX step uses ``fold_in(rng, step)``; the two frameworks'
+random bits differ.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from stgcn_tpu_torch import resolve_device
+from stgcn_tpu_torch.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: dict
+    model_state: dict
+    optimizer: torch.optim.Optimizer
+    step: int
+    seed: int
+
+    def leaves(self) -> list[torch.Tensor]:
+        return tree_leaves(self.params)
+
+
+def create_train_state(model, optimizer, seed: int = 0, *,
+                       device: str | torch.device | None = None
+                       ) -> TrainState:
+    """Fresh weights from ``model.init_params(seed)`` on ``device`` (CUDA
+    unless ``"cpu"`` is asked for), and the optimizer over their leaves.
+
+    ``optimizer`` is a factory such as
+    :func:`stgcn_tpu_torch.training.optimizers.adam`.  The model's constant
+    adjacency moves to the same device.
+    """
+    dev = resolve_device(device)
+    model.to(dev)
+    return train_state_from(*model.init_params(seed), optimizer, seed, dev)
+
+
+def train_state_from(params: dict, state: dict, optimizer, seed: int,
+                     device: torch.device) -> TrainState:
+    """A train state over copies of given dictionaries (for instance JAX
+    weights through ``convert.params_from_jax``), at step 0."""
+    params = tree_map(lambda t: t.detach().to(device, copy=True), params)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    state = tree_map(lambda t: t.detach().to(device, copy=True), state)
+    return TrainState(params=params, model_state=state,
+                      optimizer=optimizer(tree_leaves(params)), step=0,
+                      seed=seed)
+
+
+def step_generator(seed: int, step: int,
+                   device: torch.device) -> torch.Generator:
+    """The dropout generator of one step, on ``device``."""
+    key = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(key)

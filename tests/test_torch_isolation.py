@@ -2,8 +2,9 @@
 
 The GPU machine the port runs on has torch, numpy, scipy, einops, pytest and
 hypothesis, and no jax, jaxlib, pandas, ml_dtypes or optax.  A subprocess
-recreates that with an import hook and serves a prediction on the CPU; an
-AST scan checks every module of the port and ``chip_smoke.py``.
+recreates that with an import hook, serves a prediction and takes one
+hybrid train step on the CPU; an AST scan checks every module of the port
+and ``chip_smoke.py``.
 """
 
 import ast
@@ -25,10 +26,23 @@ SCRIPT = textwrap.dedent("""
 
     FORBIDDEN = {forbidden!r}
 
+    import importlib.machinery
+
+    class Absent:
+        # loader of a blocked module: importing it fails as for a package
+        # that is not installed
+        def create_module(self, spec):
+            raise ModuleNotFoundError("blocked " + spec.name)
+
+        def exec_module(self, module):
+            raise ModuleNotFoundError("blocked " + module.__name__)
+
     class Block:
+        # a spec without an origin, so probes such as torch._dynamo's
+        # find_spec scan of optional libraries see no installed package
         def find_spec(self, name, path=None, target=None):
             if name.split(".")[0] in FORBIDDEN:
-                raise ImportError("blocked " + name)
+                return importlib.machinery.ModuleSpec(name, Absent())
             return None
 
     sys.meta_path.insert(0, Block())
@@ -48,6 +62,20 @@ SCRIPT = textwrap.dedent("""
     out = pred.predict([rng.normal(0, 1, (t, 25, 2)).astype(np.float32)
                         for t in (40, 70, 90)])
     assert out.probs.shape == (3, 6), out.probs.shape
+
+    import torch
+    from stgcn_tpu_torch.training.loop import make_train_step
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import create_train_state
+
+    cfg = STGCNConfig(plan=((8, 1), (16, 2)), strategy=Strategy.DISTANCE,
+                      residual=True, dropout_rate=0.5, block_impl="hybrid",
+                      fused_blocks=(1,))
+    train_model = STGCN(cfg)
+    ts = create_train_state(train_model, adam(1e-3), device="cpu")
+    x = torch.from_numpy(rng.normal(0, 1, (2, 16, 25, 2)).astype(np.float32))
+    metrics = make_train_step(train_model)(ts, x, torch.tensor([1, 4]))
+    assert bool(torch.isfinite(metrics["loss"])), metrics
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
     assert not loaded, loaded
     print("ISOLATED-OK")

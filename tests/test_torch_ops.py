@@ -232,7 +232,7 @@ class TestKernelLaunchPlan:
     def test_library_name_follows_sources(self):
         path = _build.library_path()
         assert path.parent == _build.BUILD_DIR
-        assert re.fullmatch(r"libblock_eval-[0-9a-f]{64}\.so", path.name)
+        assert re.fullmatch(r"libstgcn_kernels-[0-9a-f]{64}\.so", path.name)
         assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
