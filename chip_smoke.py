@@ -35,7 +35,26 @@ non-zero exit code:
 8. train_time   -- CUDA-event times of the train step (kernel path and op
                    path) and of each fused block's ops, forward and
                    backward, beside their plain versions and bounds.
-9. kernels      -- one line per kernel with its launches, error, times and
+9. conv_kernel  -- the standalone-conv routes' ``spatial_conv`` and
+                   ``temporal_conv`` ops, forward and backward kernels, in
+                   both layouts (V-major and (N, T, V, C)), against their
+                   plain versions at the shapes of DEFAULT_PLAN's ten blocks
+                   at B=64, T=304 (float32 tightly, bfloat16 against a
+                   float32 oracle), plus a fixed graph.
+10. route_train -- the train step of route A (``layout="vntc"``) and of
+                   route B (``spatial_impl``/``temporal_impl="pallas"``):
+                   bench.py's configuration on the op chain; 10 launches of
+                   each conv op's forward and backward a step; finite loss
+                   and weights, moving BN statistics; the float32 gradient
+                   against the float32 and float64 op paths; the loss
+                   falling on a repeated batch; the bf16 eval forward's
+                   argmax against the float32 op path's, with and without
+                   a time mask.
+11. route_time  -- CUDA-event times of both routes' train steps and the op
+                   path's, and of each conv op per block shape, direction
+                   and layout beside its plain version, its bound and
+                   cuDNN's conv (the temporal op).
+12. kernels     -- one line per kernel with its launches, error, times and
                    bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -164,40 +183,70 @@ GRAD_REL = 1e-2
 GRAD_VS_F64 = 3.0
 
 
-def fused_block_shapes() -> list[tuple[int, int, int, int]]:
-    """``(c_in, c_out, stride, t_in)`` of DEFAULT_PLAN's fused blocks."""
+def plan_block_shapes() -> list[tuple[int, int, int, int]]:
+    """``(c_in, c_out, stride, t_in)`` of DEFAULT_PLAN's ten blocks."""
     from stgcn_tpu_torch.models.stgcn import DEFAULT_PLAN
 
     shapes, c_prev, t = [], 2, T
-    for i, (c_out, stride) in enumerate(DEFAULT_PLAN):
-        if i in FUSED_BLOCKS:
-            shapes.append((c_prev, c_out, stride, t))
+    for c_out, stride in DEFAULT_PLAN:
+        shapes.append((c_prev, c_out, stride, t))
         c_prev, t = c_out, (t - 1) // stride + 1
     return shapes
 
 
-def spatial_cost(n, t, c_in, c_out, k=2, itemsize=2):
+def bench_config(**kw):
+    """bench.py's train configuration (full-width DEFAULT_PLAN, distance
+    partitioning, residual, dropout 0.5, bf16), with ``kw`` replaced."""
+    import torch
+
+    from stgcn_tpu_torch.graph.adjacency import Strategy
+    from stgcn_tpu_torch.models.stgcn import DEFAULT_PLAN, STGCNConfig
+
+    base = dict(plan=DEFAULT_PLAN, strategy=Strategy.DISTANCE, d=1,
+                residual=True, dropout_rate=0.5,
+                compute_dtype=torch.bfloat16)
+    return STGCNConfig(**{**base, **kw})
+
+
+def fused_block_shapes() -> list[tuple[int, int, int, int]]:
+    """``(c_in, c_out, stride, t_in)`` of DEFAULT_PLAN's fused blocks."""
+    return [s for i, s in enumerate(plan_block_shapes()) if i in FUSED_BLOCKS]
+
+
+def spatial_cost(n, t, c_in, c_out, k=2, itemsize=2, affine=True):
     """((ops, bytes) forward, (ops, bytes) backward) of the spatial op, the
     operations counted as the JAX CostEstimates do
-    (stgcn_tpu/kernels/block_fused.py:641-644, :715-719), need_da on."""
+    (stgcn_tpu/kernels/block_fused.py:641-644, :715-719), need_da on;
+    ``affine=False`` for the plain graph conv (spatial_conv.py:139, :259)."""
     m = n * t
     stage1 = 2 * m * V * c_in * k * c_out
     agg = 2 * m * k * V * V * c_out
     weights = (c_in * k * c_out + k * c_out + k * V * V) * itemsize
-    weights += 2 * c_in * 4                     # f32 affine
+    if affine:
+        weights += 2 * c_in * 4                 # f32 affine
     x_b, z_b = m * V * c_in * itemsize, m * V * c_out * itemsize
     return ((stage1 + agg, x_b + z_b + weights),
             (3 * stage1 + 2 * agg, 2 * x_b + z_b + 2 * weights))
 
 
-def temporal_cost(n, t, c, stride, gamma=9, itemsize=2):
+def temporal_cost(n, t, c, stride, gamma=9, itemsize=2, affine=True):
     """((ops, bytes) forward, (ops, bytes) backward) of the temporal op
-    (block_fused.py:1066-1069, :1126-1129)."""
+    (block_fused.py:1066-1069, :1126-1129); ``affine=False`` for the plain
+    temporal conv, whose only float32 vector is the bias."""
     t_out = (t - 1) // stride + 1
     ops = 2 * n * t_out * V * gamma * c * c
-    weights = gamma * c * c * itemsize + 3 * c * 4
+    weights = gamma * c * c * itemsize + (3 if affine else 1) * c * 4
     z_b, u_b = n * t * V * c * itemsize, n * t_out * V * c * itemsize
     return (ops, z_b + u_b + weights), (2 * ops, 2 * z_b + u_b + 2 * weights)
+
+
+def bound_ms(cost, peak_flops, peak_bytes) -> dict:
+    """The least time for ``(ops, bytes)``: the larger of the operation
+    and byte times, and which of the two it is."""
+    ops, nbytes = cost
+    t_ops, t_bytes = ops / peak_flops * 1e3, nbytes / peak_bytes * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), ops_ms=t_ops,
+                bytes_ms=t_bytes, gflop=ops / 1e9, mbytes=nbytes / 1e6)
 
 
 def random_spatial(gen, n, t, c_in, c_out, dev):
@@ -230,28 +279,37 @@ def as_dtype(kw: dict, dt, acts=("x", "z", "w", "b", "a", "wt")) -> dict:
     return {k: v.to(dt) if k in acts else v for k, v in kw.items()}
 
 
-def check_op(name, direction, got, want, dt, **case) -> dict:
+def check_op(name, direction, got, want, dt, phase="train_kernel",
+             allclose=False, **case) -> dict:
     """Max error of each output against the oracle, within the stated
-    tolerance; raises if any is outside it."""
+    tolerance; raises if any is outside it.  ``allclose`` holds a float32
+    output elementwise (rtol F32_RTOL, atol F32_ATOL) instead of against
+    its largest value."""
     import torch
 
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
+    elementwise = allclose and dt == torch.float32
     rel = F32_TRAIN_REL if dt == torch.float32 else BF16_REL
     worst = {"max_abs_err": 0.0, "max_rel_err": 0.0}
     for g, w in zip(got, want):
         err = (g.float() - w.float()).abs().max().item()
         scale = w.float().abs().max().item()
-        if err > rel * max(scale, 1e-30):
+        ok = (torch.allclose(g.float(), w.float(), rtol=F32_RTOL,
+                             atol=F32_ATOL) if elementwise
+              else err <= rel * max(scale, 1e-30))
+        if not ok:
             raise AssertionError(f"{name} {direction} disagrees with its "
-                                 f"plain version: {case}, {err} > {rel} * "
-                                 f"{scale}")
+                                 f"plain version: {case}, error {err}, "
+                                 f"largest value {scale}")
         worst["max_abs_err"] = max(worst["max_abs_err"], err)
         worst["max_rel_err"] = max(worst["max_rel_err"],
                                    err / max(scale, 1e-30))
-    emit("train_kernel", op=name, direction=direction,
+    tol = (f"allclose rtol={F32_RTOL} atol={F32_ATOL}" if elementwise
+           else f"max_abs_err <= {rel} * max|oracle| per output")
+    emit(phase, op=name, direction=direction,
          dtype=str(dt).removeprefix("torch."), **case, **worst,
-         tolerance=f"max_abs_err <= {rel} * max|oracle| per output", ok=True)
+         tolerance=tol, ok=True)
     return worst
 
 
@@ -335,14 +393,13 @@ def train_phase(dev, gen, peak_flops, peak_bytes) -> dict:
     step and per-op times.  Returns what the kernels line needs."""
     import torch
 
-    from stgcn_tpu_torch.graph.adjacency import Strategy
     from stgcn_tpu_torch.kernels import spatial_block as sb
     from stgcn_tpu_torch.kernels import temporal_block as tb
     from stgcn_tpu_torch.models.convert import (
         params_from_jax,
         params_to_numpy,
     )
-    from stgcn_tpu_torch.models.stgcn import DEFAULT_PLAN, STGCN, STGCNConfig
+    from stgcn_tpu_torch.models.stgcn import STGCN
     from stgcn_tpu_torch.training.loop import make_train_step
     from stgcn_tpu_torch.training.metrics import cross_entropy
     from stgcn_tpu_torch.training.optimizers import adam
@@ -351,10 +408,7 @@ def train_phase(dev, gen, peak_flops, peak_bytes) -> dict:
         train_state_from,
     )
 
-    cfg = STGCNConfig(plan=DEFAULT_PLAN, strategy=Strategy.DISTANCE, d=1,
-                      residual=True, dropout_rate=0.5,
-                      compute_dtype=torch.bfloat16, block_impl="hybrid",
-                      fused_blocks=FUSED_BLOCKS)
+    cfg = bench_config(block_impl="hybrid", fused_blocks=FUSED_BLOCKS)
     model = STGCN(cfg, seed=SEED)
     ts = create_train_state(model, adam(1e-3), seed=SEED)
     state0 = [{k: v["mean"].clone() for k, v in b.items()}
@@ -551,6 +605,414 @@ def train_kernel_entry(name, source, replaces, launches, errors,
         # no single PyTorch call computes the affine(+ReLU) with the graph
         # conv, or with the temporal conv, and their gradients
         "library_ms": None,
+        **parts,
+    }
+
+
+# ---- the standalone-conv routes --------------------------------------------
+# route A: the V-major route; route B: (N, T, V, C) on the standalone kernels
+ROUTES = {"A": dict(layout="vntc"),
+          "B": dict(spatial_impl="pallas", temporal_impl="pallas")}
+ROUTE_STEPS = 2      # full-width steps of each route on the main path
+EVAL_BATCHES = 4     # batches of B sequences in each argmax check
+CONV_OPS = ("spatial_conv", "temporal_conv")
+LAYOUTS = {"vntc": True, "ntvc": False}      # layout name -> vmajor
+
+
+def conv_counters() -> dict:
+    from stgcn_tpu_torch.kernels import spatial_conv as sc
+    from stgcn_tpu_torch.kernels import temporal_conv as tc
+
+    return {"spatial_conv.forward": sc.spatial_conv_forward,
+            "spatial_conv.backward": sc.spatial_conv_backward,
+            "temporal_conv.forward": tc.temporal_conv_forward,
+            "temporal_conv.backward": tc.temporal_conv_backward}
+
+
+def random_conv(gen, op, ci, co, stride, t, vmajor, dev):
+    """Inputs of one conv op at a block's shape in one layout, float32, and
+    a cotangent of its output."""
+    import torch
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    if op == "spatial_conv":
+        x = r(*((V, B * t, ci) if vmajor else (B, t, V, ci)))
+        args = dict(x=x, w=r(ci, 2, co, scale=ci ** -0.5),
+                    b=r(2, co, scale=0.1),
+                    a=torch.rand(2, V, V, generator=gen, device=dev) * 0.3)
+        return args, r(*x.shape[:-1], co)
+    t_out = (t - 1) // stride + 1
+    args = dict(x=r(*((V * B, t, co) if vmajor else (B, t, V, co))),
+                w=r(9, co, co, scale=(9 * co) ** -0.5), b=r(co, scale=0.1))
+    return args, r(*((V * B, t_out, co) if vmajor else (B, t_out, V, co)))
+
+
+def conv_fns(op, vmajor, stride, need_da=True) -> dict:
+    """direction -> (kernel, plain version) of one op in one layout, each a
+    function of (inputs, cotangent)."""
+    from stgcn_tpu_torch.kernels import spatial_conv as sc
+    from stgcn_tpu_torch.kernels import temporal_conv as tc
+
+    if op == "spatial_conv":
+        bw = dict(vmajor=vmajor, need_da=need_da)
+        return {
+            "forward": (
+                lambda a, g: sc.spatial_conv_forward(**a, vmajor=vmajor),
+                lambda a, g: sc.spatial_conv_forward_reference(
+                    **a, vmajor=vmajor)),
+            "backward": (
+                lambda a, g: sc.spatial_conv_backward(
+                    a["x"], g, a["w"], a["b"], a["a"], **bw),
+                lambda a, g: sc.spatial_conv_backward_reference(
+                    a["x"], g, a["w"], a["b"], a["a"], **bw))}
+    fl = dict(stride=stride, vmajor=vmajor)
+    return {
+        "forward": (lambda a, g: tc.temporal_conv_forward(**a, **fl),
+                    lambda a, g: tc.temporal_conv_forward_reference(**a, **fl)),
+        "backward": (
+            lambda a, g: tc.temporal_conv_backward(a["x"], g, a["w"], a["b"],
+                                                   **fl),
+            lambda a, g: tc.temporal_conv_backward_reference(
+                a["x"], g, a["w"], a["b"], **fl))}
+
+
+def library_fns(args, g, vmajor, stride) -> dict:
+    """direction -> one PyTorch call computing the temporal conv (cuDNN):
+    ``conv2d`` forward and ``aten.convolution_backward`` on NCHW views of
+    the activations in channels_last, which need no copy."""
+    import torch
+    import torch.nn.functional as F
+
+    def nchw(t):        # (N, T, V, C) or (R, T, C) -> channels_last NCHW
+        return (t.unsqueeze(2) if vmajor else t).permute(0, 3, 1, 2)
+
+    x, gv = nchw(args["x"]), nchw(g)
+    w = args["w"].permute(2, 1, 0).unsqueeze(-1).contiguous(
+        memory_format=torch.channels_last)          # (C_out, C_in, 9, 1)
+    pad = (w.shape[2] - 1) // 2
+    return {
+        "forward": lambda: F.conv2d(x, w, args["b"], stride=(stride, 1),
+                                    padding=(pad, 0)),
+        "backward": lambda: torch.ops.aten.convolution_backward(
+            gv, x, w, [w.shape[0]], [stride, 1], [pad, 0], [1, 1], False,
+            [0, 0], 1, [True, True, True])}
+
+
+def conv_kernel_phase(dev, gen) -> dict:
+    """Each conv op's forward and backward kernel against its plain version
+    at the shapes of DEFAULT_PLAN's ten blocks, in both layouts, float32
+    and bfloat16, plus a fixed graph (no dA); returns the largest bf16
+    errors per (op, direction)."""
+    import torch
+
+    cases = []
+    for ci, co, stride, t in sorted(set(plan_block_shapes())):
+        cases += [("spatial_conv", ci, co, 1, t, True),
+                  ("temporal_conv", co, co, stride, t, True)]
+    cases.append(("spatial_conv", 64, 64, 1, T, False))     # fixed graph
+    worst: dict = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for layout, vmajor in LAYOUTS.items():
+            for op, ci, co, stride, t, need_da in cases:
+                args, g = random_conv(gen, op, ci, co, stride, t, vmajor, dev)
+                args = {k: v.to(dt) for k, v in args.items()}
+                g = g.to(dt)
+                oracle = {k: v.float() for k, v in args.items()}
+                case = dict(layout=layout, c_in=ci, c_out=co, stride=stride,
+                            t_in=t)
+                if op == "spatial_conv":
+                    case["need_da"] = need_da
+                for direction, (kernel, plain) in conv_fns(
+                        op, vmajor, stride, need_da).items():
+                    got = kernel(args, g)
+                    torch.cuda.synchronize()
+                    res = check_op(op, direction, got, plain(oracle, g.float()),
+                                   dt, phase="conv_kernel",
+                                   allclose=direction == "forward", **case)
+                    if dt == torch.bfloat16:
+                        cur = worst.setdefault((op, direction), dict.fromkeys(
+                            ("max_abs_err", "max_rel_err"), 0.0))
+                        for k in cur:
+                            cur[k] = max(cur[k], res[k])
+    return worst
+
+
+def randomize_state(state: dict, gen) -> dict:
+    """BN running statistics away from their fresh values (see
+    randomize_batchnorm), for eval checks of parameter dictionaries."""
+    import torch
+
+    for block in state["blocks"]:
+        for bn in block.values():
+            c = bn["mean"].shape[0]
+            bn["mean"] = torch.randn(c, generator=gen) * 0.3
+            bn["var"] = torch.rand(c, generator=gen) * 1.5 + 0.5
+    return state
+
+
+def route_train_phase(dev, gen) -> dict:
+    """Each route's train step on the main path, then its checks: launch
+    counts, finite values, moving BN statistics, the float32 gradient
+    against the float32 and float64 op paths, a falling loss and the
+    argmax agreement of its bf16 eval forward with the float32 op path.
+    Returns the main paths' launch counts per route."""
+    import torch
+
+    from stgcn_tpu_torch.models.convert import (
+        params_from_jax,
+        params_to_numpy,
+    )
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.training.loop import make_train_step
+    from stgcn_tpu_torch.training.metrics import cross_entropy
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import (
+        create_train_state,
+        train_state_from,
+    )
+    from stgcn_tpu_torch.tree import tree_map
+
+    x = torch.randn(B, T, V, 2, generator=gen, device=dev)
+    y = torch.randint(0, 6, (B,), generator=gen, device=dev)
+    counters = conv_counters()
+
+    # the f32 and f64 op paths' gradients on one small batch, same weights
+    cfg32 = bench_config(compute_dtype=None, dropout_rate=0.0)
+    xs = torch.randn(4, 64, V, 2, generator=gen, device=dev)
+    ys = torch.randint(0, 6, (4,), generator=gen, device=dev)
+    init = [params_to_numpy(t) for t in STGCN(cfg32).init_params(SEED)]
+
+    def grads_of(cfg, dt):
+        m = STGCN(dataclasses.replace(cfg, dtype=dt)).to(dev)
+        ts1 = train_state_from(*params_from_jax(*init, dtype=dt), adam(),
+                               SEED, dev)
+        logits, _ = m.apply(ts1.params, ts1.model_state, xs.to(dt),
+                            train=True)
+        return torch.autograd.grad(cross_entropy(logits, ys), ts1.leaves())
+
+    def grad_diff(a, b):
+        return max((p.double() - q.double()).abs().max().item()
+                   for p, q in zip(a, b))
+
+    ops32, ops64 = grads_of(cfg32, torch.float32), grads_of(cfg32,
+                                                            torch.float64)
+    ops_vs_f64 = grad_diff(ops32, ops64)
+    grad_scale = max(g.abs().max().item() for g in ops32)
+
+    # eval: random weights, BN statistics moved, B-sequence batches with
+    # and without a time mask; the f32 op path's answers are the oracle
+    host = torch.Generator().manual_seed(SEED)
+    eval_params, eval_state = STGCN(cfg32).init_params(SEED)
+    eval_state = randomize_state(eval_state, host)
+    eval_params, eval_state = (tree_map(lambda t: t.to(dev), tr)
+                               for tr in (eval_params, eval_state))
+    batches = []
+    for _ in range(EVAL_BATCHES):
+        xb = torch.randn(B, T, V, 2, generator=gen, device=dev)
+        lengths = torch.randint(T // 8, T + 1, (B, 1), generator=gen,
+                                device=dev)
+        batches.append((xb, torch.arange(T, device=dev)[None] < lengths))
+    m_ops = STGCN(cfg32).to(dev)
+
+    def answers(model):
+        with torch.no_grad():
+            out = {}
+            for masked in (False, True):
+                logits = [model.apply(eval_params, eval_state, xb,
+                                      time_mask=mask if masked else None)[0]
+                          for xb, mask in batches]
+                if not all(bool(torch.isfinite(lg).all())
+                           and lg.shape == (B, 6) for lg in logits):
+                    raise AssertionError("eval logits are not finite or "
+                                         "have the wrong shape")
+                out[masked] = torch.cat([lg.argmax(-1) for lg in logits])
+            return out
+
+    oracle = answers(m_ops)
+    launches = {}
+    for route, kw in ROUTES.items():
+        cfg = bench_config(**kw)
+        model = STGCN(cfg, seed=SEED)
+        ts = create_train_state(model, adam(1e-3), seed=SEED)
+        state0 = [{k: v["mean"].clone() for k, v in b.items()}
+                  for b in ts.model_state["blocks"]]
+        step = make_train_step(model)
+
+        # ---- the main path: counts set to 0 just before, read after -----
+        for fn in counters.values():
+            fn.launches = 0
+        start = time.perf_counter()
+        losses = [float(step(ts, x, y)["loss"]) for _ in range(ROUTE_STEPS)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = {name: fn.launches for name, fn in counters.items()}
+        launches[route] = counts
+
+        finite = all(np.isfinite(losses)) and all(
+            bool(torch.isfinite(p).all()) for p in ts.leaves())
+        moved = all(not torch.equal(b[k]["mean"], s0[k])
+                    for b, s0 in zip(ts.model_state["blocks"], state0)
+                    for k in ("bn1", "bn2"))
+        per_step = len(cfg.plan)
+        ok = finite and moved and all(n == per_step * ROUTE_STEPS
+                                      for n in counts.values())
+        emit("route_train", route=route, config=kw, steps=ROUTE_STEPS,
+             losses=losses, seconds=seconds, launches=counts,
+             launches_per_step={k: v / ROUTE_STEPS
+                                for k, v in counts.items()},
+             finite=finite, bn_statistics_moved=moved, batch=B, frames=T,
+             dtype="bfloat16", ok=ok)
+        if not ok:
+            raise AssertionError(f"route {route}'s train step did not run "
+                                 f"{per_step} launches of each conv op a "
+                                 "step, or gave non-finite values, or left "
+                                 "the BN statistics where they were")
+        del ts
+
+        grads = grads_of(dataclasses.replace(cfg32, **kw), torch.float32)
+        grad_err = grad_diff(grads, ops32)
+        kernel_vs_f64 = grad_diff(grads, ops64)
+        m_fall = STGCN(dataclasses.replace(cfg, dropout_rate=0.0), seed=SEED)
+        ts_fall = create_train_state(m_fall, adam(1e-3), seed=SEED)
+        step_fall = make_train_step(m_fall)
+        fall = [float(step_fall(ts_fall, x, y)["loss"])
+                for _ in range(FALL_STEPS)]
+        del ts_fall
+        got = answers(m_fall)
+        agreement = {("masked" if k else "unmasked"): (
+            got[k] == oracle[k]).float().mean().item() for k in got}
+        ok = (grad_err <= GRAD_REL * grad_scale
+              and kernel_vs_f64 <= GRAD_VS_F64 * ops_vs_f64
+              and fall[-1] < fall[0]
+              and min(agreement.values()) >= ARGMAX_AGREEMENT)
+        emit("route_train", route=route,
+             f32_route_vs_ops_grad_max_abs_err=grad_err,
+             f32_ops_grad_max_abs=grad_scale,
+             f32_route_vs_f64_ops_grad_max_abs_err=kernel_vs_f64,
+             f32_ops_vs_f64_ops_grad_max_abs_err=ops_vs_f64,
+             repeated_batch_losses=fall,
+             eval_argmax_agreement_vs_f32_ops=agreement,
+             eval_sequences=EVAL_BATCHES * B,
+             tolerance=(f"grad max_abs_err <= {GRAD_REL} * max|ops "
+                        f"gradient| and route vs f64 <= {GRAD_VS_F64} * f32 "
+                        f"ops vs f64; last loss < first; agreement >= "
+                        f"{ARGMAX_AGREEMENT}"), ok=ok)
+        if not ok:
+            raise AssertionError(f"route {route}: the float32 gradient "
+                                 "disagrees with the op path's, or the loss "
+                                 "did not fall, or its eval answers disagree")
+    return launches
+
+
+def route_time_phase(dev, gen, peak_flops, peak_bytes) -> dict:
+    """CUDA-event ms of each route's train step and of the op path's, then
+    of each conv op's kernel, plain version and library call (cuDNN, the
+    temporal op only) per block shape, direction and layout, beside its
+    bound.  Returns the per-step sums per (op, layout, direction)."""
+    import torch
+
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.training.loop import make_train_step
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import create_train_state
+
+    x = torch.randn(B, T, V, 2, generator=gen, device=dev)
+    y = torch.randint(0, 6, (B,), generator=gen, device=dev)
+    step_ms = {}
+    for name, kw in (("route_A", ROUTES["A"]), ("route_B", ROUTES["B"]),
+                     ("op_path", {})):
+        model = STGCN(bench_config(**kw), seed=SEED)
+        ts = create_train_state(model, adam(1e-3), seed=SEED)
+        step = make_train_step(model)
+        step_ms[name] = cuda_time_ms(lambda: step(ts, x, y), reps=3)
+        del ts
+    shapes = plan_block_shapes()
+    totals: dict = {}
+    for ci, co, stride, t in dict.fromkeys(shapes):        # plan order
+        blocks = shapes.count((ci, co, stride, t))
+        row = {}
+        for layout, vmajor in LAYOUTS.items():
+            for op in CONV_OPS:
+                args, g = random_conv(gen, op, ci, co, stride, t, vmajor, dev)
+                args = {k: v.to(torch.bfloat16) for k, v in args.items()}
+                g = g.to(torch.bfloat16)
+                cost = (spatial_cost(B, t, ci, co, affine=False)
+                        if op == "spatial_conv"
+                        else temporal_cost(B, t, co, stride, affine=False))
+                lib = (library_fns(args, g, vmajor, stride)
+                       if op == "temporal_conv" else None)
+                fns = conv_fns(op, vmajor, stride)
+                for i, (direction, (kernel, plain)) in enumerate(fns.items()):
+                    entry = dict(
+                        ms=cuda_time_ms(lambda: kernel(args, g)),
+                        plain_ms=cuda_time_ms(lambda: plain(args, g)),
+                        library_ms=(cuda_time_ms(lib[direction]) if lib
+                                    else None),
+                        **bound_ms(cost[i], peak_flops, peak_bytes))
+                    row[f"{op}.{layout}.{direction}"] = entry
+                    tot = totals.setdefault((op, layout, direction), dict(
+                        ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                        ops_ms=0.0, bytes_ms=0.0))
+                    for key in tot:
+                        tot[key] += blocks * (entry[key] or 0.0)
+        emit("route_time", c_in=ci, c_out=co, stride=stride, t_in=t,
+             blocks=blocks, **row)
+    emit("route_time", **{f"{k}_step_ms": v for k, v in step_ms.items()},
+         **{f"{k}_sequences_per_s": B / v * 1e3 for k, v in step_ms.items()},
+         kernel_ms_per_step={".".join(k): v["ms"] for k, v in totals.items()},
+         plain_ms_per_step={".".join(k): v["plain_ms"]
+                            for k, v in totals.items()},
+         library_ms_per_step={".".join(k): v["library_ms"]
+                              for k, v in totals.items()
+                              if k[0] == "temporal_conv"},
+         bound_ms_per_step={".".join(k): v["bound_ms"]
+                            for k, v in totals.items()},
+         batch=B, frames=T, dtype="bfloat16")
+    return totals
+
+
+def conv_kernel_entry(name, source, replaces, launches, errors,
+                      totals) -> dict:
+    """The kernels-line entry of one conv op.  Its times are per train
+    step, forward plus backward over the ten blocks, summed over both
+    layouts (route A's step runs the V-major kernels, route B's the
+    (N, T, V, C) ones); each layout and direction is beside it."""
+    parts = {}
+    for layout in LAYOUTS:
+        for direction in ("forward", "backward"):
+            tot = totals[(name, layout, direction)]
+            parts[f"{layout}.{direction}"] = {
+                "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                "library_ms": (tot["library_ms"] if name == "temporal_conv"
+                               else None),
+                "bound_ms": tot["bound_ms"],
+                "bound_by": bound_kind(tot["ops_ms"], tot["bytes_ms"])}
+    every = list(totals[(name, lay, d)] for lay in LAYOUTS
+                 for d in ("forward", "backward"))
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(counts[f"{name}.{d}"] for counts in launches.values()
+                        for d in ("forward", "backward")),
+        "launches_by_route": {r: {d: c[f"{name}.{d}"]
+                                  for d in ("forward", "backward")}
+                              for r, c in launches.items()},
+        "max_abs_err": max(errors[(name, d)]["max_abs_err"]
+                           for d in ("forward", "backward")),
+        "max_rel_err": max(errors[(name, d)]["max_rel_err"]
+                           for d in ("forward", "backward")),
+        "ms": sum(t["ms"] for t in every),
+        "plain_ms": sum(t["plain_ms"] for t in every),
+        "bound_ms": sum(t["bound_ms"] for t in every),
+        "bound_by": bound_kind(sum(t["ops_ms"] for t in every),
+                               sum(t["bytes_ms"] for t in every)),
+        # cuDNN's conv computes the temporal op; no single PyTorch call
+        # computes the K-partition graph conv (a 1x1 conv, then K
+        # adjacency products) or its gradient
+        "library_ms": (sum(t["library_ms"] for t in every)
+                       if name == "temporal_conv" else None),
         **parts,
     }
 
@@ -775,7 +1237,12 @@ def main() -> int:
     # ---- 7. train, 8. train_time: the train path ---------------------------
     train = train_phase(dev, gen, peak_flops, peak_bytes)
 
-    # ---- 9. kernels ---------------------------------------------------------
+    # ---- 9. conv_kernel, 10. route_train, 11. route_time: the two routes ----
+    conv_errors = conv_kernel_phase(dev, gen)
+    route_launches = route_train_phase(dev, gen)
+    route_totals = route_time_phase(dev, gen, peak_flops, peak_bytes)
+
+    # ---- 12. kernels --------------------------------------------------------
     kernels = [{
         "name": "block_eval",
         "route": "cuda",
@@ -803,7 +1270,21 @@ def main() -> int:
         "(_temporal_fwd_kernel :890, _temporal_bwd_kernel :929); "
         "stgcn_tpu/kernels/block_packed.py:464 temporal_block_packed "
         "(_tp_fwd_kernel :365, _tp_bwd_kernel :393)",
-        train["launches"], train_errors, train["totals"])]
+        train["launches"], train_errors, train["totals"]),
+        conv_kernel_entry(
+        "spatial_conv", "stgcn_tpu_torch/kernels/csrc/spatial_block.cu",
+        "stgcn_tpu/kernels/spatial_conv.py:110 spatial_conv_fused "
+        "(_fwd_kernel :59, _bwd_kernel :187); "
+        "stgcn_tpu/kernels/spatial_conv.py:462 spatial_conv_fused_vm "
+        "(_fwd_kernel_vm :344, _bwd_kernel_vm :369)",
+        route_launches, conv_errors, route_totals),
+        conv_kernel_entry(
+        "temporal_conv", "stgcn_tpu_torch/kernels/csrc/temporal_block.cu",
+        "stgcn_tpu/kernels/temporal_conv.py:354 temporal_conv_fused "
+        "(_fwd_kernel :116, _make_dx_kernel :193, _make_dw_kernel :271); "
+        "stgcn_tpu/kernels/temporal_conv_vm.py:327 temporal_conv_fused_vm "
+        "(_shiftsum_kernel :69, _make_dw_kernel :233)",
+        route_launches, conv_errors, route_totals)]
     print(smi, flush=True)      # the card again, near the end of the output
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

@@ -26,12 +26,27 @@ forward and backward)  ``_temporal_bwd_kernel``), and
                        ``temporal_block_packed`` (``_tp_fwd_kernel``,
                        ``_tp_bwd_kernel``): both compute the train path's
                        affine(+ReLU) + gamma x 1 temporal conv
+``spatial_conv``       ``stgcn_tpu/kernels/spatial_conv.py``
+(``csrc/spatial_block.cu`` ``spatial_conv_fused`` (``_fwd_kernel``,
+without the affine,    ``_bwd_kernel``) on ``(N, T, V, C)`` and
+forward and backward)  ``spatial_conv_fused_vm`` (``_fwd_kernel_vm``,
+                       ``_bwd_kernel_vm``) on V-major ``(V, M, C)``: both
+                       compute the standalone K-partition graph conv
+``temporal_conv``      ``stgcn_tpu/kernels/temporal_conv.py``
+(``csrc/temporal_block.cu`` ``temporal_conv_fused`` (``_fwd_kernel``,
+without the affine,    ``_make_dx_kernel``, ``_make_dw_kernel``) on
+forward and backward)  ``(N, T, V, C)``, and
+                       ``stgcn_tpu/kernels/temporal_conv_vm.py``
+                       ``temporal_conv_fused_vm`` (``_shiftsum_kernel``,
+                       ``_make_dw_kernel``) on V-major ``(V*N, T, C)``: both
+                       compute the standalone gamma x 1 temporal conv
 =====================  =====================================================
 
 Every wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its kernel, or raises, for a CUDA tensor; it counts its launches in
-a ``launches`` attribute (the train ops have one wrapper, and one count,
-for the forward and one for the backward kernel).  ``_build`` compiles
+a ``launches`` attribute (the train and conv ops have one wrapper, and one
+count, for the forward and one for the backward kernel; the conv ops count
+both layouts together).  ``_build`` compiles
 ``csrc/`` with ``nvcc`` at first use and loads the library with
 ``ctypes``.
 """

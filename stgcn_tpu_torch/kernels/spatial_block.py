@@ -26,9 +26,13 @@ import torch
 from stgcn_tpu_torch.kernels.block_eval import KERNEL_DTYPES, SMEM_LIMIT
 
 FRAME_TILES = (8, 4, 2, 1)
-# CTAs of the backward kernel: two per SM of an H100 SXM (132 SMs); each
-# owns one slice of the partial weight-gradient sums.
-PARTIAL_CTAS = 264
+
+
+def partial_ctas(device: torch.device) -> int:
+    """CTAs of a backward kernel: two per SM of ``device``, each owning one
+    slice of the partial weight-gradient sums.  The slices are added in a
+    fixed order, so the gradients are the same on every run on one card."""
+    return 2 * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -201,7 +205,7 @@ def _launch_backward(x, g, s1, t1, w, b, a, *, relu1, need_da):
         raise ValueError(f"g must be {(v, n, t, c_out)}, got {tuple(g.shape)}")
     frames, _, smem = plan_frames(v, c_in, c_out)
     m = n * t
-    ctas = min(PARTIAL_CTAS, -(-m // frames))
+    ctas = min(partial_ctas(x.device), -(-m // frames))
     cd = x.dtype
     f32 = torch.float32
     wk = w.to(cd).permute(1, 0, 2)                        # (K, C_in, C_out)

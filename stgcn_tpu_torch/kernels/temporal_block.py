@@ -26,22 +26,26 @@ import torch.nn.functional as F
 
 from stgcn_tpu_torch.kernels.block_eval import SMEM_LIMIT, t_out_of
 from stgcn_tpu_torch.kernels.spatial_block import (
-    PARTIAL_CTAS,
     _acc,
     _check_cuda,
     _raise_on,
+    partial_ctas,
 )
 
 FRAME_TILES = (16, 8, 4, 2, 1)
 
 
-def check_args(z, wt):
+def check_args(z, wt, *, square: bool = True):
+    """``z`` is ``(V, N, T, C)`` and ``wt`` ``(odd gamma, C, C_out)``, with
+    ``C_out == C`` where ``square`` (the kernel of this op needs it; the
+    plain versions take any ``C_out``)."""
     if z.dim() != 4:
         raise ValueError(f"z must be (V, N, T, C), got {tuple(z.shape)}")
     c = z.shape[-1]
-    if wt.dim() != 3 or tuple(wt.shape[1:]) != (c, c) or wt.shape[0] % 2 != 1:
-        raise ValueError(f"wt must be (odd gamma, {c}, {c}), got "
-                         f"{tuple(wt.shape)}")
+    if (wt.dim() != 3 or wt.shape[1] != c or wt.shape[0] % 2 != 1
+            or (square and wt.shape[2] != c)):
+        want = f"(odd gamma, {c}, {c})" if square else f"(odd gamma, {c}, C_out)"
+        raise ValueError(f"wt must be {want}, got {tuple(wt.shape)}")
 
 
 def _post_activation(z, s2, t2, relu2, acc):
@@ -55,10 +59,11 @@ def temporal_block_forward_reference(z, s2, t2, wt, bt, *, stride: int,
                                      relu2: bool):
     """Plain PyTorch version of the forward kernel, same rounding points.
 
-    ``z``: ``(V, N, T, C)``; ``s2, t2, bt``: ``(C,)``; ``wt``:
-    ``(gamma, C, C)`` in ``z``'s dtype.  Returns ``(V, N, T_out, C)``.
+    ``z``: ``(V, N, T, C)``; ``s2, t2``: ``(C,)``; ``wt``:
+    ``(gamma, C, C_out)`` in ``z``'s dtype; ``bt``: ``(C_out,)``.  Returns
+    ``(V, N, T_out, C_out)``.
     """
-    check_args(z, wt)
+    check_args(z, wt, square=False)
     acc = _acc(z.dtype)
     gamma, t = wt.shape[0], z.shape[2]
     pad = (gamma - 1) // 2
@@ -79,7 +84,7 @@ def temporal_block_backward_reference(z, g, s2, t2, wt, bt, *, stride: int,
 
     Returns ``(dz, ds2, dt2, dwt, dbt)``, each in its input's dtype.
     """
-    check_args(z, wt)
+    check_args(z, wt, square=False)
     acc = _acc(z.dtype)
     gamma, t = wt.shape[0], z.shape[2]
     pad = (gamma - 1) // 2
@@ -190,7 +195,7 @@ def _launch_backward(z, g, s2, t2, wt, bt, *, stride, relu2):
                          f"{tuple(g.shape)}")
     ft, vg, smem = plan_backward(v, c, gamma)
     items = -(-t // ft) * n * -(-v // vg)
-    ctas = min(PARTIAL_CTAS, items)
+    ctas = min(partial_ctas(z.device), items)
     cd, f32 = z.dtype, torch.float32
     args = [z.contiguous(), g.to(cd).contiguous(), s2.to(f32).contiguous(),
             t2.to(f32).contiguous(),

@@ -205,7 +205,8 @@ def _train_forward(model, params: dict, state: dict, x: torch.Tensor,
                 params["blocks"][i], state["blocks"][i], h,
                 model.adjacency, stride=stride, residual=cfg.residual,
                 compute_dtype=cd, dropout_rate=cfg.dropout_rate,
-                generator=generator)
+                generator=generator, spatial_impl=cfg.spatial_impl,
+                temporal_impl=cfg.temporal_impl)
         new_blocks.append(s)
     pooled = h.to(stat_dtype(h)).mean(dim=(0, 2) if layout == "vntc"
                                       else (1, 2))

@@ -38,12 +38,19 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from stgcn_tpu_torch.graph import adjacency as adj
+from stgcn_tpu_torch.ops.batchnorm import stat_dtype
 from stgcn_tpu_torch.ops.block import (
     ADJACENCY_MODES,
     block_forward,
     block_forward_train,
+    block_forward_vm,
 )
 from stgcn_tpu_torch.ops.common import global_avg_pool, linear
+from stgcn_tpu_torch.ops.spatial_conv import SPATIAL_IMPLS
+from stgcn_tpu_torch.ops.temporal_conv import (
+    TEMPORAL_IMPLS,
+    UNPORTED_TEMPORAL_IMPLS,
+)
 from stgcn_tpu_torch.tree import tree_map
 
 # (c_out, temporal stride) per block.
@@ -74,6 +81,13 @@ class STGCNConfig:
     ``block_impl`` "ops" (op chain), "fused" (every block on the fused
     spatial and temporal ops) or "hybrid" (the blocks ``fused_blocks``, else
     ``[fused_from, n)``, fused, the rest on the op chain).
+
+    Routes of the op chain: ``layout`` "ntvc" runs it on ``(N, T, V, C)``
+    with each conv as ``spatial_impl`` ("einsum" or "pallas", the graph-conv
+    kernel) and ``temporal_impl`` ("auto" and "conv" are ``F.conv2d``,
+    "pallas" the temporal-conv kernel) say; "vntc" runs it V-major with both
+    convs on the V-major kernels, train and eval.  The JAX package's
+    "conv_vt", "shift_sum" and "block" temporal impls are not ported.
     """
 
     c_in: int = 2
@@ -94,8 +108,24 @@ class STGCNConfig:
     block_impl: str = "ops"
     fused_from: int = 4
     fused_blocks: tuple[int, ...] | None = None
+    layout: str = "ntvc"
+    spatial_impl: str = "einsum"
+    temporal_impl: str = "auto"
 
     def __post_init__(self):
+        if self.layout not in ("ntvc", "vntc"):
+            raise ValueError(f"layout must be 'ntvc' or 'vntc', got "
+                             f"{self.layout!r}")
+        if self.spatial_impl not in SPATIAL_IMPLS:
+            raise ValueError(f"spatial_impl must be one of {SPATIAL_IMPLS}, "
+                             f"got {self.spatial_impl!r}")
+        if self.temporal_impl in UNPORTED_TEMPORAL_IMPLS:
+            raise NotImplementedError(
+                f"temporal_impl={self.temporal_impl!r} is not ported; use "
+                f"one of {TEMPORAL_IMPLS}")
+        if self.temporal_impl not in TEMPORAL_IMPLS:
+            raise ValueError(f"temporal_impl must be one of "
+                             f"{TEMPORAL_IMPLS}, got {self.temporal_impl!r}")
         if self.adjacency_mode not in ADJACENCY_MODES:
             raise ValueError(f"adjacency_mode must be one of "
                              f"{ADJACENCY_MODES}, got {self.adjacency_mode!r}")
@@ -110,6 +140,11 @@ class STGCNConfig:
         if self.block_impl not in ("ops", "fused", "hybrid"):
             raise ValueError(f"block_impl must be 'ops', 'fused' or "
                              f"'hybrid', got {self.block_impl!r}")
+        if self.block_impl != "ops" and self.layout != "ntvc":
+            raise ValueError(
+                f"block_impl={self.block_impl!r} is its own fused V-major "
+                "path; use it with the default layout='ntvc' input "
+                "convention")
         if (self.block_impl == "hybrid" and self.fused_blocks is None
                 and not 0 <= self.fused_from <= len(self.plan)):
             raise ValueError(f"fused_from must be in [0, {len(self.plan)}], "
@@ -344,10 +379,12 @@ class STGCN(nn.Module):
         ``train=True`` uses batch statistics, returns new running
         statistics and applies dropout from ``generator`` (on ``x``'s
         device); ``block_impl`` picks the op chain, the fused ops or the
-        hybrid.  ``train=False`` runs the op path whatever ``block_impl``
+        hybrid.  ``train=False`` runs the op chain whatever ``block_impl``
         says (the fused eval forward of parameter dictionaries is not ported)
-        and returns ``state`` unchanged.  ``time_mask`` works on the op path
-        only, as in the JAX package's train step.
+        and returns ``state`` unchanged.  The op chain runs on the route of
+        ``layout``, ``spatial_impl`` and ``temporal_impl``, in train and
+        eval.  ``time_mask`` works on the op chain only, as in the JAX
+        package's train step.
         """
         cfg = self.config
         if train and cfg.block_impl != "ops":
@@ -371,6 +408,11 @@ class STGCN(nn.Module):
         h = x.to(cd or cfg.dtype)
         if time_mask is not None:
             h = h * time_mask[:, :, None, None].to(h.dtype)
+        if cfg.layout == "vntc":
+            return self._apply_vm(params, state, h, train=train,
+                                  generator=generator, time_mask=time_mask)
+        impls = dict(spatial_impl=cfg.spatial_impl,
+                     temporal_impl=cfg.temporal_impl)
         new_blocks = []
         for i, (_, stride) in enumerate(cfg.plan):
             bp, bs = params["blocks"][i], state["blocks"][i]
@@ -378,17 +420,55 @@ class STGCN(nn.Module):
                 h, s = block_forward_train(
                     bp, bs, h, self.adjacency, stride=stride,
                     residual=cfg.residual, compute_dtype=cd,
-                    dropout_rate=cfg.dropout_rate, generator=generator)
+                    dropout_rate=cfg.dropout_rate, generator=generator,
+                    **impls)
                 new_blocks.append(s)
             else:
                 h = block_forward(bp, bs, h, self.adjacency, stride=stride,
-                                  residual=cfg.residual, compute_dtype=cd)
+                                  residual=cfg.residual, compute_dtype=cd,
+                                  **impls)
             if time_mask is not None:
                 if stride != 1:
                     time_mask = time_mask[:, ::stride]
                 h = h * time_mask[:, :, None, None].to(h.dtype)
         pooled = global_avg_pool(h, time_mask)
         logits = linear(params["fc"], pooled)
+        if cfg.final_softmax:
+            logits = torch.softmax(logits, dim=-1)
+        return logits, ({"blocks": new_blocks} if train else state)
+
+    def _apply_vm(self, params: dict, state: dict, x: torch.Tensor, *,
+                  train: bool, generator: torch.Generator | None,
+                  time_mask: torch.Tensor | None
+                  ) -> tuple[torch.Tensor, dict]:
+        """The V-major route (port of ``_apply_vm``,
+        ``stgcn_tpu/models/stgcn.py:371-426``): ``x``, already cast and
+        masked, is transposed once to ``(V, N, T, C)`` and stays V-major
+        through every block; the pool is a float32 mean over (V, T), or the
+        masked sum over count * V, cast to the activations' dtype before
+        the head."""
+        cfg = self.config
+        h = x.permute(2, 0, 1, 3).contiguous()          # (V, N, T, C)
+        new_blocks = []
+        for i, (_, stride) in enumerate(cfg.plan):
+            h, s = block_forward_vm(
+                params["blocks"][i], state["blocks"][i], h, self.adjacency,
+                stride=stride, residual=cfg.residual, train=train,
+                dropout_rate=cfg.dropout_rate, generator=generator)
+            new_blocks.append(s)
+            if time_mask is not None:
+                if stride != 1:
+                    time_mask = time_mask[:, ::stride]
+                h = h * time_mask[None, :, :, None].to(h.dtype)
+        acc = stat_dtype(h)
+        if time_mask is None:
+            pooled = h.to(acc).mean(dim=(0, 2))
+        else:
+            m = time_mask[None, :, :, None].to(acc)
+            total = (h.to(acc) * m).sum(dim=(0, 2))
+            count = m.sum(dim=(0, 2)) * h.shape[0]
+            pooled = total / torch.clamp(count, min=1.0)
+        logits = linear(params["fc"], pooled.to(h.dtype))
         if cfg.final_softmax:
             logits = torch.softmax(logits, dim=-1)
         return logits, ({"blocks": new_blocks} if train else state)

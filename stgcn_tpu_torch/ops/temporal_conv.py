@@ -7,6 +7,12 @@ channel-last ``(N, T, V, C)`` activations with the JAX package's weight
 layout ``(gamma, 1, C_in, C_out)``, through ``torch.nn.functional.conv2d``
 in at least float32.  On a GPU that call goes to cuDNN, which uses TF32 for
 float32 unless ``torch.backends.cudnn.allow_tf32`` is False.
+
+``impl="pallas"`` runs the hand-written temporal-conv kernel instead
+(:func:`stgcn_tpu_torch.kernels.temporal_conv.temporal_conv_fused`, the port
+of the Pallas ``temporal_conv_fused``); ``"auto"`` is ``"conv"``, the JAX
+package's pick off the TPU (``stgcn_tpu/ops/temporal_conv.py:82-98``).  Its
+``"conv_vt"``, ``"shift_sum"`` and ``"block"`` impls are not ported.
 """
 
 from __future__ import annotations
@@ -14,14 +20,33 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from stgcn_tpu_torch.kernels.temporal_conv import temporal_conv_fused
 from stgcn_tpu_torch.ops.batchnorm import stat_dtype
+
+TEMPORAL_IMPLS = ("auto", "conv", "pallas")
+# the JAX package's XLA formulations, which the port does not carry
+UNPORTED_TEMPORAL_IMPLS = ("conv_vt", "shift_sum", "block")
 
 
 def temporal_conv(params: dict, x: torch.Tensor, *, stride: int = 1,
-                  compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+                  compute_dtype: torch.dtype | None = None,
+                  impl: str = "conv") -> torch.Tensor:
     """``(N, T, V, C_in) -> (N, T_out, V, C_out)``, with the reference's
-    ``(gamma - 1) // 2`` frames of zero padding on both ends."""
+    ``(gamma - 1) // 2`` frames of zero padding on both ends.
+
+    ``impl``: ``"conv"`` or ``"auto"`` (``F.conv2d``), or ``"pallas"`` (the
+    kernel, with ``x`` and the taps cast to ``compute_dtype`` and the bias
+    as it comes).
+    """
     w = params["w"]                      # (gamma, 1, C_in, C_out)
+    if impl == "pallas":
+        h, taps = x, w[:, 0]
+        if compute_dtype is not None:
+            h, taps = h.to(compute_dtype), taps.to(compute_dtype)
+        return temporal_conv_fused(h, taps, params["b"], stride).to(x.dtype)
+    if impl not in ("auto", "conv"):
+        raise ValueError(f"temporal_impl must be one of {TEMPORAL_IMPLS}, "
+                         f"got {impl!r}")
     padding = (w.shape[0] - 1) // 2
     out_dtype = x.dtype
     acc = stat_dtype(x)

@@ -298,10 +298,15 @@ class TestLaunch:
         class FakeStream:
             cuda_stream = 4321
 
+        class FakeProperties:
+            multi_processor_count = 132
+
         monkeypatch.setattr(torch.cuda, "current_stream",
                             lambda dev=None: FakeStream())
         monkeypatch.setattr(torch.cuda, "device",
                             lambda dev: contextlib.nullcontext())
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda dev: FakeProperties())
         return calls
 
     @staticmethod
@@ -336,7 +341,7 @@ class TestLaunch:
         frames, _, smem = sb.plan_frames(V, 2, 64)
         # ..., V, M, C_in, C_out, K, frames, ctas, relu1, need_da, bf16, smem
         assert bwd[11:22] == (V, N * T, 2, 64, K, frames,
-                              min(sb.PARTIAL_CTAS, -(-N * T // frames)), 1,
+                              min(2 * 132, -(-N * T // frames)), 1,
                               0, 0, smem)
 
     def test_temporal_launches(self, rng, fake_lib):
