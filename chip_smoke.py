@@ -54,7 +54,30 @@ non-zero exit code:
                    path's, and of each conv op per block shape, direction
                    and layout beside its plain version, its bound and
                    cuDNN's conv (the temporal op).
-12. kernels     -- one line per kernel with its launches, error, times and
+12. save_kernel -- ``spatial_block_save``'s forward and backward kernels
+                   against their plain versions at blocks 8-9's shape
+                   (float32 tightly, bfloat16 against a float32 oracle),
+                   relu1 on and off, and its six gradients bitwise against
+                   ``spatial_block``'s (the recompute kernel).
+13. fused_train -- bench.py's step with every block fused
+                   (``block_impl="fused"``): 8 launches of ``spatial_block``,
+                   2 of ``spatial_block_save`` and 10 of ``temporal_block``
+                   each way a step; finite values, moving BN statistics; a
+                   fixed graph runs no save; the float32 gradient against
+                   the float32 and float64 op paths; the loss falling on a
+                   repeated batch; ``make_eval_step`` on "fused" (10
+                   ``block_eval`` launches a batch) and "hybrid", argmax
+                   against the float32 op path, with and without a time
+                   mask.
+14. checkpoint  -- the fused train state saved and restored into a fresh
+                   one: eval logits bitwise equal, one more step from each
+                   the same, and ``Predictor.from_checkpoint`` answering as
+                   a ``Predictor`` over the saved weights.
+15. fused_time  -- CUDA-event times of the fused step beside the op path,
+                   the hybrid and routes A and B, of the save op at blocks
+                   8-9 beside its plain version, the recompute op and its
+                   bound, and of the fused eval step.
+16. kernels     -- one line per kernel with its launches, error, times and
                    bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1017,6 +1040,490 @@ def conv_kernel_entry(name, source, replaces, launches, errors,
     }
 
 
+# ---- the all-fused loop: block_impl="fused" at full depth -------------------
+# blocks 8-9 of DEFAULT_PLAN: C_in = 256 and, in mask mode, a trained graph,
+# which the JAX package sends to spatial_block_vm_save
+SAVE_BLOCKS = (8, 9)
+FUSED_STEPS = 3      # full-width steps of the fused loop on the main path
+CHECKPOINT_REQUEST = 40      # sequences of the from_checkpoint request
+
+
+def fused_counters() -> dict:
+    from stgcn_tpu_torch.kernels import spatial_block as sb
+    from stgcn_tpu_torch.kernels import temporal_block as tb
+
+    return {"spatial_block.forward": sb.spatial_block_forward,
+            "spatial_block.backward": sb.spatial_block_backward,
+            "spatial_block_save.forward": sb.spatial_block_save_forward,
+            "spatial_block_save.backward": sb.spatial_block_save_backward,
+            "temporal_block.forward": tb.temporal_block_forward,
+            "temporal_block.backward": tb.temporal_block_backward}
+
+
+def save_shape() -> tuple[int, int, int, int]:
+    """``(c_in, c_out, stride, t_in)`` of blocks 8-9."""
+    shapes = plan_block_shapes()
+    assert len({shapes[i] for i in SAVE_BLOCKS}) == 1
+    return shapes[SAVE_BLOCKS[0]]
+
+
+def save_cost(n, t, c_in, c_out, k=2, itemsize=2):
+    """``spatial_cost`` of the save op: the forward also writes y and the
+    backward reads it instead of recomputing it (two stage-1 products and
+    two aggregations, as stgcn_tpu/kernels/block_fused.py:857-859
+    counts)."""
+    (f_ops, f_bytes), (_, b_bytes) = spatial_cost(n, t, c_in, c_out, k,
+                                                  itemsize)
+    m = n * t
+    y_b = k * m * V * c_out * itemsize
+    b_ops = 2 * (2 * m * V * c_in * k * c_out) + 2 * (2 * m * k * V * V
+                                                     * c_out)
+    return (f_ops, f_bytes + y_b), (b_ops, b_bytes + y_b)
+
+
+def save_kernel_phase(dev, gen) -> dict:
+    """``spatial_block_save``'s forward and backward kernels against their
+    plain versions at blocks 8-9's shape, relu1 on and off, float32
+    tightly and bfloat16 against a float32 oracle; its six gradients held
+    bitwise against ``spatial_block``'s (the recompute kernel) on the same
+    inputs.  Returns the largest bf16 errors per direction."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import spatial_block as sb
+
+    ci, co, _, t = save_shape()
+    worst: dict = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for relu1 in (True, False):
+            kw = as_dtype(random_spatial(gen, B, t, ci, co, dev), dt)
+            oracle = {k: v.float() for k, v in kw.items()}
+            g = torch.randn(V, B, t, co, generator=gen, device=dev).to(dt)
+            rest = (kw["s1"], kw["t1"], kw["w"], kw["a"])
+            z, y = sb.spatial_block_save_forward(**kw, relu1=relu1)
+            grads = sb.spatial_block_save_backward(kw["x"], g, y, *rest,
+                                                   relu1=relu1)
+            recompute = sb.spatial_block_backward(
+                kw["x"], g, *(kw[k] for k in ("s1", "t1", "w", "b", "a")),
+                relu1=relu1)
+            torch.cuda.synchronize()
+            want_fwd = sb.spatial_block_save_forward_reference(
+                **oracle, relu1=relu1)
+            # the backward alone: both read the kernel forward's y
+            want_bwd = sb.spatial_block_save_backward_reference(
+                oracle["x"], g.float(), y.float(), *(
+                    oracle[k] for k in ("s1", "t1", "w", "a")), relu1=relu1)
+            case = dict(c_in=ci, c_out=co, t_in=t, relu1=relu1)
+            res = {"forward": check_op(
+                "spatial_block_save", "forward", (z, y), want_fwd, dt,
+                phase="save_kernel", allclose=True, **case),
+                   "backward": check_op(
+                "spatial_block_save", "backward", grads, want_bwd, dt,
+                phase="save_kernel", **case)}
+            same = [bool(torch.equal(a, b)) for a, b in zip(grads,
+                                                            recompute)]
+            emit("save_kernel", op="spatial_block_save",
+                 vs="spatial_block (recompute)",
+                 dtype=str(dt).removeprefix("torch."), **case,
+                 gradients=["dx", "ds1", "dt1", "dw", "db", "da"],
+                 bitwise_equal=same, ok=all(same))
+            if not all(same):
+                raise AssertionError("spatial_block_save's gradients differ "
+                                     "from spatial_block's")
+            if dt == torch.bfloat16:
+                for direction, r in res.items():
+                    cur = worst.setdefault(("spatial_block_save", direction),
+                                           dict.fromkeys(("max_abs_err",
+                                                          "max_rel_err"),
+                                                         0.0))
+                    for k in cur:
+                        cur[k] = max(cur[k], r[k])
+    return worst
+
+
+def eval_oracle(dev, gen, cfg32):
+    """Random weights with BN statistics moved, ``EVAL_BATCHES`` batches
+    of B sequences with time masks, and the float32 op path's argmax
+    (unmasked, masked) on them: the oracle of the eval checks."""
+    import torch
+
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.tree import tree_map
+
+    host = torch.Generator().manual_seed(SEED)
+    params, state = STGCN(cfg32).init_params(SEED)
+    state = randomize_state(state, host)
+    params, state = (tree_map(lambda t: t.to(dev), tr)
+                     for tr in (params, state))
+    batches = []
+    for _ in range(EVAL_BATCHES):
+        xb = torch.randn(B, T, V, 2, generator=gen, device=dev)
+        lengths = torch.randint(T // 8, T + 1, (B, 1), generator=gen,
+                                device=dev)
+        batches.append((xb, torch.arange(T, device=dev)[None] < lengths))
+    m_ops = STGCN(cfg32).to(dev)
+    with torch.no_grad():
+        oracle = {masked: [m_ops.apply(params, state, xb,
+                                       time_mask=mask if masked else None)[0]
+                           .argmax(-1) for xb, mask in batches]
+                  for masked in (False, True)}
+    return params, state, batches, oracle
+
+
+def fused_train_phase(dev, gen) -> dict:
+    """The fused loop's main path (bench.py's step with every block fused),
+    then its checks; returns its launch counts and its train state, model
+    and batch for the checkpoint phase."""
+    import torch
+
+    from stgcn_tpu_torch.kernels.block_eval import block_eval
+    from stgcn_tpu_torch.models.convert import (
+        params_from_jax,
+        params_to_numpy,
+    )
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.training.loop import make_eval_step, make_train_step
+    from stgcn_tpu_torch.training.metrics import cross_entropy
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import (
+        create_train_state,
+        train_state_from,
+    )
+
+    cfg = bench_config(block_impl="fused")
+    model = STGCN(cfg, seed=SEED)
+    ts = create_train_state(model, adam(1e-3), seed=SEED)
+    state0 = [{k: v["mean"].clone() for k, v in b.items()}
+              for b in ts.model_state["blocks"]]
+    x = torch.randn(B, T, V, 2, generator=gen, device=dev)
+    y = torch.randint(0, cfg.num_classes, (B,), generator=gen, device=dev)
+    step = make_train_step(model)
+    counters = fused_counters()
+
+    # ---- the main path: counts set to 0 just before, read just after ----
+    for fn in counters.values():
+        fn.launches = 0
+    start = time.perf_counter()
+    losses = [float(step(ts, x, y)["loss"]) for _ in range(FUSED_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    n_blocks, n_save = len(cfg.plan), len(SAVE_BLOCKS)
+    want = {"spatial_block": n_blocks - n_save, "spatial_block_save": n_save,
+            "temporal_block": n_blocks}
+    per_step = {k: v / FUSED_STEPS for k, v in launches.items()}
+    finite = all(np.isfinite(losses)) and all(
+        bool(torch.isfinite(p).all()) for p in ts.leaves())
+    moved = all(not torch.equal(b[k]["mean"], s0[k])
+                for b, s0 in zip(ts.model_state["blocks"], state0)
+                for k in ("bn1", "bn2"))
+    ok = finite and moved and all(per_step[k] == want[k.split(".")[0]]
+                                  for k in per_step)
+    emit("fused_train", steps=FUSED_STEPS, losses=losses, seconds=seconds,
+         launches=launches, launches_per_step=per_step,
+         expected_per_step=want, finite=finite, bn_statistics_moved=moved,
+         batch=B, frames=T, dtype="bfloat16", adjacency_mode="mask", ok=ok)
+    if not ok:
+        raise AssertionError("the fused step did not run the expected "
+                             "launches a step, or gave non-finite values, or "
+                             "left the BN statistics where they were")
+
+    # ---- a fixed graph: no save launches ---------------------------------
+    m_fixed = STGCN(bench_config(block_impl="fused", adjacency_mode="fixed"),
+                    seed=SEED)
+    ts_fixed = create_train_state(m_fixed, adam(1e-3), seed=SEED)
+    step_fixed = make_train_step(m_fixed)
+    for fn in counters.values():
+        fn.launches = 0
+    loss_fixed = float(step_fixed(ts_fixed, x, y)["loss"])
+    fixed = {name: fn.launches for name, fn in counters.items()}
+    ok = (np.isfinite(loss_fixed)
+          and fixed["spatial_block_save.forward"] == 0
+          and fixed["spatial_block_save.backward"] == 0
+          and fixed["spatial_block.forward"] == n_blocks
+          and fixed["spatial_block.backward"] == n_blocks)
+    emit("fused_train", adjacency_mode="fixed", loss=loss_fixed,
+         launches_per_step=fixed, ok=ok)
+    if not ok:
+        raise AssertionError("the fixed-graph fused step ran the save op")
+    del ts_fixed
+
+    # ---- float32 gradient against the float32 and float64 op paths -------
+    cfg32 = dataclasses.replace(cfg, compute_dtype=None, dropout_rate=0.0)
+    xs = torch.randn(4, 64, V, 2, generator=gen, device=dev)
+    ys = torch.randint(0, cfg.num_classes, (4,), generator=gen, device=dev)
+    init = [params_to_numpy(t) for t in STGCN(cfg32).init_params(SEED)]
+    grads = {}
+    for impl in ("fused", "ops", "ops64"):
+        dt = torch.float64 if impl == "ops64" else torch.float32
+        m = STGCN(dataclasses.replace(
+            cfg32, block_impl=impl.removesuffix("64"), dtype=dt)).to(dev)
+        ts1 = train_state_from(*params_from_jax(*init, dtype=dt), adam(),
+                               SEED, dev)
+        logits, _ = m.apply(ts1.params, ts1.model_state, xs.to(dt),
+                            train=True)
+        grads[impl] = torch.autograd.grad(cross_entropy(logits, ys),
+                                          ts1.leaves())
+
+    def grad_diff(a, b):
+        return max((p.double() - q.double()).abs().max().item()
+                   for p, q in zip(grads[a], grads[b]))
+
+    grad_err = grad_diff("fused", "ops")
+    grad_scale = max(g.abs().max().item() for g in grads["ops"])
+    kernel_vs_f64, ops_vs_f64 = (grad_diff("fused", "ops64"),
+                                 grad_diff("ops", "ops64"))
+
+    # ---- the loss falls on a repeated batch, dropout off ----------------
+    m_fall = STGCN(dataclasses.replace(cfg, dropout_rate=0.0), seed=SEED)
+    ts_fall = create_train_state(m_fall, adam(1e-3), seed=SEED)
+    step_fall = make_train_step(m_fall)
+    fall = [float(step_fall(ts_fall, x, y)["loss"])
+            for _ in range(FALL_STEPS)]
+    del ts_fall
+    ok = (grad_err <= GRAD_REL * grad_scale
+          and kernel_vs_f64 <= GRAD_VS_F64 * ops_vs_f64
+          and fall[-1] < fall[0])
+    emit("fused_train", f32_fused_vs_ops_grad_max_abs_err=grad_err,
+         f32_ops_grad_max_abs=grad_scale,
+         f32_fused_vs_f64_ops_grad_max_abs_err=kernel_vs_f64,
+         f32_ops_vs_f64_ops_grad_max_abs_err=ops_vs_f64,
+         tolerance=(f"max_abs_err <= {GRAD_REL} * max|ops gradient|, and "
+                    f"fused vs f64 <= {GRAD_VS_F64} * f32 ops vs f64"),
+         repeated_batch_losses=fall, ok=ok)
+    if not ok:
+        raise AssertionError("the float32 fused path's gradient disagrees "
+                             "with the op path's, or the loss did not fall")
+
+    # ---- eval through make_eval_step: fused and hybrid -------------------
+    params, state, batches, oracle = eval_oracle(dev, gen, cfg32)
+    for impl, kw in (("fused", {}), ("hybrid", dict(
+            fused_blocks=FUSED_BLOCKS))):
+        m = STGCN(bench_config(block_impl=impl, **kw)).to(dev)
+        ts_eval = train_state_from(params, state, adam(), SEED, dev)
+        eval_step = make_eval_step(m)
+        agreement, per_batch = {}, []
+        # the labels are the float32 op path's answers, so "correct" counts
+        # the batches' argmax agreement
+        correct = 0
+        for (xb, _), want_b in zip(batches, oracle[False]):
+            before = block_eval.launches
+            sums = eval_step(ts_eval, xb, want_b)
+            per_batch.append(block_eval.launches - before)
+            correct += int(sums["correct"])
+        agreement["unmasked"] = correct / (EVAL_BATCHES * B)
+        if impl == "fused":
+            with torch.no_grad():
+                got = torch.cat([m.apply(ts_eval.params, ts_eval.model_state,
+                                         xb, time_mask=mask)[0].argmax(-1)
+                                 for xb, mask in batches])
+            agreement["masked"] = (got == torch.cat(oracle[True])).float(
+            ).mean().item()
+        want_launches = (len(cfg.plan) if impl == "fused"
+                         else len(FUSED_BLOCKS))
+        ok = (all(n == want_launches for n in per_batch)
+              and min(agreement.values()) >= ARGMAX_AGREEMENT)
+        emit("fused_train", eval_step=impl,
+             block_eval_launches_per_batch=per_batch,
+             eval_argmax_agreement_vs_f32_ops=agreement,
+             eval_sequences=EVAL_BATCHES * B, dtype="bfloat16",
+             tolerance=f"agreement >= {ARGMAX_AGREEMENT}", ok=ok)
+        if not ok:
+            raise AssertionError(f"the {impl} eval step did not run "
+                                 f"{want_launches} block_eval launches a "
+                                 "batch, or its answers disagree")
+        del ts_eval
+    return {"launches": launches, "model": model, "ts": ts, "x": x, "y": y,
+            "cfg": cfg}
+
+
+def checkpoint_phase(fused) -> None:
+    """Save the fused train state and restore it into a fresh one: eval
+    logits bitwise equal, one more step from each the same loss and
+    parameters, and ``Predictor.from_checkpoint`` answering a request with
+    the probabilities of a ``Predictor`` over the saved weights."""
+    import os
+    import tempfile
+
+    import torch
+
+    from stgcn_tpu_torch.models.convert import state_dict_from_params
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.serving import Predictor
+    from stgcn_tpu_torch.training.checkpoint import (
+        checkpoint_metadata,
+        latest_checkpoint,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from stgcn_tpu_torch.training.loop import make_train_step
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import create_train_state
+
+    model, ts, x, y, cfg = (fused[k] for k in ("model", "ts", "x", "y",
+                                               "cfg"))
+    with torch.no_grad():
+        before, _ = model.apply(ts.params, ts.model_state, x)
+    rng = np.random.default_rng(SEED)
+    request = [rng.normal(0, 1, (int(t), V, 2)).astype(np.float32)
+               for t in rng.integers(T // 8, T + 1, CHECKPOINT_REQUEST)]
+    serving = dict(buckets=(T // 2, T), max_batch=B)
+    direct = STGCN(cfg)
+    direct.load_state_dict(state_dict_from_params(
+        ts.params, ts.model_state, residual=cfg.residual,
+        adjacency=model.adjacency))
+    want = Predictor(direct, **serving).predict(request).probs
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, f"ckpt_{ts.step}")
+        start = time.perf_counter()
+        path = save_checkpoint(base, ts, {"step": ts.step})
+        save_s = time.perf_counter() - start
+        mbytes = os.path.getsize(path) / 1e6
+        fresh = create_train_state(model, adam(1e-3), seed=SEED + 1)
+        start = time.perf_counter()
+        restore_checkpoint(latest_checkpoint(tmp), fresh)
+        restore_s = time.perf_counter() - start
+        meta = checkpoint_metadata(base)
+        got = Predictor.from_checkpoint(base, cfg, **serving).predict(
+            request).probs
+    with torch.no_grad():
+        after, _ = model.apply(fresh.params, fresh.model_state, x)
+    logits_equal = bool(torch.equal(before, after))
+    probs_equal = bool(np.array_equal(got, want))
+    step = make_train_step(model)
+    loss_a, loss_b = (float(step(s, x, y)["loss"]) for s in (ts, fresh))
+    params_equal = all(torch.equal(a, b)
+                       for a, b in zip(ts.leaves(), fresh.leaves()))
+    ok = (logits_equal and probs_equal and loss_a == loss_b
+          and params_equal and meta == {"step": FUSED_STEPS}
+          and fresh.seed == SEED)
+    emit("checkpoint", step=FUSED_STEPS, npz_mbytes=mbytes,
+         save_seconds=save_s, restore_seconds=restore_s,
+         eval_logits_bitwise_equal=logits_equal,
+         resumed_losses=[loss_a, loss_b],
+         resumed_parameters_bitwise_equal=params_equal,
+         from_checkpoint_request=len(request),
+         from_checkpoint_probs_equal=probs_equal, ok=ok)
+    if not ok:
+        raise AssertionError("the restored train state or predictor differs "
+                             "from the saved one")
+
+
+def fused_time_phase(dev, gen, peak_flops, peak_bytes,
+                     hybrid_totals) -> dict:
+    """CUDA-event ms of the fused step beside the op path, the hybrid and
+    routes A and B; of the save op per direction at blocks 8-9 beside its
+    plain version, the recompute op and its bound; of the fused step's
+    kernels (``hybrid_totals``, train_time's sums over blocks 0-6, plus
+    blocks 7-9 timed here); and of the fused eval forward through
+    ``make_eval_step``.  Returns the save op's per-step sums per
+    direction."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import spatial_block as sb
+    from stgcn_tpu_torch.kernels import temporal_block as tb
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.training.loop import make_eval_step, make_train_step
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import create_train_state
+
+    x = torch.randn(B, T, V, 2, generator=gen, device=dev)
+    y = torch.randint(0, 6, (B,), generator=gen, device=dev)
+    step_ms = {}
+    for name, kw in (("fused", dict(block_impl="fused")),
+                     ("op_path", {}),
+                     ("hybrid", dict(block_impl="hybrid",
+                                     fused_blocks=FUSED_BLOCKS)),
+                     ("route_A", ROUTES["A"]), ("route_B", ROUTES["B"])):
+        model = STGCN(bench_config(**kw), seed=SEED)
+        ts = create_train_state(model, adam(1e-3), seed=SEED)
+        step = make_train_step(model)
+        step_ms[name] = cuda_time_ms(lambda: step(ts, x, y))
+        if name == "fused":
+            eval_step = make_eval_step(model)
+            eval_ms = cuda_time_ms(lambda: eval_step(ts, x, y))
+        del ts
+
+    ci, co, _, t = save_shape()
+    kw = as_dtype(random_spatial(gen, B, t, ci, co, dev), torch.bfloat16)
+    g = torch.randn(V, B, t, co, generator=gen, device=dev).to(
+        torch.bfloat16)
+    _, ysaved = sb.spatial_block_save_forward(**kw, relu1=True)
+    rest = (kw["s1"], kw["t1"], kw["w"], kw["a"])
+    full = tuple(kw[k] for k in ("s1", "t1", "w", "b", "a"))
+    fns = {
+        "forward": (
+            lambda: sb.spatial_block_save_forward(**kw, relu1=True),
+            lambda: sb.spatial_block_save_forward_reference(**kw,
+                                                            relu1=True),
+            lambda: sb.spatial_block_forward(**kw, relu1=True)),
+        "backward": (
+            lambda: sb.spatial_block_save_backward(kw["x"], g, ysaved, *rest,
+                                                   relu1=True),
+            lambda: sb.spatial_block_save_backward_reference(
+                kw["x"], g, ysaved, *rest, relu1=True),
+            lambda: sb.spatial_block_backward(kw["x"], g, *full,
+                                              relu1=True))}
+    costs = save_cost(B, t, ci, co)
+    totals, row = {}, {}
+    blocks = len(SAVE_BLOCKS)
+    for i, (direction, (kernel, plain, recompute)) in enumerate(fns.items()):
+        entry = dict(ms=cuda_time_ms(kernel), plain_ms=cuda_time_ms(plain),
+                     recompute_ms=cuda_time_ms(recompute),
+                     **bound_ms(costs[i], peak_flops, peak_bytes))
+        entry["bound_by"] = bound_kind(entry["ops_ms"], entry["bytes_ms"])
+        row[direction] = entry
+        totals[("spatial_block_save", direction)] = {
+            k: blocks * entry[k] for k in ("ms", "plain_ms", "recompute_ms",
+                                           "bound_ms", "ops_ms",
+                                           "bytes_ms")}
+    emit("fused_time", blocks=list(SAVE_BLOCKS), c_in=ci, c_out=co, t_in=t,
+         saved_y_mbytes=2 * B * t * V * co * 2 / 1e6,
+         **{f"spatial_block_save.{d}": e for d, e in row.items()})
+
+    # the fused step's ops beyond the hybrid's blocks 0-6
+    bf = torch.bfloat16
+    per_step = {k: v["ms"] for k, v in hybrid_totals.items()}
+    per_step.update({k: v["ms"] for k, v in totals.items()})
+    for i, (ci, co, stride, t) in enumerate(plan_block_shapes()):
+        if i in FUSED_BLOCKS:
+            continue
+        if i not in SAVE_BLOCKS:
+            sp = as_dtype(random_spatial(gen, B, t, ci, co, dev), bf)
+            gz = torch.randn(V, B, t, co, generator=gen, device=dev).to(bf)
+            sp_rest = tuple(sp[k] for k in ("s1", "t1", "w", "b", "a"))
+            per_step[("spatial_block", "forward")] += cuda_time_ms(
+                lambda: sb.spatial_block_forward(**sp, relu1=True))
+            per_step[("spatial_block", "backward")] += cuda_time_ms(
+                lambda: sb.spatial_block_backward(sp["x"], gz, *sp_rest,
+                                                  relu1=True))
+        tp = as_dtype(random_temporal(gen, B, t, co, dev), bf)
+        gu = torch.randn(V, B, (t - 1) // stride + 1, co, generator=gen,
+                         device=dev).to(bf)
+        tp_rest = tuple(tp[k] for k in ("s2", "t2", "wt", "bt"))
+        per_step[("temporal_block", "forward")] += cuda_time_ms(
+            lambda: tb.temporal_block_forward(**tp, stride=stride,
+                                              relu2=True))
+        per_step[("temporal_block", "backward")] += cuda_time_ms(
+            lambda: tb.temporal_block_backward(tp["z"], gu, *tp_rest,
+                                               stride=stride, relu2=True))
+    kernel_ms = sum(per_step.values())
+    emit("fused_time", **{f"{k}_step_ms": v for k, v in step_ms.items()},
+         **{f"{k}_sequences_per_s": B / v * 1e3 for k, v in step_ms.items()},
+         fused_eval_step_ms=eval_ms,
+         save_ms_per_step={d: totals[("spatial_block_save", d)]["ms"]
+                           for d in fns},
+         recompute_ms_per_step={
+             d: totals[("spatial_block_save", d)]["recompute_ms"]
+             for d in fns},
+         fused_kernel_ms_per_step={".".join(k): v
+                                   for k, v in per_step.items()},
+         fused_kernel_ms_sum=kernel_ms,
+         fused_rest_ms=step_ms["fused"] - kernel_ms,
+         batch=B, frames=T, dtype="bfloat16")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -1161,7 +1668,8 @@ def main() -> int:
     # the float32 kernel chain against the float32 op path, on a small input
     xs = torch.randn(4, 64, V, 2, generator=gen, device=dev)
     with torch.inference_mode():
-        fused32 = fused_eval_forward(model32, xs)
+        fused32 = fused_eval_forward(model32, *model32.params_and_state(),
+                                     xs)
         ops32 = model32(xs)
     forward_err = (fused32 - ops32).abs().max().item()
     forward_scale = ops32.abs().max().item()
@@ -1207,7 +1715,8 @@ def main() -> int:
                 totals[key] += val
             h = block_eval(h, **kw)
             c_prev = c_out
-        fwd_ms = cuda_time_ms(lambda: fused_eval_forward(model, x))
+        weights = model.params_and_state()
+        fwd_ms = cuda_time_ms(lambda: fused_eval_forward(model, *weights, x))
         ops_ms = cuda_time_ms(lambda: model(x))
     batches_np = [rng.normal(0, 1, (B, T, V, 2)).astype(np.float32)
                   for _ in range(4)]
@@ -1242,7 +1751,17 @@ def main() -> int:
     route_launches = route_train_phase(dev, gen)
     route_totals = route_time_phase(dev, gen, peak_flops, peak_bytes)
 
-    # ---- 12. kernels --------------------------------------------------------
+    # ---- 12. save_kernel, 13. fused_train, 14. checkpoint, 15. fused_time:
+    # the all-fused loop ------------------------------------------------------
+    save_errors = save_kernel_phase(dev, gen)
+    fused = fused_train_phase(dev, gen)
+    checkpoint_phase(fused)
+    fused_launches = fused["launches"]
+    del fused
+    save_totals = fused_time_phase(dev, gen, peak_flops, peak_bytes,
+                                   train["totals"])
+
+    # ---- 16. kernels --------------------------------------------------------
     kernels = [{
         "name": "block_eval",
         "route": "cuda",
@@ -1284,7 +1803,13 @@ def main() -> int:
         "(_fwd_kernel :116, _make_dx_kernel :193, _make_dw_kernel :271); "
         "stgcn_tpu/kernels/temporal_conv_vm.py:327 temporal_conv_fused_vm "
         "(_shiftsum_kernel :69, _make_dw_kernel :233)",
-        route_launches, conv_errors, route_totals)]
+        route_launches, conv_errors, route_totals),
+        train_kernel_entry(
+        "spatial_block_save",
+        "stgcn_tpu_torch/kernels/csrc/spatial_block.cu",
+        "stgcn_tpu/kernels/block_fused.py:737 spatial_block_vm_save "
+        "(_spatial_fwd_kernel_save :495, _spatial_bwd_kernel_saved :523)",
+        fused_launches, save_errors, save_totals)]
     print(smi, flush=True)      # the card again, near the end of the output
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

@@ -1,8 +1,7 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
 Which TPU kernel of the JAX package each one stands for (the Pallas entry
-points are listed in PERF.md; the ones not named here are still to be
-ported, ROADMAP.md queue 2):
+points are listed in PERF.md; every one of them has a counterpart here):
 
 =====================  =====================================================
 Port kernel            Replaces
@@ -19,6 +18,12 @@ forward and backward)  ``_spatial_bwd_kernel``), and
                        ``spatial_block_packed`` (``_sp_fwd_kernel``,
                        ``_sp_bwd_kernel``): both compute the train path's
                        affine(+ReLU) + K-partition graph conv
+``spatial_block_save`` ``stgcn_tpu/kernels/block_fused.py``
+(``csrc/spatial_block.cu`` ``spatial_block_vm_save``
+with SAVE, forward     (``_spatial_fwd_kernel_save``,
+and backward)          ``_spatial_bwd_kernel_saved``): spatial_block's
+                       function, the forward also saving the rounded
+                       expansion y_k that the backward reads for dA
 ``temporal_block``     ``stgcn_tpu/kernels/block_fused.py``
 (``csrc/temporal_block.cu``, ``temporal_block_vm`` (``_temporal_fwd_kernel``,
 forward and backward)  ``_temporal_bwd_kernel``), and
@@ -46,7 +51,8 @@ Every wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its kernel, or raises, for a CUDA tensor; it counts its launches in
 a ``launches`` attribute (the train and conv ops have one wrapper, and one
 count, for the forward and one for the backward kernel; the conv ops count
-both layouts together).  ``_build`` compiles
+both layouts together; ``spatial_block_save`` counts apart from
+``spatial_block``).  ``_build`` compiles
 ``csrc/`` with ``nvcc`` at first use and loads the library with
 ``ctypes``.
 """

@@ -39,6 +39,10 @@ BLOCK_EVAL_ARGTYPES = [_P] * 14 + [_I] * 17 + [_P]
 SPATIAL_FWD_ARGTYPES = [_P] * 7 + [_I] * 9 + [_P]
 # spatial_block_bwd_launch(11 pointers, 11 ints, stream)
 SPATIAL_BWD_ARGTYPES = [_P] * 11 + [_I] * 11 + [_P]
+# spatial_block_save_fwd_launch(8 pointers, 9 ints, stream)
+SPATIAL_SAVE_FWD_ARGTYPES = [_P] * 8 + [_I] * 9 + [_P]
+# spatial_block_save_bwd_launch(11 pointers, 10 ints, stream)
+SPATIAL_SAVE_BWD_ARGTYPES = [_P] * 11 + [_I] * 10 + [_P]
 # temporal_block_fwd_launch(6 pointers, 12 ints, stream)
 TEMPORAL_FWD_ARGTYPES = [_P] * 6 + [_I] * 12 + [_P]
 # temporal_block_bwd_launch(8 pointers, 13 ints, stream)
@@ -56,6 +60,8 @@ ENTRY_POINTS = {
     "block_eval_launch": BLOCK_EVAL_ARGTYPES,
     "spatial_block_fwd_launch": SPATIAL_FWD_ARGTYPES,
     "spatial_block_bwd_launch": SPATIAL_BWD_ARGTYPES,
+    "spatial_block_save_fwd_launch": SPATIAL_SAVE_FWD_ARGTYPES,
+    "spatial_block_save_bwd_launch": SPATIAL_SAVE_BWD_ARGTYPES,
     "temporal_block_fwd_launch": TEMPORAL_FWD_ARGTYPES,
     "temporal_block_bwd_launch": TEMPORAL_BWD_ARGTYPES,
     "spatial_conv_fwd_launch": SPATIAL_CONV_FWD_ARGTYPES,

@@ -3,19 +3,26 @@
 // spatial op (an affine and ReLU first); spatial_conv is the plain graph
 // convolution of the standalone-conv routes.
 //
-// Replaces four Pallas TPU kernels of the JAX package:
+// Replaces five Pallas TPU kernels of the JAX package:
 //   * stgcn_tpu/kernels/block_fused.py  spatial_block_vm
 //       (_spatial_fwd_kernel, _spatial_bwd_kernel)
+//   * stgcn_tpu/kernels/block_fused.py  spatial_block_vm_save
+//       (_spatial_fwd_kernel_save, _spatial_bwd_kernel_saved)
 //   * stgcn_tpu/kernels/block_packed.py spatial_block_packed
 //       (_sp_fwd_kernel, _sp_bwd_kernel)
 //   * stgcn_tpu/kernels/spatial_conv.py spatial_conv_fused
 //       (_fwd_kernel, _bwd_kernel), on (N, T, V, C)
 //   * stgcn_tpu/kernels/spatial_conv.py spatial_conv_fused_vm
 //       (_fwd_kernel_vm, _bwd_kernel_vm), on V-major (V, M, C)
-// The first two compute spatial_block's function, the last two
+// The first three compute spatial_block's function, the last two
 // spatial_conv's, which is spatial_block's with the affine and ReLU taken
 // out.  The template flag AFF keeps or drops the affine, the ReLU, the ds1
-// and dt1 sums and their scratch, and the multiply of dx by s1.  The
+// and dt1 sums and their scratch, and the multiply of dx by s1.  The flag
+// SAVE (with AFF; spatial_block_save) makes the forward also write every
+// rounded expansion y_k to a saved tensor, and the backward read y_k from
+// it for dA where it would otherwise recompute it.  The saved tensor is
+// (K, V, M, C_out) in T: partition k's y_k has z's own layout, so the
+// backward reads each (frame, joint) row of it as it reads g.  The
 // packed variant's two frames per 128-lane row and the 128-lane channel
 // padding were TPU layout workarounds; these kernels take the logical
 // layouts and any channel count (C_in = 2 for the first block).  Dims.vmajor
@@ -34,7 +41,8 @@
 //   dh    = sum_k t_k . W_k^T
 //   dpre  = dh [* [pre > 0]] (relu1 only),  dx = round(dpre [* s1])
 //   dW_k  = h^T . t_k,  db_k = sum t_k
-//   dA_k  = g . round(h . W_k + b_k)^T            (need_da only)
+//   dA_k  = g . round(h . W_k + b_k)^T            (need_da only; with SAVE
+//                                                  the saved y_k)
 //   [ds1  = sum dpre * x,  dt1 = sum dpre]
 // dW, db, dA, ds1 and dt1 sum over all M*V rows: each CTA of the backward
 // keeps float32 partial sums in its slice of a scratch tensor and a second
@@ -47,7 +55,10 @@
 // up to 0.06 ms of tensor-core time against up to 0.04 ms of memory time:
 // the bound is set by bytes for C_in = 2 and 64 and by operations above.
 // The backward does two to three times the operations (the y_k recompute
-// for dA, the t_k and dh products) and moves x, g and dx.
+// for dA, the t_k and dh products) and moves x, g and dx.  SAVE trades the
+// recompute's 2*M*V*C_in*K*C_out operations for K*M*V*C_out*sizeof(T)
+// bytes written by the forward and read by the backward: 125 MB a block
+// at blocks 8-9 (M = 4,864, C_in = C_out = 256, K = 2, bf16), 32 GFLOP.
 //
 // Design.  This first version is scalar FMA on the CUDA cores, far from that
 // bound on purpose: the simple kernel that is right.  A CTA of 256 threads
@@ -61,7 +72,7 @@
 // plan_frames; one frame at C_in = C_out = 256).  Tensor-core tiles are
 // later work.
 //
-// Launch contract (checked by the Python wrappers): x, g, w, b, a in T;
+// Launch contract (checked by the Python wrappers): x, g, w, b, a, y in T;
 // s1, t1 float32 (AFF only); w is (K, C_in, C_out) and wT (K, C_out, C_in);
 // the dynamic shared memory is 4*F*V*(C_in + 2*C_out) bytes for the forward
 // and 4*F*V*(2*C_in + 3*C_out) for the backward.  Each launcher returns
@@ -101,12 +112,13 @@ __device__ __forceinline__ float spatial_in(float xv, const float* s1,
   }
 }
 
-template <typename T, bool AFF>
+// With SAVE, y_k is also written to ysave (K, V, M, C_out).
+template <typename T, bool AFF, bool SAVE>
 __global__ void __launch_bounds__(kThreads)
 spatial_fwd_kernel(const T* __restrict__ x, const float* __restrict__ s1,
                    const float* __restrict__ t1, const T* __restrict__ w,
                    const T* __restrict__ b, const T* __restrict__ a,
-                   T* __restrict__ out, Dims d) {
+                   T* __restrict__ out, T* __restrict__ ysave, Dims d) {
   extern __shared__ __align__(16) float smem[];
   const int V = d.V, C_in = d.C_in, C_out = d.C_out;
   const int m0 = blockIdx.x * d.frames;
@@ -128,12 +140,18 @@ spatial_fwd_kernel(const T* __restrict__ x, const float* __restrict__ s1,
     const T* wk = w + (size_t)k * C_in * C_out;
     const T* bk = b + (size_t)k * C_out;
     const T* ak = a + (size_t)k * V * V;
+    T* yk = SAVE ? ysave + (size_t)k * V * d.M * C_out : nullptr;
     tile_product<4, 4>(
         1, R, C_out, 1, C_in,
         [&](int, int r, int, int i) { return hs[r * C_in + i]; },
         [&](int, int, int i, int o) { return to_f(wk[i * C_out + o]); },
         [&](int, int r, int o, float acc) {
-          ys[r * C_out + o] = rnd<T>(acc + to_f(bk[o]));
+          const float y = rnd<T>(acc + to_f(bk[o]));
+          ys[r * C_out + o] = y;
+          if constexpr (SAVE) {
+            const int f = r / V, v = r - f * V;
+            yk[row_at(d, v, m0 + f, C_out) + o] = from_f<T>(y);
+          }
         });
     __syncthreads();
     const bool last = k == d.K - 1;
@@ -154,15 +172,17 @@ spatial_fwd_kernel(const T* __restrict__ x, const float* __restrict__ s1,
 }
 
 // Partial-sum slice of one CTA: dW [K][C_in][C_out], db [K][C_out],
-// dA [K][V][V], and with AFF ds1 [C_in], dt1 [C_in].
-template <typename T, bool AFF>
+// dA [K][V][V], and with AFF ds1 [C_in], dt1 [C_in].  With SAVE, dA reads
+// y_k from ysaved (K, V, M, C_out) and b is not read.
+template <typename T, bool AFF, bool SAVE>
 __global__ void __launch_bounds__(kThreads)
 spatial_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                    const float* __restrict__ s1, const float* __restrict__ t1,
                    const T* __restrict__ w, const T* __restrict__ wT,
                    const T* __restrict__ b, const T* __restrict__ a,
-                   T* __restrict__ dx, float* __restrict__ partial,
-                   long long E, int need_da, Dims d) {
+                   const T* __restrict__ ysaved, T* __restrict__ dx,
+                   float* __restrict__ partial, long long E, int need_da,
+                   Dims d) {
   extern __shared__ __align__(16) float smem[];
   const int V = d.V, C_in = d.C_in, C_out = d.C_out, K = d.K;
   const int cap = d.frames * V;
@@ -170,7 +190,7 @@ spatial_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   float* dhs = hs + cap * C_in;      // [R][C_in]  dh, then dpre
   float* gs = dhs + cap * C_in;      // [R][C_out] g
   float* ts = gs + cap * C_out;      // [R][C_out] t_k
-  float* zs = ts + cap * C_out;      // [R][C_out] y_k recomputed for dA
+  float* zs = ts + cap * C_out;      // [R][C_out] y_k (recomputed or saved)
   float* p_dw = partial + (size_t)blockIdx.x * E;
   float* p_db = p_dw + (size_t)K * C_in * C_out;
   float* p_da = p_db + (size_t)K * C_out;
@@ -200,7 +220,6 @@ spatial_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
     for (int k = 0; k < K; ++k) {
       const T* wk = w + (size_t)k * C_in * C_out;
       const T* wTk = wT + (size_t)k * C_out * C_in;
-      const T* bk = b + (size_t)k * C_out;
       const T* ak = a + (size_t)k * V * V;
       // t_k = round(A_k^T . g), per frame
       tile_product<4, 4>(
@@ -210,7 +229,15 @@ spatial_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
           [&](int f, int wj, int o, float acc) {
             ts[(f * V + wj) * C_out + o] = rnd<T>(acc);
           });
-      if (need_da)  // y_k = round(h . W_k + b_k)
+      if constexpr (SAVE) {  // y_k as the forward saved it
+        const T* yk = ysaved + (size_t)k * V * d.M * C_out;
+        for (int e = threadIdx.x; e < R * C_out; e += blockDim.x) {
+          const int r = e / C_out, o = e - r * C_out;
+          const int f = r / V, v = r - f * V;
+          zs[e] = to_f(yk[row_at(d, v, m0 + f, C_out) + o]);
+        }
+      } else if (need_da) {  // y_k = round(h . W_k + b_k)
+        const T* bk = b + (size_t)k * C_out;
         tile_product<4, 4>(
             1, R, C_out, 1, C_in,
             [&](int, int r, int, int i) { return hs[r * C_in + i]; },
@@ -218,6 +245,7 @@ spatial_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
             [&](int, int r, int o, float acc) {
               zs[r * C_out + o] = rnd<T>(acc + to_f(bk[o]));
             });
+      }
       __syncthreads();
       // dW_k += h^T . t_k
       tile_product<4, 4>(
@@ -295,11 +323,12 @@ long long partial_size(const Dims& d, bool aff) {
          (long long)d.K * d.V * d.V + (aff ? 2LL * d.C_in : 0LL);
 }
 
-template <typename T, bool AFF>
+template <typename T, bool AFF, bool SAVE = false>
 cudaError_t launch_fwd(const void* x, const void* s1, const void* t1,
                        const void* w, const void* b, const void* a, void* out,
-                       const Dims& d, int smem_bytes, cudaStream_t stream) {
-  auto kernel = spatial_fwd_kernel<T, AFF>;
+                       const Dims& d, int smem_bytes, cudaStream_t stream,
+                       void* ysave = nullptr) {
+  auto kernel = spatial_fwd_kernel<T, AFF, SAVE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
@@ -308,17 +337,18 @@ cudaError_t launch_fwd(const void* x, const void* s1, const void* t1,
       static_cast<const T*>(x), static_cast<const float*>(s1),
       static_cast<const float*>(t1), static_cast<const T*>(w),
       static_cast<const T*>(b), static_cast<const T*>(a),
-      static_cast<T*>(out), d);
+      static_cast<T*>(out), static_cast<T*>(ysave), d);
   return cudaGetLastError();
 }
 
-template <typename T, bool AFF>
+template <typename T, bool AFF, bool SAVE = false>
 cudaError_t launch_bwd(const void* x, const void* g, const void* s1,
                        const void* t1, const void* w, const void* wT,
                        const void* b, const void* a, void* dx, void* partial,
                        void* grads, int ctas, int need_da, const Dims& d,
-                       int smem_bytes, cudaStream_t stream) {
-  auto kernel = spatial_bwd_kernel<T, AFF>;
+                       int smem_bytes, cudaStream_t stream,
+                       const void* ysaved = nullptr) {
+  auto kernel = spatial_bwd_kernel<T, AFF, SAVE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
@@ -328,7 +358,8 @@ cudaError_t launch_bwd(const void* x, const void* g, const void* s1,
       static_cast<const float*>(s1), static_cast<const float*>(t1),
       static_cast<const T*>(w), static_cast<const T*>(wT),
       static_cast<const T*>(b), static_cast<const T*>(a),
-      static_cast<T*>(dx), static_cast<float*>(partial), E, need_da, d);
+      static_cast<const T*>(ysaved), static_cast<T*>(dx),
+      static_cast<float*>(partial), E, need_da, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return train::launch_reduce(static_cast<const float*>(partial),
@@ -386,6 +417,40 @@ extern "C" int spatial_block_bwd_launch(
                        : launch_bwd<float, true>(x, g, s1, t1, w, wT, b, a,
                                                  dx, partial, grads, ctas,
                                                  need_da, d, smem_bytes, s));
+}
+
+// spatial_block_save: the forward also writes y (K, V, M, C_out) in T, and
+// the backward reads it for dA (grads as spatial_block_bwd_launch's, with
+// dA always computed; b is not needed).
+extern "C" int spatial_block_save_fwd_launch(
+    const void* x, const void* s1, const void* t1, const void* w,
+    const void* b, const void* a, void* out, void* y, int V, int M, int C_in,
+    int C_out, int K, int frames, int relu1, int is_bf16, int smem_bytes,
+    void* stream) {
+  if (frames < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(V, M, C_in, C_out, K, frames, relu1, 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? launch_fwd<__nv_bfloat16, true, true>(
+                             x, s1, t1, w, b, a, out, d, smem_bytes, s, y)
+                       : launch_fwd<float, true, true>(
+                             x, s1, t1, w, b, a, out, d, smem_bytes, s, y));
+}
+
+extern "C" int spatial_block_save_bwd_launch(
+    const void* x, const void* g, const void* y, const void* s1,
+    const void* t1, const void* w, const void* wT, const void* a, void* dx,
+    void* partial, void* grads, int V, int M, int C_in, int C_out, int K,
+    int frames, int ctas, int relu1, int is_bf16, int smem_bytes,
+    void* stream) {
+  if (bad_bwd_args(M, frames, ctas)) return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(V, M, C_in, C_out, K, frames, relu1, 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? launch_bwd<__nv_bfloat16, true, true>(
+                             x, g, s1, t1, w, wT, nullptr, a, dx, partial,
+                             grads, ctas, 1, d, smem_bytes, s, y)
+                       : launch_bwd<float, true, true>(
+                             x, g, s1, t1, w, wT, nullptr, a, dx, partial,
+                             grads, ctas, 1, d, smem_bytes, s, y));
 }
 
 // The plain graph convolution: vmajor = 1 for (V, M, C) tensors, 0 for

@@ -1,10 +1,13 @@
 """Whole-network forwards built on the fused block kernels.
 
-Eval: port of ``fused_block_args`` and ``fused_eval_forward``
-(``stgcn_tpu/models/fused.py:23-160``).  BatchNorms fold into per-channel
-affines from the running statistics, and every block runs as one
+Eval: port of ``fused_block_args``, ``fused_eval_forward`` and
+``hybrid_eval_forward`` (``stgcn_tpu/models/fused.py:23-160``, ``:465-513``),
+on the parameter dictionaries of :meth:`STGCN.init_params` or
+:meth:`STGCN.params_and_state`.  BatchNorms fold into per-channel affines
+from the running statistics, and every fused block runs as one
 :func:`stgcn_tpu_torch.kernels.block_eval.block_eval` call whose
-spatial->temporal intermediate stays on chip.  Blocks pass logical
+spatial->temporal intermediate stays on chip; the hybrid runs the other
+blocks on the ``(N, T, V, C)`` op chain.  Blocks pass logical
 ``(V, N, T, C)`` tensors to each other: the TPU version's padded-T and
 packed-row chaining were layout workarounds for Mosaic and have no
 counterpart here, so the port also has no counterpart of the fault in the
@@ -14,9 +17,10 @@ The global pool and the classifier head stay plain PyTorch.
 Train: port of ``_bn_affine_train``, ``block_forward_fused_train``,
 ``fused_train_forward``, ``hybrid_fused_set`` and ``hybrid_train_forward``
 (``stgcn_tpu/models/fused.py:174-462``).  A fused train block is two
-differentiable ops, ``kernels.spatial_block.spatial_block`` and
-``kernels.temporal_block.temporal_block``, with the
-BatchNorm batch statistics outside them as a differentiable per-channel
+differentiable ops, ``kernels.spatial_block.spatial_block`` (or
+``spatial_block_save`` where the graph trains and ``C_in >= 256``, as the
+JAX package routes it) and ``kernels.temporal_block.temporal_block``, with
+the BatchNorm batch statistics outside them as a differentiable per-channel
 affine, so the whole BN gradient flows through the ops' ``ds``/``dt``.  The
 shortcut add, the final ReLU and dropout stay plain PyTorch.  The hybrid
 runs the blocks of ``hybrid_fused_set`` fused on V-major ``(V, N, T, C)``
@@ -31,7 +35,10 @@ from __future__ import annotations
 import torch
 
 from stgcn_tpu_torch.kernels.block_eval import block_eval
-from stgcn_tpu_torch.kernels.spatial_block import spatial_block
+from stgcn_tpu_torch.kernels.spatial_block import (
+    spatial_block,
+    spatial_block_save,
+)
 from stgcn_tpu_torch.kernels.temporal_block import temporal_block
 from stgcn_tpu_torch.ops.batchnorm import (
     batch_moments,
@@ -40,7 +47,11 @@ from stgcn_tpu_torch.ops.batchnorm import (
     running_update,
     stat_dtype,
 )
-from stgcn_tpu_torch.ops.block import block_forward_train, effective_adjacency
+from stgcn_tpu_torch.ops.block import (
+    block_forward,
+    block_forward_train,
+    effective_adjacency,
+)
 from stgcn_tpu_torch.ops.common import dropout, linear
 from stgcn_tpu_torch.models.stgcn import _cast_tree
 
@@ -48,8 +59,8 @@ from stgcn_tpu_torch.models.stgcn import _cast_tree
 def fused_block_args(bp: dict, bs: dict, adjacency: torch.Tensor, *,
                      residual: bool, stride: int) -> dict:
     """Fold one block's parameters and BN statistics (the JAX package's
-    layout, as ``STGCNBlock.params_and_state`` gives them) into
-    ``block_eval`` arguments."""
+    layout, as :meth:`STGCN.init_params` or ``STGCNBlock.params_and_state``
+    give them) into ``block_eval`` arguments."""
     s1, t1 = fold_batchnorm_eval(bp["bn1"], bs["bn1"])
     s2, t2 = fold_batchnorm_eval(bp["bn2"], bs["bn2"])
     wr = br = None
@@ -68,9 +79,11 @@ def fused_block_args(bp: dict, bs: dict, adjacency: torch.Tensor, *,
         relu1=residual)
 
 
-def fused_eval_forward(model, x: torch.Tensor,
-                       time_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Eval logits of ``model`` (an ``STGCN``), one kernel per block.
+def fused_eval_forward(model, params: dict, state: dict, x: torch.Tensor,
+                       *, time_mask: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """Eval logits of ``model`` (an ``STGCN``) with the weights ``params``
+    and BN statistics ``state``, one kernel per block.
 
     Args:
       x: ``(N, T, V, C_in)`` batch on the model's device.
@@ -88,25 +101,73 @@ def fused_eval_forward(model, x: torch.Tensor,
         lengths = time_mask.to(torch.int32).sum(dim=1)
         h = h * time_mask[:, :, None, None].to(h.dtype)
     h = h.permute(2, 0, 1, 3).contiguous()          # (V, N, T, C)
-    for block in model.conv:
-        bp, bs = block.params_and_state()
-        kw = fused_block_args(bp, bs, model.adjacency, residual=cfg.residual,
-                              stride=block.stride)
+    for i, (_, stride) in enumerate(cfg.plan):
+        kw = fused_block_args(params["blocks"][i], state["blocks"][i],
+                              model.adjacency, residual=cfg.residual,
+                              stride=stride)
         h = block_eval(h, **kw, lengths=lengths)
         if lengths is not None:
             # valid frames after a same-padded strided conv: ceil(len / s)
-            lengths = (lengths - 1) // block.stride + 1
-    acc = stat_dtype(h)
+            lengths = (lengths - 1) // stride + 1
     if lengths is None:
-        pooled = h.to(acc).mean(dim=(0, 2))
-    else:
-        valid = (torch.arange(h.shape[2], device=h.device)[None, :]
-                 < lengths[:, None])
-        m = valid[None, :, :, None].to(acc)
-        total = (h.to(acc) * m).sum(dim=(0, 2))
-        count = lengths[:, None].to(acc) * h.shape[0]
-        pooled = total / torch.clamp(count, min=1.0)
-    logits = linear(model.head_params(h.dtype), pooled.to(h.dtype))
+        return _pool_head(cfg, params, h, (0, 2))
+    acc = stat_dtype(h)
+    valid = (torch.arange(h.shape[2], device=h.device)[None, :]
+             < lengths[:, None])
+    m = valid[None, :, :, None].to(acc)
+    total = (h.to(acc) * m).sum(dim=(0, 2))
+    count = lengths[:, None].to(acc) * h.shape[0]
+    return _head(cfg, params, total / torch.clamp(count, min=1.0), h.dtype)
+
+
+def hybrid_eval_forward(model, params: dict, state: dict,
+                        x: torch.Tensor) -> torch.Tensor:
+    """Eval logits: the blocks of :func:`hybrid_fused_set` as one
+    ``block_eval`` launch each on V-major activations, the others on the
+    ``(N, T, V, C)`` op chain (its ``spatial_impl``/``temporal_impl``),
+    transposing only where the regime changes."""
+    cfg = model.config
+    cd = cfg.compute_dtype
+    fused_set = hybrid_fused_set(cfg)
+    h, layout = x.to(cd or cfg.dtype), "ntvc"
+    for i, (_, stride) in enumerate(cfg.plan):
+        h, layout = _to_layout(h, layout,
+                               "vntc" if i in fused_set else "ntvc")
+        bp, bs = params["blocks"][i], state["blocks"][i]
+        if layout == "vntc":
+            h = block_eval(h, **fused_block_args(
+                bp, bs, model.adjacency, residual=cfg.residual,
+                stride=stride))
+        else:
+            h = block_forward(
+                _cast_tree(bp, cd) if cd else bp, bs, h, model.adjacency,
+                stride=stride, residual=cfg.residual, compute_dtype=cd,
+                spatial_impl=cfg.spatial_impl,
+                temporal_impl=cfg.temporal_impl)
+    return _pool_head(cfg, params, h, (0, 2) if layout == "vntc" else (1, 2))
+
+
+def _to_layout(h: torch.Tensor, layout: str, want: str
+               ) -> tuple[torch.Tensor, str]:
+    """``h`` transposed between ``(N, T, V, C)`` ("ntvc") and
+    ``(V, N, T, C)`` ("vntc") if ``want`` differs from ``layout``."""
+    if want == layout:
+        return h, layout
+    perm = (2, 0, 1, 3) if want == "vntc" else (1, 2, 0, 3)
+    return h.permute(perm).contiguous(), want
+
+
+def _pool_head(cfg, params: dict, h: torch.Tensor, axes) -> torch.Tensor:
+    """Logits from the float32 mean of ``h`` over the joint and frame
+    ``axes``."""
+    return _head(cfg, params, h.to(stat_dtype(h)).mean(dim=axes), h.dtype)
+
+
+def _head(cfg, params: dict, pooled: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """The classifier on ``pooled`` cast to the activations' ``dtype``, its
+    weights cast alike (the op path casts every weight at ``apply``)."""
+    logits = linear(_cast_tree(params["fc"], dtype), pooled.to(dtype))
     if cfg.final_softmax:
         logits = torch.softmax(logits, dim=-1)
     return logits
@@ -144,9 +205,14 @@ def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
     s1, t1, new_state["bn1"] = bn_affine_train(bp["bn1"], bs["bn1"], x)
     # a fixed graph has no trained adjacency: skip the backward's y_k pass
     need_da = "A" in bp or "mask" in bp
-    z = spatial_block(x, s1, t1, bp["spatial"]["w"].to(cd),
-                      bp["spatial"]["b"].to(cd), a, relu1=residual,
-                      need_da=need_da)
+    w, b = bp["spatial"]["w"].to(cd), bp["spatial"]["b"].to(cd)
+    if need_da and x.shape[-1] >= 256:
+        # wide blocks save y_k for dA rather than recompute it, as the JAX
+        # package routes them (stgcn_tpu/models/fused.py:259-268)
+        z = spatial_block_save(x, s1, t1, w, b, a, relu1=residual)
+    else:
+        z = spatial_block(x, s1, t1, w, b, a, relu1=residual,
+                          need_da=need_da)
     acc = stat_dtype(x)
     if residual:
         s2, t2, new_state["bn2"] = bn_affine_train(bp["bn2"], bs["bn2"], z)
@@ -189,12 +255,9 @@ def _train_forward(model, params: dict, state: dict, x: torch.Tensor,
     h, layout = x.to(cd or cfg.dtype), "ntvc"
     new_blocks = []
     for i, (_, stride) in enumerate(cfg.plan):
-        want = "vntc" if i in fused_set else "ntvc"
-        if want != layout:
-            h = h.permute((2, 0, 1, 3) if want == "vntc" else (1, 2, 0, 3))
-            h = h.contiguous()
-            layout = want
-        if want == "vntc":
+        h, layout = _to_layout(h, layout,
+                               "vntc" if i in fused_set else "ntvc")
+        if layout == "vntc":
             h, s = block_forward_fused_train(
                 params["blocks"][i], state["blocks"][i], h, model.adjacency,
                 stride=stride, residual=cfg.residual,
@@ -208,11 +271,8 @@ def _train_forward(model, params: dict, state: dict, x: torch.Tensor,
                 generator=generator, spatial_impl=cfg.spatial_impl,
                 temporal_impl=cfg.temporal_impl)
         new_blocks.append(s)
-    pooled = h.to(stat_dtype(h)).mean(dim=(0, 2) if layout == "vntc"
-                                      else (1, 2))
-    logits = linear(_cast_tree(params["fc"], h.dtype), pooled.to(h.dtype))
-    if cfg.final_softmax:
-        logits = torch.softmax(logits, dim=-1)
+    logits = _pool_head(cfg, params, h, (0, 2) if layout == "vntc"
+                        else (1, 2))
     return logits, {"blocks": new_blocks}
 
 

@@ -21,10 +21,12 @@ the oracle of the fused forward in :mod:`stgcn_tpu_torch.models.fused`.
 Training works on parameter dictionaries in the JAX package's layout, as
 its ``STGCN.init``/``apply`` do: :meth:`STGCN.init_params` draws them
 (mask mode keeps ``mask`` apart from the fixed adjacency, since Adam walks
-the mask), and :meth:`STGCN.apply` runs the train forward on the op path,
-the fused ops or the hybrid (``block_impl``), returning ``(logits,
-new_state)``.  ``stgcn_tpu_torch.models.convert.state_dict_from_params``
-folds trained dictionaries back into the reference-named state dict.
+the mask), :meth:`STGCN.params_and_state` gives the module's own weights in
+that layout, and :meth:`STGCN.apply` runs the train or eval forward on the
+op path, the fused kernels or the hybrid (``block_impl``), returning
+``(logits, new_state)``.
+``stgcn_tpu_torch.models.convert.state_dict_from_params`` folds trained
+dictionaries back into the reference-named state dict.
 """
 
 from __future__ import annotations
@@ -301,6 +303,14 @@ class STGCN(nn.Module):
         _uniform_(self.fc_layer.weight, c_prev, gen)
         _uniform_(self.fc_layer.bias, c_prev, gen)
 
+    def params_and_state(self) -> tuple[dict, dict]:
+        """The module's weights and BN statistics as parameter dictionaries
+        (views, not copies; each block's ``A`` is its effective
+        adjacency), for :meth:`apply` and the fused eval forward."""
+        pairs = [block.params_and_state() for block in self.conv]
+        return ({"blocks": [p for p, _ in pairs], "fc": self.head_params()},
+                {"blocks": [s for _, s in pairs]})
+
     def head_params(self, dtype: torch.dtype | None = None) -> dict:
         p = {"w": self.fc_layer.weight.t(), "b": self.fc_layer.bias}
         return _cast_tree(p, dtype) if dtype is not None else p
@@ -378,28 +388,37 @@ class STGCN(nn.Module):
 
         ``train=True`` uses batch statistics, returns new running
         statistics and applies dropout from ``generator`` (on ``x``'s
-        device); ``block_impl`` picks the op chain, the fused ops or the
-        hybrid.  ``train=False`` runs the op chain whatever ``block_impl``
-        says (the fused eval forward of parameter dictionaries is not ported)
-        and returns ``state`` unchanged.  The op chain runs on the route of
-        ``layout``, ``spatial_impl`` and ``temporal_impl``, in train and
-        eval.  ``time_mask`` works on the op chain only, as in the JAX
-        package's train step.
+        device); ``train=False`` uses the running statistics and returns
+        ``state`` unchanged.  As in the JAX package's ``apply``,
+        ``block_impl`` picks the path in both modes: "ops" the op chain, on
+        the route of ``layout``, ``spatial_impl`` and ``temporal_impl``;
+        "fused" the fused train ops or, in eval, one ``block_eval`` kernel
+        per block (:func:`~stgcn_tpu_torch.models.fused.fused_eval_forward`);
+        "hybrid" the same for the blocks of ``hybrid_fused_set`` and the op
+        chain for the rest.  ``time_mask`` works on the op chain and on the
+        fused eval; elsewhere it raises ``ValueError``, as the JAX package
+        does.
         """
         cfg = self.config
-        if train and cfg.block_impl != "ops":
-            if time_mask is not None:
+        if cfg.block_impl != "ops":
+            masked_eval_ok = cfg.block_impl == "fused" and not train
+            if time_mask is not None and not masked_eval_ok:
                 raise ValueError(
-                    f"block_impl={cfg.block_impl!r} cannot train with a "
-                    "time_mask; use block_impl='ops' for masked training")
-            from stgcn_tpu_torch.models.fused import (
-                fused_train_forward,
-                hybrid_train_forward,
-            )
+                    f"block_impl={cfg.block_impl!r} cannot take a time_mask "
+                    "outside fused EVAL; use block_impl='ops' for masked-"
+                    "train runs")
+            from stgcn_tpu_torch.models import fused
 
-            forward = (hybrid_train_forward if cfg.block_impl == "hybrid"
-                       else fused_train_forward)
-            return forward(self, params, state, x, generator=generator)
+            hybrid = cfg.block_impl == "hybrid"
+            if train:
+                forward = (fused.hybrid_train_forward if hybrid
+                           else fused.fused_train_forward)
+                return forward(self, params, state, x, generator=generator)
+            if hybrid:
+                return fused.hybrid_eval_forward(self, params, state,
+                                                 x), state
+            return fused.fused_eval_forward(self, params, state, x,
+                                            time_mask=time_mask), state
         if train and cfg.dropout_rate > 0 and generator is None:
             raise ValueError("training with dropout needs a generator")
         cd = cfg.compute_dtype

@@ -14,8 +14,9 @@ Example::
     predictor = Predictor(model)             # runs on the GPU
     out = predictor.predict(list_of_sequences)
 
-Loading the JAX package's ``.npz`` checkpoints (``from_checkpoint``) waits
-for the training slice of the port.
+``Predictor.from_checkpoint`` serves the weights and BN statistics of a
+``.npz`` checkpoint, written by the port's or the JAX package's
+``save_checkpoint``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from stgcn_tpu_torch.data.collate import (
     wrap_pad,
 )
 from stgcn_tpu_torch.graph.skeleton import label_number_to_name
+from stgcn_tpu_torch.models.convert import state_dict_from_params
 from stgcn_tpu_torch.models.fused import fused_eval_forward
 from stgcn_tpu_torch.models.stgcn import STGCN, STGCNConfig
 
@@ -93,6 +95,24 @@ class Predictor:
         model.load_state_dict(sd)
         return cls(model, **kw)
 
+    @classmethod
+    def from_checkpoint(cls, checkpoint_base: str, config: STGCNConfig,
+                        distances: np.ndarray | None = None,
+                        **kw) -> "Predictor":
+        """A predictor from ``checkpoint_base.npz`` (port of the JAX
+        ``Predictor.from_checkpoint``): the parameters and BN statistics
+        only, so a checkpoint of any optimizer serves."""
+        from stgcn_tpu_torch.training.checkpoint import restore_checkpoint
+
+        model = STGCN(config, distances=distances)
+        params, state = model.init_params(0)
+        tree = restore_checkpoint(checkpoint_base,
+                                  {"params": params, "model_state": state})
+        model.load_state_dict(state_dict_from_params(
+            tree["params"], tree["model_state"], residual=config.residual,
+            adjacency=model.adjacency))
+        return cls(model, **kw)
+
     def _padded_batch(self, n: int) -> int:
         if n >= self.max_batch or self.batch_pad == "none":
             return n
@@ -106,7 +126,8 @@ class Predictor:
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             if self.use_fused:
-                logits = fused_eval_forward(self.model, x)
+                logits = fused_eval_forward(
+                    self.model, *self.model.params_and_state(), x)
             else:
                 logits = self.model(x)
             return torch.softmax(logits, dim=-1)

@@ -18,8 +18,12 @@ from stgcn_tpu_torch.training import metrics as M
 from stgcn_tpu_torch.training.train_state import TrainState, step_generator
 
 
-def make_train_step(model) -> Callable:
-    """``step(ts, x, y) -> {"loss", "acc"}``.
+def make_train_step(model, *, use_time_mask: bool = False) -> Callable:
+    """``step(ts, x, y, time_mask=None) -> {"loss", "acc"}``.
+
+    With ``use_time_mask`` the step passes an ``(N, T)`` validity mask to
+    the forward, so the global pool ignores padded frames (the op path
+    only, as in the JAX package); without it a given mask is ignored.
 
     Updates ``ts`` in place: its parameters (by ``ts.optimizer``, which
     ``create_train_state`` built, so unlike the JAX step this one takes no
@@ -28,13 +32,15 @@ def make_train_step(model) -> Callable:
     step's gradient.
     """
 
-    def step(ts: TrainState, x: torch.Tensor, y: torch.Tensor) -> dict:
+    def step(ts: TrainState, x: torch.Tensor, y: torch.Tensor,
+             time_mask: torch.Tensor | None = None) -> dict:
         gen = None
         if model.config.dropout_rate > 0:
             gen = step_generator(ts.seed, ts.step, x.device)
         ts.optimizer.zero_grad(set_to_none=True)
-        logits, new_state = model.apply(ts.params, ts.model_state, x,
-                                        train=True, generator=gen)
+        logits, new_state = model.apply(
+            ts.params, ts.model_state, x, train=True, generator=gen,
+            time_mask=time_mask if use_time_mask else None)
         loss = M.cross_entropy(logits, y)
         loss.backward()
         ts.optimizer.step()

@@ -6,7 +6,9 @@ hold leaf tensors with ``requires_grad`` that the optimizer updates in
 place, and the train step replaces ``model_state`` and advances ``step``.
 Dropout draws from a generator made per step from ``(seed, step)``, which
 stands where the JAX step uses ``fold_in(rng, step)``; the two frameworks'
-random bits differ.
+random bits differ.  A checkpoint stores the seed under the JAX package's
+``rng#prngkey`` key as threefry key data, and reads any such key data back
+as an integer seed (:mod:`stgcn_tpu_torch.training.checkpoint`).
 """
 
 from __future__ import annotations

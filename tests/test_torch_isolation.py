@@ -2,9 +2,10 @@
 
 The GPU machine the port runs on has torch, numpy, scipy, einops, pytest and
 hypothesis, and no jax, jaxlib, pandas, ml_dtypes or optax.  A subprocess
-recreates that with an import hook, serves a prediction and takes one
-hybrid train step on the CPU; an AST scan checks every module of the port
-and ``chip_smoke.py``.
+recreates that with an import hook, serves a prediction, takes one hybrid
+train step, saves and restores a checkpoint, runs an eval step and serves
+from the checkpoint on the CPU; an AST scan checks every module of the
+port and ``chip_smoke.py``.
 """
 
 import ast
@@ -76,6 +77,22 @@ SCRIPT = textwrap.dedent("""
     x = torch.from_numpy(rng.normal(0, 1, (2, 16, 25, 2)).astype(np.float32))
     metrics = make_train_step(train_model)(ts, x, torch.tensor([1, 4]))
     assert bool(torch.isfinite(metrics["loss"])), metrics
+
+    import tempfile
+    from stgcn_tpu_torch.training import checkpoint
+    from stgcn_tpu_torch.training.loop import make_eval_step
+
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_checkpoint(d + "/ckpt_1", ts, {{"step": 1}})
+        fresh = create_train_state(train_model, adam(1e-3), seed=5,
+                                   device="cpu")
+        checkpoint.restore_checkpoint(checkpoint.latest_checkpoint(d), fresh)
+        assert fresh.step == 1 and fresh.seed == 0
+        sums = make_eval_step(train_model)(fresh, x, torch.tensor([1, 4]))
+        assert int(sums["count"]) == 2, sums
+        served = Predictor.from_checkpoint(d + "/ckpt_1", cfg, max_batch=2,
+                                           device="cpu")
+        assert served.predict([x[0].numpy()]).probs.shape == (1, 6)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
     assert not loaded, loaded
     print("ISOLATED-OK")

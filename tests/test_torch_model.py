@@ -147,6 +147,12 @@ class TestSTGCN:
             assert sd["fc_layer.weight"].shape == (6, 256)
 
 
+def fused(port, x, **kw):
+    """The port's fused eval forward over the module's own weights."""
+    return fused_eval_forward(port, *port.params_and_state(), x,
+                              **kw).detach()
+
+
 class TestFusedEvalForward:
     @pytest.mark.parametrize("residual", [False, True])
     def test_matches_jax_fused_with_packed_blocks(self, rng, residual):
@@ -157,7 +163,7 @@ class TestFusedEvalForward:
         x = rng.normal(0, 1, (2, 16, 25, 2)).astype(np.float32)
         ref = jax_fused_eval(jm, params, state, jnp.asarray(x),
                              interpret=True)
-        got = fused_eval_forward(port, torch.from_numpy(x)).detach()
+        got = fused(port, torch.from_numpy(x))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                    rtol=RTOL, atol=ATOL)
 
@@ -171,8 +177,8 @@ class TestFusedEvalForward:
         mask[1, :] = True
         ref = jax_fused_eval(jm, params, state, jnp.asarray(x),
                              interpret=True, time_mask=jnp.asarray(mask))
-        got = fused_eval_forward(port, torch.from_numpy(x),
-                                 torch.from_numpy(mask)).detach()
+        got = fused(port, torch.from_numpy(x),
+                    time_mask=torch.from_numpy(mask))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                    rtol=RTOL, atol=ATOL)
         # and the masked op path agrees
@@ -189,7 +195,7 @@ class TestFusedEvalForward:
         jm, params, state, port = build_pair(jcfg, rng)
         x = rng.normal(0, 1, (2, 32, 25, 2)).astype(np.float32)
         ref, _ = jm.apply(params, state, jnp.asarray(x), train=False)
-        got = fused_eval_forward(port, torch.from_numpy(x)).detach()
+        got = fused(port, torch.from_numpy(x))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                    rtol=RTOL, atol=ATOL)
 
@@ -200,7 +206,7 @@ class TestFusedEvalForward:
         _, _, _, port = build_pair(jcfg, rng)
         x = torch.from_numpy(rng.normal(0, 1, (2, 24, 25, 2)).astype(
             np.float32))
-        np.testing.assert_allclose(fused_eval_forward(port, x).detach(),
+        np.testing.assert_allclose(fused(port, x),
                                    port(x).detach(), rtol=RTOL, atol=ATOL)
 
     def test_bf16_close_to_f32(self, rng):
@@ -209,10 +215,10 @@ class TestFusedEvalForward:
         _, _, _, port = build_pair(jcfg, rng)
         x = torch.from_numpy(rng.normal(0, 1, (2, 24, 25, 2)).astype(
             np.float32))
-        f32 = fused_eval_forward(port, x).detach()
+        f32 = fused(port, x)
         port.config = dataclasses.replace(port.config,
                                           compute_dtype=torch.bfloat16)
-        b16 = fused_eval_forward(port, x).detach()
+        b16 = fused(port, x)
         assert b16.dtype == torch.bfloat16
         np.testing.assert_allclose(b16.float().numpy(), f32.numpy(),
                                    atol=0.1, rtol=0.05)
