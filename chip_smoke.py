@@ -7,11 +7,16 @@ Phases, each printing JSON lines; the first failure ends the run with a
 non-zero exit code:
 
 1. device       -- a CUDA device is present; its name and power limit.
-2. build        -- nvcc builds the kernel library from the port's ``csrc/``.
+2. build        -- nvcc builds the kernel library from the port's ``csrc/``;
+                   then ``sass``: ``cuobjdump -sass`` counts the HMMA
+                   (tensor-core) instructions of every bf16 tensor-core
+                   kernel, and the run fails if one has none.
 3. kernel       -- ``block_eval`` against its plain PyTorch version on the
                    six block shapes of DEFAULT_PLAN at B=64, T=304 (float32
-                   tightly, bfloat16 against a float32 oracle), order "post"
-                   and masked lengths.
+                   tightly, bfloat16 against a float32 oracle and, tightly,
+                   against the plain version on the same bf16 inputs),
+                   order "post", masked lengths and an odd width (C=40,
+                   T=37, strides 1 and 2).
 4. serve        -- a full-width ``Predictor`` (DEFAULT_PLAN, distance
                    partitioning, residual, bf16) answers three requests of
                    64-200 variable-length sequences through the kernel; the
@@ -24,7 +29,10 @@ non-zero exit code:
                    versions at the shapes of DEFAULT_PLAN's blocks 0-6 at
                    B=64, T=304 (float32 tightly, bfloat16 against a float32
                    oracle), plus the non-residual order, a fixed graph and
-                   stride 2.
+                   stride 2; ``temporal_block``'s bf16 tensor-core kernels
+                   also tightly against the plain version on the same bf16
+                   inputs, its backward twice (bitwise equal), and at an
+                   odd width (C=40, T=37, strides 1 and 2).
 7. train        -- ``bench.py``'s train step through ``make_train_step``:
                    full-width DEFAULT_PLAN, bf16, dropout 0.5, the hybrid
                    with blocks 0-6 fused, Adam 1e-3, B=64, T=304; 28 op
@@ -40,7 +48,10 @@ non-zero exit code:
                    both layouts (V-major and (N, T, V, C)), against their
                    plain versions at the shapes of DEFAULT_PLAN's ten blocks
                    at B=64, T=304 (float32 tightly, bfloat16 against a
-                   float32 oracle), plus a fixed graph.
+                   float32 oracle), plus a fixed graph; ``temporal_conv``'s
+                   bf16 tensor-core kernels also tightly, its backward
+                   twice, and at an odd width (C=40, T=37, strides 1 and 2,
+                   both layouts).
 10. route_train -- the train step of route A (``layout="vntc"``) and of
                    route B (``spatial_impl``/``temporal_impl="pallas"``):
                    bench.py's configuration on the op chain; 10 launches of
@@ -88,10 +99,12 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import re
 import signal
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -105,6 +118,26 @@ F32_RTOL, F32_ATOL = 1e-4, 1e-4
 # bf16 kernel against the float32 oracle: max error within 2% of the
 # output's range (bf16 keeps 8 bits; h, y_k and z are rounded on the way).
 BF16_REL = 2e-2
+# bf16 tensor-core kernels against their plain version on the same
+# bf16-rounded inputs (which sums in float32): bf16 outputs within one bf16
+# ulp elementwise, |got - want| <= 2^-7 |want| + 1e-6 max|want| (the two
+# round the same float32 sums, taken in other orders); float32 gradients
+# within 1e-3 of the largest.
+TIGHT_ULP = 2.0 ** -7
+TIGHT_FLOOR = 1e-6
+TIGHT_GRAD_REL = 1e-3
+# block_eval rounds to bf16 three times inside (y_k, z, the projection):
+# where the two float32 sums of one of those round to neighbouring bf16
+# values, the output moves by a few ulps.  That happens to 0.01-0.02% of
+# the outputs at DEFAULT_PLAN's shapes (none at the small odd width), so
+# its tight check allows a share of 1e-3 beyond one ulp; the 2%-of-max
+# check above still holds every element.
+BLOCK_EVAL_TIGHT_SHARE = 1e-3
+# the odd width of the tensor-core checks: channel tails and the parity
+# split at both strides
+ODD_C, ODD_T = 40, 37
+# the bf16 tensor-core kernels, by the names of their symbols
+MMA_KERNELS = ("tap_gemm_kernel", "tap_dwt_kernel", "block_eval_mma_kernel")
 # f32 whole-network check and bf16 serving check
 FORWARD_REL = 1e-3
 ARGMAX_AGREEMENT = 0.99
@@ -336,9 +369,87 @@ def check_op(name, direction, got, want, dt, phase="train_kernel",
     return worst
 
 
-def train_kernel_phase(dev, gen) -> dict:
+def check_tight(name, direction, got, want, phase, share=0.0,
+                **case) -> None:
+    """A bf16 tensor-core kernel against its plain version on the same bf16
+    inputs: bf16 outputs within one ulp elementwise (all but ``share`` of
+    them), float32 gradients within TIGHT_GRAD_REL of the largest; raises
+    if not."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    outside, values, worst, grads_ok = 0, 0, 0.0, True
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs()
+        scale = w.float().abs().max().item()
+        if g.dtype == torch.bfloat16:
+            tol = TIGHT_ULP * w.float().abs() + TIGHT_FLOOR * scale
+            outside += int((err > tol).sum().item())
+            values += w.numel()
+        else:
+            grads_ok &= err.max().item() <= TIGHT_GRAD_REL * scale
+        worst = max(worst, err.max().item() / max(scale, 1e-30))
+    ok = grads_ok and outside <= share * values
+    emit(phase, op=name, direction=direction, check="tight_bf16", **case,
+         outside_one_ulp=outside, bf16_values=values, max_rel_err=worst,
+         tolerance=(f"bf16 |err| <= {TIGHT_ULP} |plain| + {TIGHT_FLOOR} "
+                    f"max|plain| (all but a share of {share}); f32 "
+                    f"gradients <= {TIGHT_GRAD_REL} max|plain|"), ok=ok)
+    if not ok:
+        raise AssertionError(f"{name} {direction}: {outside} of {values} "
+                             f"values beyond one bf16 ulp, or a gradient "
+                             f"beyond {TIGHT_GRAD_REL}, {case}")
+
+
+def check_repeat(name, first, second, phase, **case) -> None:
+    """Two runs of one bf16 backward on the same inputs: every output
+    bitwise equal (the partial sums are added in a fixed order)."""
+    import torch
+
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    emit(phase, op=name, direction="backward", check="determinism", **case,
+         bitwise_equal=same, ok=same)
+    if not same:
+        raise AssertionError(f"{name}'s backward differs between two runs: "
+                             f"{case}")
+
+
+def sass_phase(lib_path) -> dict:
+    """HMMA instructions in each bf16 tensor-core kernel of the built
+    library, from ``cuobjdump -sass`` beside ``nvcc``; fails if a kernel
+    has none, or if a family is missing."""
+    from stgcn_tpu_torch.kernels import _build
+
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts[current] = 0
+        elif current is not None and "HMMA" in line:
+            counts[current] += 1
+    hmma = {k: v for k, v in counts.items()
+            if any(name in k for name in MMA_KERNELS)}
+    ok = (all(hmma.values())
+          and all(any(name in k for k in hmma) for name in MMA_KERNELS))
+    emit("sass", cuobjdump=str(cuobjdump), kernels=len(hmma), hmma=hmma,
+         ok=ok)
+    if not ok:
+        raise AssertionError("a bf16 tensor-core kernel has no HMMA "
+                             "instruction, or is missing from the library")
+    return hmma
+
+
+def train_kernel_phase(dev, gen, odd_gen) -> dict:
     """Each train op's forward and backward kernel against its plain
-    version; returns the largest bf16 errors per (op, direction)."""
+    version; returns the largest bf16 errors per (op, direction).  The
+    odd-width cases draw from ``odd_gen``, so the other phases see the
+    inputs they saw before those cases existed."""
     import torch
 
     from stgcn_tpu_torch.kernels import spatial_block as sb
@@ -376,8 +487,8 @@ def train_kernel_phase(dev, gen) -> dict:
              check_op("spatial_block", "backward", grads, g_ref, dt, **case),
              dt)
 
-    def temporal_case(c, stride, t, dt, relu2=True):
-        kw = random_temporal(gen, B, t, c, dev)
+    def temporal_case(c, stride, t, dt, relu2=True, rng=gen):
+        kw = random_temporal(rng, B, t, c, dev)
         if not relu2:       # the non-residual order's identity affine
             kw["s2"], kw["t2"] = torch.ones_like(kw["s2"]), torch.zeros_like(
                 kw["t2"])
@@ -385,7 +496,7 @@ def train_kernel_phase(dev, gen) -> dict:
         oracle_in = {k: v.float() for k, v in k_in.items()}
         flags = dict(stride=stride, relu2=relu2)
         u = tb.temporal_block_forward(**k_in, **flags)
-        g = torch.randn(u.shape, generator=gen, device=dev).to(dt)
+        g = torch.randn(u.shape, generator=rng, device=dev).to(dt)
         grads = tb.temporal_block_backward(k_in["z"], g, **{
             k: k_in[k] for k in ("s2", "t2", "wt", "bt")}, **flags)
         torch.cuda.synchronize()
@@ -399,6 +510,21 @@ def train_kernel_phase(dev, gen) -> dict:
         keep(("temporal_block", "backward"),
              check_op("temporal_block", "backward", grads, g_ref, dt,
                       **case), dt)
+        if dt == torch.bfloat16:
+            # float32 weights (bf16 values): the kernel is the same and the
+            # gradients come back unrounded
+            rest = {k: k_in[k].float() for k in ("s2", "t2", "wt", "bt")}
+            twice = [tb.temporal_block_backward(k_in["z"], g, **rest,
+                                                **flags) for _ in range(2)]
+            torch.cuda.synchronize()
+            check_tight("temporal_block", "forward", u,
+                        tb.temporal_block_forward_reference(**k_in, **flags),
+                        "train_kernel", **case)
+            check_tight("temporal_block", "backward", twice[0],
+                        tb.temporal_block_backward_reference(
+                            k_in["z"], g, **rest, **flags),
+                        "train_kernel", **case)
+            check_repeat("temporal_block", *twice, "train_kernel", **case)
 
     shapes = sorted(set(fused_block_shapes()))
     for dt in (torch.bfloat16, torch.float32):
@@ -408,6 +534,8 @@ def train_kernel_phase(dev, gen) -> dict:
         spatial_case(64, 64, T, dt, relu1=False)        # non-residual order
         spatial_case(64, 64, T, dt, need_da=False)      # fixed graph
         temporal_case(128, 2, T, dt, relu2=False)       # identity affine
+    for stride in (1, 2):                               # odd width
+        temporal_case(ODD_C, stride, ODD_T, torch.bfloat16, rng=odd_gen)
     return worst
 
 
@@ -723,11 +851,12 @@ def library_fns(args, g, vmajor, stride) -> dict:
             [0, 0], 1, [True, True, True])}
 
 
-def conv_kernel_phase(dev, gen) -> dict:
+def conv_kernel_phase(dev, gen, odd_gen) -> dict:
     """Each conv op's forward and backward kernel against its plain version
     at the shapes of DEFAULT_PLAN's ten blocks, in both layouts, float32
-    and bfloat16, plus a fixed graph (no dA); returns the largest bf16
-    errors per (op, direction)."""
+    and bfloat16, plus a fixed graph (no dA) and, bf16, the odd width
+    (drawn from ``odd_gen``); returns the largest bf16 errors per (op,
+    direction)."""
     import torch
 
     cases = []
@@ -735,11 +864,14 @@ def conv_kernel_phase(dev, gen) -> dict:
         cases += [("spatial_conv", ci, co, 1, t, True),
                   ("temporal_conv", co, co, stride, t, True)]
     cases.append(("spatial_conv", 64, 64, 1, T, False))     # fixed graph
+    odd = [("temporal_conv", ODD_C, ODD_C, s, ODD_T, True) for s in (1, 2)]
     worst: dict = {}
     for dt in (torch.bfloat16, torch.float32):
         for layout, vmajor in LAYOUTS.items():
-            for op, ci, co, stride, t, need_da in cases:
-                args, g = random_conv(gen, op, ci, co, stride, t, vmajor, dev)
+            for op, ci, co, stride, t, need_da in cases + (
+                    odd if dt == torch.bfloat16 else []):
+                rng = odd_gen if t == ODD_T else gen
+                args, g = random_conv(rng, op, ci, co, stride, t, vmajor, dev)
                 args = {k: v.to(dt) for k, v in args.items()}
                 g = g.to(dt)
                 oracle = {k: v.float() for k, v in args.items()}
@@ -759,7 +891,32 @@ def conv_kernel_phase(dev, gen) -> dict:
                             ("max_abs_err", "max_rel_err"), 0.0))
                         for k in cur:
                             cur[k] = max(cur[k], res[k])
+                if op == "temporal_conv" and dt == torch.bfloat16:
+                    tight_conv(args, g, vmajor, stride, case)
     return worst
+
+
+def tight_conv(args, g, vmajor, stride, case) -> None:
+    """``temporal_conv``'s bf16 tensor-core kernels tightly against the
+    plain version on the same bf16 inputs; the backward twice, bitwise."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import temporal_conv as tc
+
+    fl = dict(stride=stride, vmajor=vmajor)
+    w32 = args["w"].float()         # bf16 values: gradients unrounded
+    u = tc.temporal_conv_forward(**args, **fl)
+    twice = [tc.temporal_conv_backward(args["x"], g, w32, args["b"], **fl)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    check_tight("temporal_conv", "forward", u,
+                tc.temporal_conv_forward_reference(**args, **fl),
+                "conv_kernel", **case)
+    check_tight("temporal_conv", "backward", twice[0],
+                tc.temporal_conv_backward_reference(args["x"], g, w32,
+                                                    args["b"], **fl),
+                "conv_kernel", **case)
+    check_repeat("temporal_conv", *twice, "conv_kernel", **case)
 
 
 def randomize_state(state: dict, gen) -> dict:
@@ -1569,6 +1726,7 @@ def main() -> int:
     _build.load_library()
     emit("build", library=str(lib_path.relative_to(_build.REPO_ROOT)),
          seconds=build_s)
+    sass_phase(lib_path)
 
     # ---- 3. kernel against its plain version -------------------------------
     # the six block shapes of DEFAULT_PLAN, with the frames the main path
@@ -1582,14 +1740,21 @@ def main() -> int:
     cases += [(64, 128, 2, "none", T, "post", torch.bfloat16),
               (64, 128, 2, "none", T, "post", torch.float32)]
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    # the odd-width cases draw apart, so every other check sees the inputs
+    # it saw before they were added
+    odd_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     kernel_max_err = 0.0
+    masked_cases = [(128, 128, 1, "id", T // 2, "pre", torch.bfloat16),
+                    (128, 256, 2, "proj", T // 2, "pre", torch.float32)]
+    odd_cases = [(ODD_C, ODD_C, 1, "id", ODD_T, "pre", torch.bfloat16),
+                 (ODD_C, ODD_C, 2, "proj", ODD_T, "pre", torch.bfloat16)]
     for i, (ci, co, s, sc, t, order, dt) in enumerate(
-            cases + [(128, 128, 1, "id", T // 2, "pre", torch.bfloat16),
-                     (128, 256, 2, "proj", T // 2, "pre", torch.float32)]):
-        masked = i >= len(cases)
-        kw = random_block_args(gen, ci, co, sc == "proj", dev)
-        x = torch.randn(V, B, t, ci, generator=gen, device=dev).to(dt)
-        lengths = torch.randint(1, t + 1, (B,), generator=gen, device=dev)
+            cases + masked_cases + odd_cases):
+        masked = len(cases) <= i < len(cases) + len(masked_cases)
+        rng = odd_gen if t == ODD_T else gen
+        kw = random_block_args(rng, ci, co, sc == "proj", dev)
+        x = torch.randn(V, B, t, ci, generator=rng, device=dev).to(dt)
+        lengths = torch.randint(1, t + 1, (B,), generator=rng, device=dev)
         flags = dict(stride=s, order=order, shortcut=sc, relu1=order == "pre",
                      lengths=lengths if masked else None)
         out = block_eval(x, **kw, **flags)
@@ -1613,6 +1778,11 @@ def main() -> int:
                                  f"version: {ci}->{co} s{s} {sc} {dt}")
         if dt == torch.bfloat16:
             kernel_max_err = max(kernel_max_err, err)
+            check_tight("block_eval", "forward", out,
+                        block_eval_reference(x, **kw, **flags), "kernel",
+                        share=BLOCK_EVAL_TIGHT_SHARE, c_in=ci, c_out=co,
+                        stride=s, t_in=t, shortcut=sc, order=order,
+                        masked=masked)
 
     # ---- 4. serve: the port's main path ------------------------------------
     cfg = STGCNConfig(plan=DEFAULT_PLAN, strategy=Strategy.DISTANCE, d=1,
@@ -1741,13 +1911,13 @@ def main() -> int:
          run_seconds=time.perf_counter() - run_start)
 
     # ---- 6. train_kernel ----------------------------------------------------
-    train_errors = train_kernel_phase(dev, gen)
+    train_errors = train_kernel_phase(dev, gen, odd_gen)
 
     # ---- 7. train, 8. train_time: the train path ---------------------------
     train = train_phase(dev, gen, peak_flops, peak_bytes)
 
     # ---- 9. conv_kernel, 10. route_train, 11. route_time: the two routes ----
-    conv_errors = conv_kernel_phase(dev, gen)
+    conv_errors = conv_kernel_phase(dev, gen, odd_gen)
     route_launches = route_train_phase(dev, gen)
     route_totals = route_time_phase(dev, gen, peak_flops, peak_bytes)
 

@@ -47,12 +47,22 @@ forward and backward)  ``(N, T, V, C)``, and
                        compute the standalone gamma x 1 temporal conv
 =====================  =====================================================
 
+The bfloat16 kernels of ``block_eval``, ``temporal_block`` and
+``temporal_conv`` were redesigned for Hopper's tensor cores (the temporal
+taps, ``block_eval``'s stage 1 and projection, the temporal dx and dWt):
+``mma.sync`` bf16 tiles over padded shared rows, weights through a
+``cp.async`` ring (``csrc/tap_mma.cuh``); dx split by input-frame parity
+at stride 2, dWt split over the rows into partial slices summed in order.
+Their float32 kernels stay on the CUDA cores (float32 is the check type;
+tensor cores would make it TF32).  The spatial kernels are scalar in both
+types.
+
 Every wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its kernel, or raises, for a CUDA tensor; it counts its launches in
 a ``launches`` attribute (the train and conv ops have one wrapper, and one
-count, for the forward and one for the backward kernel; the conv ops count
-both layouts together; ``spatial_block_save`` counts apart from
-``spatial_block``).  ``_build`` compiles
-``csrc/`` with ``nvcc`` at first use and loads the library with
+count, for the forward and one for the backward, one per op call whatever
+the kernels it launches; the conv ops count both layouts together;
+``spatial_block_save`` counts apart from ``spatial_block``).  ``_build``
+compiles ``csrc/`` with ``nvcc`` at first use and loads the library with
 ``ctypes``.
 """

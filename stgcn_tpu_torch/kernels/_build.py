@@ -43,18 +43,22 @@ SPATIAL_BWD_ARGTYPES = [_P] * 11 + [_I] * 11 + [_P]
 SPATIAL_SAVE_FWD_ARGTYPES = [_P] * 8 + [_I] * 9 + [_P]
 # spatial_block_save_bwd_launch(11 pointers, 10 ints, stream)
 SPATIAL_SAVE_BWD_ARGTYPES = [_P] * 11 + [_I] * 10 + [_P]
-# temporal_block_fwd_launch(6 pointers, 12 ints, stream)
-TEMPORAL_FWD_ARGTYPES = [_P] * 6 + [_I] * 12 + [_P]
-# temporal_block_bwd_launch(8 pointers, 13 ints, stream)
-TEMPORAL_BWD_ARGTYPES = [_P] * 8 + [_I] * 13 + [_P]
+# temporal_block_fwd_launch(6 pointers, 11 ints, stream), float32
+TEMPORAL_FWD_ARGTYPES = [_P] * 6 + [_I] * 11 + [_P]
+# temporal_block_bwd_launch(8 pointers, 12 ints, stream), float32
+TEMPORAL_BWD_ARGTYPES = [_P] * 8 + [_I] * 12 + [_P]
 # spatial_conv_fwd_launch(5 pointers, 9 ints, stream)
 SPATIAL_CONV_FWD_ARGTYPES = [_P] * 5 + [_I] * 9 + [_P]
 # spatial_conv_bwd_launch(9 pointers, 11 ints, stream)
 SPATIAL_CONV_BWD_ARGTYPES = [_P] * 9 + [_I] * 11 + [_P]
-# temporal_conv_fwd_launch(4 pointers, 13 ints, stream)
-TEMPORAL_CONV_FWD_ARGTYPES = [_P] * 4 + [_I] * 13 + [_P]
-# temporal_conv_bwd_launch(6 pointers, 14 ints, stream)
-TEMPORAL_CONV_BWD_ARGTYPES = [_P] * 6 + [_I] * 14 + [_P]
+# temporal_conv_fwd_launch(4 pointers, 12 ints, stream), float32
+TEMPORAL_CONV_FWD_ARGTYPES = [_P] * 4 + [_I] * 12 + [_P]
+# temporal_conv_bwd_launch(6 pointers, 13 ints, stream), float32
+TEMPORAL_CONV_BWD_ARGTYPES = [_P] * 6 + [_I] * 13 + [_P]
+# temporal_mma_fwd_launch(6 pointers, 12 ints, stream), bf16, both ops
+TEMPORAL_MMA_FWD_ARGTYPES = [_P] * 6 + [_I] * 12 + [_P]
+# temporal_mma_bwd_launch(9 pointers, 17 ints, stream), bf16, both ops
+TEMPORAL_MMA_BWD_ARGTYPES = [_P] * 9 + [_I] * 17 + [_P]
 # every C entry point and its argument kinds; each returns a cudaError_t
 ENTRY_POINTS = {
     "block_eval_launch": BLOCK_EVAL_ARGTYPES,
@@ -68,6 +72,8 @@ ENTRY_POINTS = {
     "spatial_conv_bwd_launch": SPATIAL_CONV_BWD_ARGTYPES,
     "temporal_conv_fwd_launch": TEMPORAL_CONV_FWD_ARGTYPES,
     "temporal_conv_bwd_launch": TEMPORAL_CONV_BWD_ARGTYPES,
+    "temporal_mma_fwd_launch": TEMPORAL_MMA_FWD_ARGTYPES,
+    "temporal_mma_bwd_launch": TEMPORAL_MMA_BWD_ARGTYPES,
 }
 
 

@@ -6,7 +6,8 @@ It is the port of ``fused_block_vm`` (``stgcn_tpu/kernels/block_fused.py``)
 and ``fused_block_packed_eval`` (``stgcn_tpu/kernels/block_packed.py``),
 without their TPU-layout arguments (``t_valid``, ``out_tp``, the packed
 layout).  For a CUDA tensor it launches the hand-written kernel in
-``csrc/block_eval.cu``; for a CPU tensor it runs the plain PyTorch version
+``csrc/block_eval.cu``, bfloat16 on the tensor cores and float32 on the
+scalar kernel; for a CPU tensor it runs the plain PyTorch version
 :func:`block_eval_reference`, which rounds at the same points.
 
 ``block_eval.launches`` counts the kernel launches, and nothing else.
@@ -22,6 +23,15 @@ MAX_ROWS = 32               # largest per-thread row count the kernel has
 TILE_FRAMES = (16, 8, 4, 2, 1)
 SHORTCUTS = {"none": 0, "id": 1, "proj": 2}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+PAD = 8                     # bf16 elements of shared-row padding (tap_mma.cuh)
+KC = 32                     # weight rows per ring stage (block_eval.cu)
+
+
+def pitch(c: int) -> int:
+    """Elements of a shared bf16 row of ``c`` channels: ``c`` rounded up to
+    16 (a zero tail) plus ``PAD``, so ldmatrix rows are 16-byte aligned and
+    free of bank conflicts."""
+    return -(-c // 16) * 16 + PAD
 
 
 def t_out_of(t: int, stride: int, gamma: int) -> int:
@@ -119,10 +129,14 @@ def plan_tiles(v: int, c_in: int, c_out: int, stride: int, gamma: int,
                itemsize: int) -> tuple[int, int, int]:
     """``(TT, VG, shared-memory bytes)`` for one block's launch.
 
-    A CTA holds z for ``(TT-1)*stride + gamma`` frames of ``VG`` joints, plus
-    one frame's ``h`` (``V*C_in``) and one partition's ``y`` (``V*C_out``),
-    all in the activation dtype.  The largest frame tile that fits is taken,
-    with all joints in one CTA where possible.
+    A CTA holds z for ``(TT-1)*stride + gamma`` frames of ``VG`` joints,
+    plus one frame's ``h`` and one partition's ``y``.  float32 (itemsize 4,
+    the scalar kernel): all in float32, ``V*C_in`` and ``V*C_out``.  bf16
+    (itemsize 2, the tensor-core kernel): z and h on rows of
+    :func:`pitch` elements, h on 32 rows, y on ``V*C_out``, and the
+    two-stage weight ring of ``KC`` rows of ``round64(C_out) + PAD``.  The
+    largest frame tile that fits is taken, with all joints in one CTA
+    where possible.
     """
     if not 1 <= c_out <= THREADS:
         raise ValueError(f"block_eval takes C_out <= {THREADS}, got {c_out}")
@@ -132,7 +146,12 @@ def plan_tiles(v: int, c_in: int, c_out: int, stride: int, gamma: int,
         vg = -(-v // groups)
         for tt in TILE_FRAMES:
             tf = (tt - 1) * stride + gamma
-            smem = itemsize * (tf * vg * c_out + v * c_in + v * c_out)
+            if itemsize == 2:
+                ring = 2 * KC * (-(-c_out // 64) * 64 + PAD)
+                smem = 2 * (ring + tf * vg * pitch(c_out) + 32 * pitch(c_in)
+                            + v * c_out)
+            else:
+                smem = itemsize * (tf * vg * c_out + v * c_in + v * c_out)
             if smem <= SMEM_LIMIT:
                 return tt, vg, smem
     raise ValueError(f"no tile of C_in={c_in}, C_out={c_out} fits in "

@@ -33,28 +33,41 @@
 // so the forward is compute-bound with a bound of about 1.0 ms.  (The
 // figures are recomputed per block from the shapes by chip_smoke.py.)
 //
-// Design.  This first version is plain scalar FMA on the CUDA cores, on
-// purpose far from that bound: it is the simple kernel that is right, and
-// tensor-core (wgmma) tiles are later work.  One CTA of 256 threads takes
-// one sequence, a tile of TT output frames and a group of VG joints
-// (VG = V unless the tile would not fit in shared memory, as for float32 at
-// C_out = 256).  It computes z for the TF = (TT-1)*s + gamma input frames
-// that its taps read, one frame at a time, and keeps them in shared memory:
-// z never goes to device memory.  It then runs the gamma taps from shared
-// memory, with weights read through L1/L2.  Neighbouring tiles recompute
-// the spatial part of their overlapping frames: TF/(TT*s) times the
-// spatial work, about 20% of a block's operations.
+// Design, bf16 (the serving path): the products on the tensor cores
+// through tap_mma.cuh.  One CTA of 256 threads takes one sequence, a tile
+// of TT output frames and a group of VG joints (VG = V where it fits).  It
+// computes z for the TF = (TT-1)*s + gamma input frames that its taps read,
+// one frame at a time, and keeps them in shared memory as bf16 with a
+// padded pitch: z never goes to device memory.  Per frame, stage 1
+// (y_k = round(h . W_k + b_k), the V = 25 joint rows padded to 32, K =
+// C_in) runs on mma.sync with W_k streaming through the cp.async ring; the
+// K-way aggregation A_k . y_k (25 x 25, about 5% of the operations) stays
+// on the CUDA cores.  The temporal phase is an implicit GEMM over the
+// resident z: row (t, vl) of tap g reads zs[(t*s + g)*VG + vl], so the
+// stride and the halo are per-row offsets; Wt tap chunks come through the
+// ring; the projection shortcut round(x[t*s] . Wr + br) is one more
+// one-tap product, its A fragments read from x in device memory, run
+// first and kept rounded in registers.  Neighbouring tiles recompute the
+// spatial part of their overlapping frames: TF/(TT*s) times the spatial
+// work (TT is smaller than in float32 at C_out = 256, where the ring and
+// the padded pitch take room).
+// Design, float32 (the port's check type): plain scalar FMA on the CUDA
+// cores, the same tiling with z in float32 and the taps as 8 x 4 register
+// tiles with weights read through L1/L2.
 //
 // Launch contract (checked by the Python wrapper before the call): C_out
-// <= 256; V <= MAXR * (256 / C_out); the dynamic shared memory is
-// sizeof(T) * (TF*VG*C_out + V*C_in + V*C_out) bytes and at most 227 KB.
-// The launcher returns cudaGetLastError() after the launch.
+// <= 256; V <= MAXR * (256 / C_out); the dynamic shared memory is what
+// block_eval.py plan_tiles gives (at most 227 KB).  The launcher returns
+// cudaGetLastError() after the launch.
+
+#include "tap_mma.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+using tap::bf16;
 constexpr int kThreads = 256;
 constexpr int kRows = 8;  // temporal phase: output rows per thread
 constexpr int kCols = 4;  // temporal phase: output channels per thread
@@ -274,6 +287,334 @@ __global__ void __launch_bounds__(kThreads) block_eval_kernel(Params p) {
   }
 }
 
+// ---- bf16: tensor cores for stage 1, the projection and the taps ---------
+constexpr int KC = 32;  // weight rows per ring stage
+
+__device__ __forceinline__ float affine_rn(float v, float s, float t) {
+  return __fadd_rn(__fmul_rn(v, s), t);  // as torch rounds x * s + t
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One bf16 element of row `row` (C channels), zero past C.
+__device__ __forceinline__ float elem(const bf16* row, int c, int C) {
+  return c < C ? __bfloat162float(row[c]) : 0.f;
+}
+
+// A CTA (TT output frames of sequence n, VG joints) stages nothing but z
+// and one frame's h and y:
+//   zs [TF][VG][ZP]  z of the TF input frames its taps read, ZP = pitch(C_out)
+//   hs [32][HP]      one frame's h, rows V..31 and the channel tail zero
+//   ys [V][C_out]    one partition's y of that frame
+//   ring [2][KC][RP] weight chunks (W_k, Wr, Wt), RP = round64(C_out) + 8
+template <int MAXR>
+__global__ void __launch_bounds__(kThreads) block_eval_mma_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const bf16* __restrict__ x = static_cast<const bf16*>(p.x);
+  const bf16* __restrict__ w = static_cast<const bf16*>(p.w);
+  const bf16* __restrict__ b = static_cast<const bf16*>(p.b);
+  const bf16* __restrict__ a = static_cast<const bf16*>(p.a);
+  const bf16* __restrict__ wt = static_cast<const bf16*>(p.wt);
+  const bf16* __restrict__ wr = static_cast<const bf16*>(p.wr);
+  bf16* __restrict__ out = static_cast<bf16*>(p.out);
+
+  const int V = p.V, C_in = p.C_in, C_out = p.C_out, VG = p.vg;
+  const int n = blockIdx.y;
+  const int t0 = blockIdx.x * p.tt;
+  const int v0 = blockIdx.z * VG;
+  const int vcount = min(VG, V - v0);
+  const int tf = (p.tt - 1) * p.stride + p.gamma;
+  const int ZP = tap::pitch_of(C_out), HP = tap::pitch_of(C_in);
+  const int NB = (C_out + 63) / 64 * 64, RP = NB + tap::kPad;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  bf16* zs = ring + 2 * KC * RP;
+  bf16* hs = zs + (size_t)tf * VG * ZP;
+  bf16* ys = hs + 32 * HP;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int col8 = tap::lane_col8(lane);
+  const int len = p.lengths != nullptr ? p.lengths[n] : p.T;
+  const int tin0 = t0 * p.stride - p.pad_l;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  // zero z (padding frames, channel tails) and h (rows past V, tails)
+  for (int e = tid; e < tf * VG * ZP + 32 * HP; e += kThreads) zs[e] = zero;
+  __syncthreads();
+
+  // ---- spatial phase: z for the tf input frames, kept in shared memory ----
+  // Stage 1 on the tensor cores: warp w owns y columns 32w .. 32w+31 of the
+  // 32 (joint) rows.  The aggregation runs on the CUDA cores: thread
+  // (ry, o1) owns output channel o1 of rows ry, ry + rg, ...
+  const int rg = kThreads / C_out;
+  const int o1 = tid % C_out;
+  const int ry = tid / C_out;
+  const bool active1 = ry < rg;
+  const int mr = (V + rg - 1) / rg;
+  const float s2o = active1 ? p.s2[o1] : 0.f;
+  const float t2o = active1 ? p.t2[o1] : 0.f;
+  const int nkc1 = (tap::round16(C_in) + KC - 1) / KC;
+  const bool w_stage1 = warp * 32 < C_out;
+
+  for (int f = 0; f < tf; ++f) {
+    const int tg = tin0 + f;
+    if (tg < 0 || tg >= p.T) continue;  // the taps' zero padding: zs is 0
+    bf16* zf = zs + (size_t)f * VG * ZP;
+    const bool frame_valid = tg < len;
+    for (int e = tid; e < V * C_in; e += kThreads) {
+      const int jw = e / C_in;
+      const int i = e - jw * C_in;
+      const float xv =
+          frame_valid ? __bfloat162float(x[(((size_t)jw * p.N + n) * p.T + tg) * C_in + i])
+                      : 0.f;
+      float h = affine_rn(xv, p.s1[i], p.t1[i]);
+      if (p.relu1) h = fmaxf(h, 0.f);
+      hs[jw * HP + i] = __float2bfloat16_rn(h);
+    }
+    float za[MAXR];
+#pragma unroll
+    for (int m = 0; m < MAXR; ++m) za[m] = 0.f;
+    for (int k = 0; k < p.K; ++k) {
+      // ys = round(hs . W_k + b_k)
+      float acc[2][4][4];
+      tap::zero(acc);
+      const bf16* wk = w + (size_t)k * C_in * C_out;
+      tap::ring_loop(
+          nkc1,
+          [&](int ch) {
+            const int k0 = ch * KC;
+            tap::stage_tile(ring + (ch & 1) * KC * RP, RP,
+                            k0 < C_in ? wk + (size_t)k0 * C_out : wk, C_out,
+                            KC, C_in - k0, NB, C_out);
+            tap::cp_async_commit();
+          },
+          [&](int ch) {
+            if (!w_stage1) return;
+            const int k0 = ch * KC;
+            const int steps = min(KC, tap::round16(C_in) - k0) / 16;
+            const bf16* bs = ring + (ch & 1) * KC * RP;
+#pragma unroll
+            for (int kk = 0; kk < KC / 16; ++kk) {
+              if (kk >= steps) break;
+              uint32_t a_addr[2];
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi)
+                a_addr[mi] = tap::smem_u32(
+                    hs + (mi * 16 + tap::a_lane_row(lane)) * HP + k0 +
+                    kk * 16 + col8);
+              tap::mma_k16<2, 4>(
+                  acc, a_addr,
+                  tap::smem_u32(bs + (kk * 16 + (lane & 15)) * RP +
+                                warp * 32 + col8));
+            }
+          });
+      if (w_stage1) {
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = tap::acc_row(mi, e, lane);
+              const int o = warp * 32 + tap::acc_col(nj, e, lane);
+              if (row < V && o < C_out)
+                ys[row * C_out + o] = __float2bfloat16_rn(
+                    acc[mi][nj][e] + __bfloat162float(b[k * C_out + o]));
+            }
+      }
+      __syncthreads();
+      if (active1) {  // aggregation: za += A_k . ys
+        const bf16* ak = a + (size_t)k * V * V + (size_t)v0 * V;
+        for (int jw = 0; jw < V; ++jw) {
+          const float yv = __bfloat162float(ys[jw * C_out + o1]);
+#pragma unroll
+          for (int m = 0; m < MAXR; ++m) {
+            const int vl = ry + m * rg;
+            if (m < mr && vl < vcount)
+              za[m] = fmaf(__bfloat162float(ak[vl * V + jw]), yv, za[m]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (active1) {
+#pragma unroll
+      for (int m = 0; m < MAXR; ++m) {
+        const int vl = ry + m * rg;
+        if (m < mr && vl < vcount) {
+          float z = za[m];
+          if (p.order_pre) z = fmaxf(affine_rn(z, s2o, t2o), 0.f);
+          zf[vl * ZP + o1] = __float2bfloat16_rn(z);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- temporal phase: [the projection and] the gamma taps, then the
+  // epilogue.  Units of 32 rows (frame t, joint vl) x 64 channels; warp w
+  // takes units w, w + 8, ...  Every warp walks the same weight chunks:
+  // [Wr's, then] Wt's, tap by tap.
+  const int ttc = min(p.tt, p.T_out - t0);
+  const int rows = ttc * vcount;
+  const int nbn = NB / 64;
+  const int units = (rows + 31) / 32 * nbn;
+  const bool proj = p.shortcut == 2;
+  const int nproj = proj ? (tap::round16(C_in) + KC - 1) / KC : 0;
+  const int nkc2 = (tap::round16(C_out) + KC - 1) / KC;
+  for (int round0 = 0; round0 < units; round0 += kThreads / 32) {
+    const int unit = round0 + warp;
+    const bool has_unit = unit < units;
+    const int mb = has_unit ? unit / nbn : 0;
+    const int nb = has_unit ? unit - mb * nbn : 0;
+    // this lane's ldmatrix rows (zs row at tap 0) and projection rows
+    int zrow[2];
+    const bf16* xrow[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      int r = mb * 32 + mi * 16 + tap::a_lane_row(lane);
+      r = r < rows ? r : 0;
+      const int t = r / vcount, vl = r - (r / vcount) * vcount;
+      zrow[mi] = t * p.stride * VG + vl;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int rr = mb * 32 + mi * 16 + (lane >> 2) + 8 * h;
+        rr = rr < rows ? rr : 0;
+        const int tt = rr / vcount, vv = rr - tt * vcount;
+        xrow[mi][h] = x + (((size_t)(v0 + vv) * p.N + n) * p.T +
+                           (size_t)(t0 + tt) * p.stride) * C_in;
+      }
+    }
+    float acc[2][8][4];
+    tap::zero(acc);
+    uint32_t pr[2][8][2];  // the rounded projection, two bf16 a register
+    tap::ring_loop(
+        nproj + p.gamma * nkc2,
+        [&](int ch) {
+          const bf16* src;
+          int rows_valid;
+          if (ch < nproj) {
+            const int k0 = ch * KC;
+            rows_valid = C_in - k0;
+            src = rows_valid > 0 ? wr + (size_t)k0 * C_out : wr;
+          } else {
+            const int g = (ch - nproj) / nkc2;
+            const int k0 = (ch - nproj - g * nkc2) * KC;
+            rows_valid = C_out - k0;
+            src = rows_valid > 0 ? wt + ((size_t)g * C_out + k0) * C_out : wt;
+          }
+          tap::stage_tile(ring + (ch & 1) * KC * RP, RP, src, C_out, KC,
+                          rows_valid, NB, C_out);
+          tap::cp_async_commit();
+        },
+        [&](int ch) {
+          if (!has_unit) return;
+          const bf16* bs = ring + (ch & 1) * KC * RP;
+          if (ch < nproj) {  // A straight from x in device memory
+            const int k0 = ch * KC;
+            const int steps = min(KC, tap::round16(C_in) - k0) / 16;
+            for (int kk = 0; kk < steps; ++kk) {
+              const int c = k0 + kk * 16 + 2 * (lane & 3);
+              uint32_t af[2][4];
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                  const bf16* xr = xrow[mi][q & 1];
+                  const int cq = c + 8 * (q >> 1);
+                  af[mi][q] = pack2(elem(xr, cq, C_in), elem(xr, cq + 1, C_in));
+                }
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                uint32_t bf[4];
+                tap::ldsm_x4_t(bf, tap::smem_u32(
+                    bs + (kk * 16 + (lane & 15)) * RP + nb * 64 + j * 16 +
+                    col8));
+#pragma unroll
+                for (int mi = 0; mi < 2; ++mi) {
+                  tap::mma_bf16(acc[mi][2 * j], af[mi], bf[0], bf[1]);
+                  tap::mma_bf16(acc[mi][2 * j + 1], af[mi], bf[2], bf[3]);
+                }
+              }
+            }
+            if (ch == nproj - 1) {  // round(x . Wr + br), then the taps
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+                  for (int h = 0; h < 2; ++h) {
+                    const int o = nb * 64 + tap::acc_col(nj, 0, lane);
+                    const float b0 = o < C_out ? p.br[o] : 0.f;
+                    const float b1 = o + 1 < C_out ? p.br[o + 1] : 0.f;
+                    pr[mi][nj][h] = pack2(acc[mi][nj][2 * h] + b0,
+                                          acc[mi][nj][2 * h + 1] + b1);
+                    acc[mi][nj][2 * h] = acc[mi][nj][2 * h + 1] = 0.f;
+                  }
+            }
+            return;
+          }
+          const int g = (ch - nproj) / nkc2;
+          const int k0 = (ch - nproj - g * nkc2) * KC;
+          const int steps = min(KC, tap::round16(C_out) - k0) / 16;
+#pragma unroll
+          for (int kk = 0; kk < KC / 16; ++kk) {
+            if (kk >= steps) break;
+            uint32_t a_addr[2];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+              a_addr[mi] = tap::smem_u32(zs + (size_t)(zrow[mi] + g * VG) * ZP +
+                                         k0 + kk * 16 + col8);
+            tap::mma_k16<2, 8>(
+                acc, a_addr,
+                tap::smem_u32(bs + (kk * 16 + (lane & 15)) * RP + nb * 64 +
+                              col8));
+          }
+        });
+    if (!has_unit) continue;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mb * 32 + mi * 16 + (lane >> 2) + 8 * h;
+        if (r >= rows) continue;
+        const int t = r / vcount, vl = r - t * vcount;
+        const int tg = t0 + t;
+        const size_t xi = (((size_t)(v0 + vl) * p.N + n) * p.T + tg) * C_in;
+        const size_t oi = (((size_t)(v0 + vl) * p.N + n) * p.T_out + tg) * C_out;
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj) {
+          const int o = nb * 64 + tap::acc_col(nj, 0, lane);
+          float u[2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int oc = min(o + q, C_out - 1);
+            float v = acc[mi][nj][2 * h + q] + p.bt[oc];
+            if (!p.order_pre) v = affine_rn(v, p.s2[oc], p.t2[oc]);
+            if (p.shortcut == 1) {
+              v += __bfloat162float(x[xi + oc]);
+            } else if (proj) {
+              const __nv_bfloat162 pv =
+                  *reinterpret_cast<const __nv_bfloat162*>(&pr[mi][nj][h]);
+              v += q == 0 ? __low2float(pv) : __high2float(pv);
+            }
+            if (p.final_relu) v = fmaxf(v, 0.f);
+            u[q] = v;
+          }
+          bf16* dst = out + oi + o;
+          if (o + 1 < C_out && C_out % 2 == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(dst) =
+                __floats2bfloat162_rn(u[0], u[1]);
+          } else {
+            if (o < C_out) dst[0] = __float2bfloat16_rn(u[0]);
+            if (o + 1 < C_out) dst[1] = __float2bfloat16_rn(u[1]);
+          }
+        }
+      }
+  }
+}
+
 template <typename T, int MAXR>
 cudaError_t launch(const Params& p, int smem_bytes, cudaStream_t stream) {
   auto kernel = block_eval_kernel<T, MAXR>;
@@ -285,13 +626,31 @@ cudaError_t launch(const Params& p, int smem_bytes, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int MAXR>
+cudaError_t launch_mma(const Params& p, int smem_bytes, cudaStream_t stream) {
+  auto kernel = block_eval_mma_kernel<MAXR>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.T_out + p.tt - 1) / p.tt, p.N, (p.V + p.vg - 1) / p.vg);
+  kernel<<<grid, kThreads, smem_bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// bf16 on the tensor-core kernel, float32 on the scalar one.
 template <typename T>
 cudaError_t dispatch_rows(const Params& p, int smem_bytes, cudaStream_t stream) {
   const int rg = kThreads / p.C_out;
   const int mr = (p.V + rg - 1) / rg;
-  if (mr <= 8) return launch<T, 8>(p, smem_bytes, stream);
-  if (mr <= 16) return launch<T, 16>(p, smem_bytes, stream);
-  if (mr <= 32) return launch<T, 32>(p, smem_bytes, stream);
+  if constexpr (sizeof(T) == 2) {
+    if (mr <= 8) return launch_mma<8>(p, smem_bytes, stream);
+    if (mr <= 16) return launch_mma<16>(p, smem_bytes, stream);
+    if (mr <= 32) return launch_mma<32>(p, smem_bytes, stream);
+  } else {
+    if (mr <= 8) return launch<T, 8>(p, smem_bytes, stream);
+    if (mr <= 16) return launch<T, 16>(p, smem_bytes, stream);
+    if (mr <= 32) return launch<T, 32>(p, smem_bytes, stream);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -1,0 +1,209 @@
+// A warp-level bf16 tap product on Hopper's tensor cores, shared by the
+// bf16 kernels of temporal_block.cu and block_eval.cu.
+//
+// Each of them computes
+//   out[r, o] = sum_tap sum_c A(row_addr(r, tap))[c] . B_tap[c, o]
+// with A rows in shared memory at a per-row offset (a strided frame walk,
+// a joint group and a halo are just offsets) and B_tap chunks staged from
+// device memory.  The pieces:
+//   * ldmatrix reads the bf16 operands from shared memory: A row-major
+//     (x4), or A stored K-major (x4.trans, the dWt product); B stored
+//     K-major, [k][n], with x4.trans.
+//   * mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 multiplies, with
+//     float32 accumulators in registers.  A warp owns a 16*MI x 8*NJ tile.
+//   * Shared rows have a padded pitch of round16(C) + 8 bf16: consecutive
+//     rows start 16 bytes apart modulo 128, so the eight row addresses of
+//     one ldmatrix phase fall in eight different bank groups, and every row
+//     starts 16-byte aligned.
+//   * stage_tile() copies a [rows][cols] tile of B (or of activations) with
+//     cp.async (16 bytes a thread, zero-filled past the valid rows and
+//     columns) into one stage of a two-stage ring, so that the next chunk
+//     loads while the tensor cores work on the current one.  A tile whose
+//     rows are not 16-byte aligned in device memory (a channel count that
+//     is not a multiple of 8) goes through plain loads into the same
+//     layout instead.
+//   * Channel tails are zero in shared memory: K is padded to a multiple
+//     of 16 and N to the tile with zeros, so any channel count runs here.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tap {
+namespace {  // each translation unit keeps its own copy
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;  // 8 warps a CTA
+constexpr int kPad = 8;        // bf16 elements of padding on each shared row
+
+__host__ __device__ constexpr int round16(int c) { return (c + 15) / 16 * 16; }
+// Pitch, in elements, of a shared row holding c channels.
+__host__ __device__ constexpr int pitch_of(int c) { return round16(c) + kPad; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from src to shared dst; bytes past src_bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Lane addresses.  A warp tile's m16 block i starts at tile row 16*i; the
+// lane supplies the address of one row of one 8x8 matrix:
+//   a_lane_row(): row (lane & 15) of the m16 block, column offset
+//     (lane >> 4) * 8 (A row-major, [m][k]; add it to the row's address);
+//   b_lane_row(): k row (lane & 15) of the k16 step, column offset
+//     (lane >> 4) * 8 (B K-major, [k][n], read transposed);
+//   at_lane_row()/at_lane_col(): k row (lane & 7) + (lane >> 4) * 8 and m
+//     column ((lane >> 3) & 1) * 8 (A stored K-major, [k][m], transposed).
+__device__ __forceinline__ int a_lane_row(int lane) { return lane & 15; }
+__device__ __forceinline__ int lane_col8(int lane) { return (lane >> 4) * 8; }
+__device__ __forceinline__ int at_lane_row(int lane) {
+  return (lane & 7) + ((lane >> 4) << 3);
+}
+__device__ __forceinline__ int at_lane_col(int lane) {
+  return ((lane >> 3) & 1) * 8;
+}
+
+// acc[MI][NJ] += A (16*MI x 16) . B (16 x 8*NJ), one k16 step.
+//   a_addr[i]: shared address of this lane's A row of m16 block i at the
+//     step's first column plus lane_col8(lane) (A_TRANS: of its k row at
+//     the block's first m column plus at_lane_col(lane));
+//   b_addr: shared address of B row (step's k + (lane & 15)) at the warp
+//     tile's first column plus lane_col8(lane).
+template <int MI, int NJ, bool A_TRANS = false>
+__device__ __forceinline__ void mma_k16(float (&acc)[MI][NJ][4],
+                                        const uint32_t (&a_addr)[MI],
+                                        uint32_t b_addr) {
+  static_assert(NJ % 2 == 0, "B is read 16 columns at a time");
+  uint32_t a[MI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    if constexpr (A_TRANS) {
+      ldsm_x4_t(a[i], a_addr[i]);
+    } else {
+      ldsm_x4(a[i], a_addr[i]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ / 2; ++j) {
+    uint32_t b[4];
+    ldsm_x4_t(b, b_addr + j * 16 * (uint32_t)sizeof(bf16));
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      mma_bf16(acc[i][2 * j], a[i], b[0], b[1]);
+      mma_bf16(acc[i][2 * j + 1], a[i], b[2], b[3]);
+    }
+  }
+}
+
+template <int MI, int NJ>
+__device__ __forceinline__ void zero(float (&acc)[MI][NJ][4]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// Position of accumulator element e (0..3) of fragment (i, j) in the warp
+// tile: row 16*i + (lane >> 2) + 8*(e >> 1), column 8*j + 2*(lane & 3) +
+// (e & 1).
+__device__ __forceinline__ int acc_row(int i, int e, int lane) {
+  return 16 * i + (lane >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int acc_col(int j, int e, int lane) {
+  return 8 * j + 2 * (lane & 3) + (e & 1);
+}
+
+// Copy the tile src[r * src_pitch + c] (r < rows, c < cols, cols a
+// multiple of 8) into shared dst[r * dst_pitch + c] by every thread of the
+// CTA: the rows r < rows_valid and columns c < cols_valid from src, zero
+// elsewhere.  With cp.async when each row of src starts 16-byte aligned
+// (the caller commits and waits), else with plain loads.
+__device__ __forceinline__ void stage_tile(bf16* dst, int dst_pitch,
+                                           const bf16* src, long long src_pitch,
+                                           int rows, int rows_valid, int cols,
+                                           int cols_valid) {
+  const int pieces = cols / 8;
+  const bool aligned =
+      (src_pitch % 8 == 0) && ((reinterpret_cast<uintptr_t>(src) & 15) == 0);
+  for (int e = threadIdx.x; e < rows * pieces; e += blockDim.x) {
+    const int r = e / pieces;
+    const int c = (e - r * pieces) * 8;
+    bf16* d = dst + (size_t)r * dst_pitch + c;
+    const int valid = (r < rows_valid) ? min(8, max(0, cols_valid - c)) : 0;
+    if (aligned) {
+      const bf16* s = valid > 0 ? src + (long long)r * src_pitch + c : src;
+      cp_async16(smem_u32(d), s, valid * (int)sizeof(bf16));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        d[k] = k < valid ? src[(long long)r * src_pitch + c + k]
+                         : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// The two-stage ring: issue(ch) stages chunk ch into stage ch & 1 (and
+// commits it); compute(ch) reads it once every thread's copies of it have
+// landed.  Chunk ch + 1 loads while chunk ch is computed.  Every thread of
+// the CTA calls this; it ends with a barrier, so the ring is free again.
+template <typename Issue, typename Compute>
+__device__ __forceinline__ void ring_loop(int nchunks, Issue&& issue,
+                                          Compute&& compute) {
+  if (nchunks <= 0) return;
+  issue(0);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    if (ch + 1 < nchunks) {
+      issue(ch + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    compute(ch);
+    __syncthreads();
+  }
+}
+
+}  // namespace
+}  // namespace tap

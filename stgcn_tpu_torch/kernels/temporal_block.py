@@ -9,14 +9,17 @@
 It is the port of ``temporal_block_vm`` (``stgcn_tpu/kernels/block_fused.py``)
 and ``temporal_block_packed`` (``stgcn_tpu/kernels/block_packed.py``), both of
 which compute this function (the packed one for stride 1).  The op is a
-``torch.autograd.Function`` whose forward and backward each launch one
-hand-written CUDA kernel (``csrc/temporal_block.cu``) for a CUDA tensor, and
-run the plain PyTorch versions :func:`temporal_block_forward_reference` and
-:func:`temporal_block_backward_reference`, which round at the same points,
-for a CPU tensor.
+``torch.autograd.Function`` whose forward and backward each run hand-written
+CUDA kernels (``csrc/temporal_block.cu``) for a CUDA tensor: bfloat16 on the
+tensor cores (:func:`plan_mma_forward`, :func:`plan_mma_backward`; the
+backward is a dx kernel, a dWt kernel and the passes that sum their partial
+slices), float32 on the scalar kernels (:func:`plan_forward`,
+:func:`plan_backward`).  For a CPU tensor it runs the plain PyTorch versions
+:func:`temporal_block_forward_reference` and
+:func:`temporal_block_backward_reference`, which round at the same points.
 
 ``temporal_block_forward.launches`` and ``temporal_block_backward.launches``
-count the kernel launches, and nothing else.
+count the op calls that launched kernels, one per call, and nothing else.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from stgcn_tpu_torch.kernels.block_eval import SMEM_LIMIT, t_out_of
+from stgcn_tpu_torch.kernels.block_eval import PAD, SMEM_LIMIT, pitch, t_out_of
 from stgcn_tpu_torch.kernels.spatial_block import (
     _acc,
     _check_cuda,
@@ -121,16 +124,179 @@ def _plan(v: int, c: int, frames_of) -> tuple[int, int, int]:
 
 def plan_forward(v: int, c: int, stride: int, gamma: int
                  ) -> tuple[int, int, int]:
-    """``(TT, VG, shared bytes)``: output frames and joints per forward CTA,
-    all joints where possible; the CTA holds ``(TT-1)*s + gamma`` frames."""
+    """float32: ``(TT, VG, shared bytes)``, output frames and joints per
+    forward CTA, all joints where possible; the CTA holds ``(TT-1)*s +
+    gamma`` frames."""
     return _plan(v, c, lambda tt: (tt - 1) * stride + gamma)
 
 
 def plan_backward(v: int, c: int, gamma: int) -> tuple[int, int, int]:
-    """``(FT, VG, shared bytes)``: input frames and joints per backward work
-    item; the CTA holds its FT frames and the rows of g whose taps reach
-    them, spread over ``FT + gamma - 1`` frame positions."""
+    """float32: ``(FT, VG, shared bytes)``, input frames and joints per
+    backward work item; the CTA holds its FT frames and the rows of g whose
+    taps reach them, spread over ``FT + gamma - 1`` frame positions."""
     return _plan(v, c, lambda ft: 2 * ft + gamma - 1)
+
+
+# ---- bfloat16: the tensor-core kernels ---------------------------------
+# shared rows are ``pitch(c)`` elements wide (block_eval.pitch, tap_mma.cuh)
+KC = 32        # weight rows per ring stage (temporal_block.cu mma_path::KC)
+KR = 64        # dWt: rows of the GEMM's K per chunk (mma_path::KR)
+
+
+def gemm_tile(n_out: int) -> tuple[int, int, int]:
+    """``(WN, BM, BN)``: the 8 warps of a CTA are ``8/WN x WN`` tiles of
+    32 x 32, so a CTA owns BM rows and BN of the ``n_out`` columns; N tiles
+    of 128 above 64 columns, else of 64."""
+    wn = 4 if n_out > 64 else 2
+    return wn, 32 * (8 // wn), 32 * wn
+
+
+def staged_rows(bm: int, rows_per_line: int, walk: int, ntap: int) -> int:
+    """The most input rows a CTA of ``bm`` GEMM rows stages: each of the
+    lines its rows touch needs ``(rows - 1) * walk + ntap`` of them."""
+    segments = min(bm, -(-(bm - 1) // rows_per_line) + 1)
+    return walk * (bm - segments) + segments * ntap
+
+
+def parity_taps(gamma: int, stride: int, parity: int
+                ) -> tuple[int, list[int], list[int]]:
+    """dx of the input frames ``f = j*stride + parity``: ``(e0, taps,
+    shifts)``; frame f takes tap ``taps[i]`` from g row ``j + shifts[i]``
+    (``shifts[i] = e0 - i``), the only taps with ``t*s - pad + tap = f``:
+    at stride 1 all of them, at stride 2 every other one."""
+    pad = (gamma - 1) // 2
+    tap0 = (parity + pad) % stride
+    taps = list(range(tap0, gamma, stride))
+    e0 = (parity + pad - tap0) // stride
+    return e0, taps, [e0 - i for i in range(len(taps))]
+
+
+def _f32(p):
+    return None if p is None else p.to(torch.float32).contiguous()
+
+
+def _ptr(p):
+    return None if p is None else p.data_ptr()
+
+
+def _ring_bytes(bn: int) -> int:
+    return 2 * KC * (bn + PAD) * 2
+
+
+def plan_mma_forward(t: int, c_in: int, c_out: int, stride: int,
+                     gamma: int) -> tuple[int, int]:
+    """``(WN, shared bytes)`` of the bf16 forward: the weight ring, the
+    row offsets and the staged input frames of one CTA."""
+    wn, bm, bn = gemm_tile(c_out)
+    t_out = t_out_of(t, stride, gamma)
+    rows = staged_rows(bm, t_out, stride, gamma)
+    smem = _ring_bytes(bn) + 4 * bm + 2 * rows * pitch(c_in)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"no bf16 temporal tile of C_in={c_in} fits in "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return wn, smem
+
+
+def plan_mma_backward(lines: int, t: int, c_in: int, c_out: int,
+                      stride: int, gamma: int, aff: bool, ctas: int) -> dict:
+    """The bf16 backward's launch: the dx GEMM's ``wn_dx``, row tiles per
+    parity ``tiles_x`` and ``dx_smem``; the dWt GEMM's
+    ``nj_dw``, ``splits`` of ``split_rows`` rows (about ``ctas`` CTAs in
+    all) and ``dw_smem``."""
+    t_out = t_out_of(t, stride, gamma)
+    wn_dx, bm, bn = gemm_tile(c_in)
+    rows = 0
+    for parity in range(stride):
+        per_line = -(-(t - parity) // stride)
+        if per_line > 0:
+            ntap = len(parity_taps(gamma, stride, parity)[1])
+            rows = max(rows, staged_rows(bm, per_line, 1, ntap))
+    dx_smem = (_ring_bytes(bn) + 4 * bm + (2 * 4 * (8 // wn_dx) * bn
+                                           if aff else 0)
+               + 2 * rows * pitch(c_out))
+    nj_dw, bm_dw, bn_dw = dwt_tile(c_out)
+    dw_smem = 2 * KR * ((bm_dw + PAD) + (bn_dw + PAD)) * 2
+    if max(dx_smem, dw_smem) > SMEM_LIMIT:
+        raise ValueError(f"no bf16 temporal tile of C_out={c_out} fits in "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    splits, split_rows = dwt_splits(lines * t_out, gamma, c_in, c_out, ctas)
+    return dict(wn_dx=wn_dx, tiles_x=-(-lines * -(-t // stride) // bm),
+                dx_smem=dx_smem, nj_dw=nj_dw, splits=splits,
+                split_rows=split_rows, dw_smem=dw_smem)
+
+
+def dwt_tile(c_out: int) -> tuple[int, int, int]:
+    """``(NJ, BM, BN)`` of the dWt GEMM: 64 input channels by 64 output
+    channels up to 64 of them, else by 128 (warps of 32 x 8*NJ)."""
+    nj = 4 if c_out > 64 else 2
+    return nj, 64, 32 * nj
+
+
+def dwt_splits(rows: int, gamma: int, c_in: int, c_out: int,
+               ctas: int) -> tuple[int, int]:
+    """``(splits, rows per split)`` of the dWt GEMM's K = ``rows``: enough
+    splits for about ``ctas`` CTAs over the ``gamma`` x channel tiles,
+    each a whole number of KR-row chunks."""
+    _, bm, bn = dwt_tile(c_out)
+    tiles = gamma * -(-c_in // bm) * -(-c_out // bn)
+    want = max(1, round(ctas / tiles))
+    split_rows = -(-(-(-rows // want)) // KR) * KR
+    return -(-rows // split_rows), split_rows
+
+
+def launch_mma_forward(x, s2, t2, w, b, *, v, n, t, stride, relu2, aff,
+                       vmajor, out_shape):
+    """Launch the bf16 forward kernel of either op on ``x`` (V-major, or
+    ``(N, T, V, C)``, as ``(V, N, T)`` joints, sequences and frames);
+    ``s2``, ``t2`` are None without the affine."""
+    from stgcn_tpu_torch.kernels._build import load_library
+
+    gamma, c_in, c_out = w.shape
+    wn, smem = plan_mma_forward(t, c_in, c_out, stride, gamma)
+    args = [x.contiguous(), _f32(s2), _f32(t2), w.to(x.dtype).contiguous(),
+            _f32(b)]
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.temporal_mma_fwd_launch(
+            *[_ptr(p) for p in args], out.data_ptr(), v, n, t, c_in,
+            c_out, gamma, stride, int(aff), int(relu2), int(vmajor), wn,
+            smem, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(lib, err, "temporal bf16 forward")
+    return out
+
+
+def launch_mma_backward(x, g, s2, t2, w, *, v, n, t, stride, relu2, aff,
+                        vmajor):
+    """Launch the bf16 backward kernels of either op: ``(dx, grads)``,
+    grads the float32 ``[dWt | dbt (| ds2 | dt2)]``."""
+    from stgcn_tpu_torch.kernels._build import load_library
+
+    gamma, c_in, c_out = w.shape
+    plan = plan_mma_backward(v * n, t, c_in, c_out, stride, gamma, aff,
+                             partial_ctas(x.device))
+    f32 = torch.float32
+    args = [x.contiguous(), g.to(x.dtype).contiguous(), _f32(s2), _f32(t2),
+            w.to(x.dtype).transpose(1, 2).contiguous()]  # (gamma, C_out, C_in)
+    dx = torch.empty_like(args[0])
+    e_dw = gamma * c_in * c_out + c_out
+    partial_dw = torch.empty((plan["splits"], e_dw), dtype=f32,
+                             device=x.device)
+    partial_dx = (torch.empty((stride * plan["tiles_x"], 2 * c_in),
+                              dtype=f32, device=x.device) if aff else None)
+    grads = torch.empty(e_dw + (2 * c_in if aff else 0), dtype=f32,
+                        device=x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.temporal_mma_bwd_launch(
+            *[_ptr(p) for p in args], dx.data_ptr(), partial_dw.data_ptr(),
+            _ptr(partial_dx), grads.data_ptr(), v, n,
+            t, c_in, c_out, gamma, stride, int(aff), int(relu2),
+            int(vmajor), plan["wn_dx"], plan["tiles_x"], plan["dx_smem"],
+            plan["nj_dw"], plan["splits"], plan["split_rows"],
+            plan["dw_smem"], torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(lib, err, "temporal bf16 backward")
+    return dx, grads
 
 
 def temporal_block_forward(z, s2, t2, wt, bt, *, stride: int, relu2: bool):
@@ -151,6 +317,12 @@ def _launch_forward(z, s2, t2, wt, bt, *, stride, relu2):
     v, n, t, c = z.shape
     gamma = wt.shape[0]
     t_out = t_out_of(t, stride, gamma)
+    if z.dtype == torch.bfloat16:
+        out = launch_mma_forward(z, s2, t2, wt, bt, v=v, n=n, t=t,
+                                 stride=stride, relu2=relu2, aff=True,
+                                 vmajor=True, out_shape=(v, n, t_out, c))
+        temporal_block_forward.launches += 1
+        return out
     tt, vg, smem = plan_forward(v, c, stride, gamma)
     cd, f32 = z.dtype, torch.float32
     args = [z.contiguous(), s2.to(f32).contiguous(), t2.to(f32).contiguous(),
@@ -160,8 +332,8 @@ def _launch_forward(z, s2, t2, wt, bt, *, stride, relu2):
     with torch.cuda.device(z.device):
         err = lib.temporal_block_fwd_launch(
             *[p.data_ptr() for p in args], out.data_ptr(), v, n, t, c, gamma,
-            stride, t_out, tt, vg, int(relu2), int(cd == torch.bfloat16),
-            smem, torch.cuda.current_stream(z.device).cuda_stream)
+            stride, t_out, tt, vg, int(relu2), smem,
+            torch.cuda.current_stream(z.device).cuda_stream)
     _raise_on(lib, err, "temporal_block forward")
     temporal_block_forward.launches += 1
     return out
@@ -193,25 +365,30 @@ def _launch_backward(z, g, s2, t2, wt, bt, *, stride, relu2):
     if tuple(g.shape) != (v, n, t_out, c):
         raise ValueError(f"g must be {(v, n, t_out, c)}, got "
                          f"{tuple(g.shape)}")
-    ft, vg, smem = plan_backward(v, c, gamma)
-    items = -(-t // ft) * n * -(-v // vg)
-    ctas = min(partial_ctas(z.device), items)
-    cd, f32 = z.dtype, torch.float32
-    args = [z.contiguous(), g.to(cd).contiguous(), s2.to(f32).contiguous(),
-            t2.to(f32).contiguous(),
-            wt.to(cd).transpose(1, 2).contiguous()]      # (gamma, C_out, C_in)
     sizes = (gamma * c * c, c, c, c)
-    dz = torch.empty_like(args[0])
-    partial = torch.empty((ctas, sum(sizes)), dtype=f32, device=z.device)
-    grads = torch.empty(sum(sizes), dtype=f32, device=z.device)
-    lib = load_library()
-    with torch.cuda.device(z.device):
-        err = lib.temporal_block_bwd_launch(
-            *[p.data_ptr() for p in args], dz.data_ptr(), partial.data_ptr(),
-            grads.data_ptr(), v, n, t, c, gamma, stride, t_out, ft, vg, ctas,
-            int(relu2), int(cd == torch.bfloat16), smem,
-            torch.cuda.current_stream(z.device).cuda_stream)
-    _raise_on(lib, err, "temporal_block backward")
+    if z.dtype == torch.bfloat16:
+        dz, grads = launch_mma_backward(z, g, s2, t2, wt, v=v, n=n, t=t,
+                                        stride=stride, relu2=relu2, aff=True,
+                                        vmajor=True)
+    else:
+        ft, vg, smem = plan_backward(v, c, gamma)
+        items = -(-t // ft) * n * -(-v // vg)
+        ctas = min(partial_ctas(z.device), items)
+        cd, f32 = z.dtype, torch.float32
+        args = [z.contiguous(), g.to(cd).contiguous(),
+                s2.to(f32).contiguous(), t2.to(f32).contiguous(),
+                wt.to(cd).transpose(1, 2).contiguous()]  # (gamma, C_out, C_in)
+        dz = torch.empty_like(args[0])
+        partial = torch.empty((ctas, sum(sizes)), dtype=f32, device=z.device)
+        grads = torch.empty(sum(sizes), dtype=f32, device=z.device)
+        lib = load_library()
+        with torch.cuda.device(z.device):
+            err = lib.temporal_block_bwd_launch(
+                *[p.data_ptr() for p in args], dz.data_ptr(),
+                partial.data_ptr(), grads.data_ptr(), v, n, t, c, gamma,
+                stride, t_out, ft, vg, ctas, int(relu2), smem,
+                torch.cuda.current_stream(z.device).cuda_stream)
+        _raise_on(lib, err, "temporal_block backward")
     temporal_block_backward.launches += 1
     dwt, dbt, ds2, dt2 = torch.split(grads, sizes)
     return (dz, ds2.to(s2.dtype), dt2.to(t2.dtype),

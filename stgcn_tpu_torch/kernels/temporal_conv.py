@@ -15,15 +15,17 @@ and ``layout="vntc"`` routes' temporal convs.  The function is
 :mod:`~stgcn_tpu_torch.kernels.temporal_block`'s with an identity affine
 and no ReLU, and so are its kernels: the same CUDA source
 (``csrc/temporal_block.cu``) built without the affine, reading and writing
-either layout in place.  The backward gives ``dx`` (rounded once, at the
-end, as ``_make_dx_kernel`` and ``_shiftsum_kernel`` round it), ``dw`` and
+either layout in place: bfloat16 on the tensor cores, float32 on the
+scalar kernels.  The backward gives ``dx`` (rounded once, at the end, as
+``_make_dx_kernel`` and ``_shiftsum_kernel`` round it), ``dw`` and
 ``db = sum g`` in float32.  For a CPU tensor the ops run the plain versions
 :func:`temporal_conv_forward_reference` and
 :func:`temporal_conv_backward_reference`, ``temporal_block``'s plain
 versions with that identity affine.
 
 ``temporal_conv_forward.launches`` and ``temporal_conv_backward.launches``
-count the kernel launches of both layouts, and nothing else.
+count the op calls of both layouts that launched kernels, one per call, and
+nothing else.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ from stgcn_tpu_torch.kernels.spatial_conv import (
 )
 from stgcn_tpu_torch.kernels.temporal_block import (
     FRAME_TILES,
+    launch_mma_backward,
+    launch_mma_forward,
     temporal_block_backward_reference,
     temporal_block_forward_reference,
 )
@@ -108,13 +112,13 @@ def plan_conv(rows: int, bytes_of) -> tuple[int, int, int]:
 
 
 def plan_forward(rows, c_in, stride, gamma):
-    """``(TT, VG, shared bytes)`` of the forward: a CTA holds the
+    """float32: ``(TT, VG, shared bytes)`` of the forward: a CTA holds the
     ``(TT-1)*s + gamma`` input frames of ``VG`` rows in float32."""
     return plan_conv(rows, lambda tt: 4 * ((tt - 1) * stride + gamma) * c_in)
 
 
 def plan_backward(rows, c_in, c_out, gamma):
-    """``(FT, VG, shared bytes)`` of the backward: a CTA holds ``FT`` input
+    """float32: ``(FT, VG, shared bytes)`` of the backward: a CTA holds ``FT`` input
     frames and the ``FT + gamma - 1`` frame positions of g of ``VG`` rows."""
     return plan_conv(rows,
                      lambda ft: 4 * (ft * c_in + (ft + gamma - 1) * c_out))
@@ -146,18 +150,23 @@ def _launch_forward(x, w, b, *, stride, vmajor):
     v, n, t = _dims(x, vmajor)
     gamma, c_in, c_out = w.shape
     t_out = t_out_of(t, stride, gamma)
+    shape = (v, t_out, c_out) if vmajor else (n, t_out, v, c_out)
+    if x.dtype == torch.bfloat16:
+        out = launch_mma_forward(x, None, None, w, b, v=v, n=n, t=t,
+                                 stride=stride, relu2=False, aff=False,
+                                 vmajor=vmajor, out_shape=shape)
+        temporal_conv_forward.launches += 1
+        return out
     tt, vg, smem = plan_forward(v, c_in, stride, gamma)
     cd = x.dtype
     args = [x.contiguous(), w.to(cd).contiguous(),
             b.to(torch.float32).contiguous()]
-    shape = (v, t_out, c_out) if vmajor else (n, t_out, v, c_out)
     out = torch.empty(shape, dtype=cd, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.temporal_conv_fwd_launch(
             *[p.data_ptr() for p in args], out.data_ptr(), v, n, t, c_in,
-            c_out, gamma, stride, t_out, tt, vg, int(vmajor),
-            int(cd == torch.bfloat16), smem,
+            c_out, gamma, stride, t_out, tt, vg, int(vmajor), smem,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "temporal_conv forward")
     temporal_conv_forward.launches += 1
@@ -189,24 +198,29 @@ def _launch_backward(x, g, w, b, *, stride, vmajor):
     want = (v, t_out, c_out) if vmajor else (n, t_out, v, c_out)
     if tuple(g.shape) != want:
         raise ValueError(f"g must be {want}, got {tuple(g.shape)}")
-    ft, vg, smem = plan_backward(v, c_in, c_out, gamma)
-    items = -(-t // ft) * n * -(-v // vg)
-    ctas = min(partial_ctas(x.device), items)
-    cd, f32 = x.dtype, torch.float32
-    args = [x.contiguous(), g.to(cd).contiguous(),
-            w.to(cd).transpose(1, 2).contiguous()]     # (gamma, C_out, C_in)
     sizes = (gamma * c_in * c_out, c_out)
-    dx = torch.empty_like(args[0])
-    partial = torch.empty((ctas, sum(sizes)), dtype=f32, device=x.device)
-    grads = torch.empty(sum(sizes), dtype=f32, device=x.device)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        err = lib.temporal_conv_bwd_launch(
-            *[p.data_ptr() for p in args], dx.data_ptr(), partial.data_ptr(),
-            grads.data_ptr(), v, n, t, c_in, c_out, gamma, stride, t_out, ft,
-            vg, ctas, int(vmajor), int(cd == torch.bfloat16), smem,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(lib, err, "temporal_conv backward")
+    if x.dtype == torch.bfloat16:
+        dx, grads = launch_mma_backward(x, g, None, None, w, v=v, n=n, t=t,
+                                        stride=stride, relu2=False,
+                                        aff=False, vmajor=vmajor)
+    else:
+        ft, vg, smem = plan_backward(v, c_in, c_out, gamma)
+        items = -(-t // ft) * n * -(-v // vg)
+        ctas = min(partial_ctas(x.device), items)
+        cd, f32 = x.dtype, torch.float32
+        args = [x.contiguous(), g.to(cd).contiguous(),
+                w.to(cd).transpose(1, 2).contiguous()]  # (gamma, C_out, C_in)
+        dx = torch.empty_like(args[0])
+        partial = torch.empty((ctas, sum(sizes)), dtype=f32, device=x.device)
+        grads = torch.empty(sum(sizes), dtype=f32, device=x.device)
+        lib = load_library()
+        with torch.cuda.device(x.device):
+            err = lib.temporal_conv_bwd_launch(
+                *[p.data_ptr() for p in args], dx.data_ptr(),
+                partial.data_ptr(), grads.data_ptr(), v, n, t, c_in, c_out,
+                gamma, stride, t_out, ft, vg, ctas, int(vmajor), smem,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _raise_on(lib, err, "temporal_conv backward")
     temporal_conv_backward.launches += 1
     dw, db = torch.split(grads, sizes)
     return (dx, dw.view(gamma, c_in, c_out).to(w.dtype), db.to(b.dtype))

@@ -48,6 +48,7 @@ from stgcn_tpu.kernels.temporal_conv_vm import (
 )
 from stgcn_tpu_torch.kernels import _build
 from stgcn_tpu_torch.kernels import spatial_conv as sc
+from stgcn_tpu_torch.kernels import temporal_block as tb
 from stgcn_tpu_torch.kernels import temporal_conv as tc
 from stgcn_tpu_torch.kernels.block_eval import SMEM_LIMIT
 
@@ -357,7 +358,9 @@ class TestLaunch:
     ENTRY = {"spatial_conv_fwd_launch": "spatial_block.cu",
              "spatial_conv_bwd_launch": "spatial_block.cu",
              "temporal_conv_fwd_launch": "temporal_block.cu",
-             "temporal_conv_bwd_launch": "temporal_block.cu"}
+             "temporal_conv_bwd_launch": "temporal_block.cu",
+             "temporal_mma_fwd_launch": "temporal_block.cu",
+             "temporal_mma_bwd_launch": "temporal_block.cu"}
 
     @pytest.mark.parametrize("name", sorted(ENTRY))
     def test_c_signature_matches_argtypes(self, name):
@@ -395,12 +398,15 @@ class TestLaunch:
         return calls
 
     @staticmethod
-    def check_call(args, name):
+    def check_call(args, name, null=()):
+        """One value per declared argument, of its kind; a pointer is
+        null only at the positions ``null`` (unused by that launch)."""
         declared = _build.ENTRY_POINTS[name]
         assert len(args) == len(declared)
-        for value, kind in zip(args, declared):
+        for i, (value, kind) in enumerate(zip(args, declared)):
             if kind is ctypes.c_void_p:
-                assert isinstance(value, int) and value
+                assert (value is None if i in null
+                        else isinstance(value, int) and value)
             else:
                 assert isinstance(value, int)
         assert args[-1] == 4321
@@ -453,23 +459,24 @@ class TestLaunch:
                                                         before[1] + 1)
         for got, p in zip(grads, ins):
             assert got.shape == p.shape and got.dtype == p.dtype
-        (fwd,), (bwd,) = (fake_lib["temporal_conv_fwd_launch"],
-                          fake_lib["temporal_conv_bwd_launch"])
-        self.check_call(fwd, "temporal_conv_fwd_launch")
-        self.check_call(bwd, "temporal_conv_bwd_launch")
+        # bf16 runs the tensor-core launchers, without the affine
+        assert "temporal_conv_fwd_launch" not in fake_lib
+        (fwd,), (bwd,) = (fake_lib["temporal_mma_fwd_launch"],
+                          fake_lib["temporal_mma_bwd_launch"])
+        self.check_call(fwd, "temporal_mma_fwd_launch", null=(1, 2))
+        self.check_call(bwd, "temporal_mma_bwd_launch", null=(2, 3, 7))
         # V-major (R, T, C) runs as V = R joints of one sequence
         v, n = (V * N, 1) if vmajor else (V, N)
-        tt, vg, fwd_smem = tc.plan_forward(v, 8, 2, GAMMA)
-        # ..., V, N, T, C_in, C_out, gamma, stride, T_out, tt, vg, vmajor,
-        # bf16, smem
-        assert fwd[4:17] == (v, n, 17, 8, 16, GAMMA, 2, 9, tt, vg,
-                             int(vmajor), 1, fwd_smem)
-        ft, vg, smem = tc.plan_backward(v, 8, 16, GAMMA)
-        items = -(-17 // ft) * n * -(-v // vg)
-        # ..., V, N, T, C_in, C_out, gamma, stride, T_out, ft, vg, ctas,
-        # vmajor, bf16, smem
-        assert bwd[6:20] == (v, n, 17, 8, 16, GAMMA, 2, 9, ft, vg,
-                             min(2 * 132, items), int(vmajor), 1, smem)
+        wn, fwd_smem = tb.plan_mma_forward(17, 8, 16, 2, GAMMA)
+        # ..., V, N, T, C_in, C_out, gamma, stride, aff, relu2, vmajor, wn,
+        # smem
+        assert fwd[6:18] == (v, n, 17, 8, 16, GAMMA, 2, 0, 0, int(vmajor),
+                             wn, fwd_smem)
+        plan = tb.plan_mma_backward(v * n, 17, 8, 16, 2, GAMMA, False, 264)
+        assert bwd[9:26] == (v, n, 17, 8, 16, GAMMA, 2, 0, 0, int(vmajor),
+                             plan["wn_dx"], plan["tiles_x"], plan["dx_smem"],
+                             plan["nj_dw"], plan["splits"],
+                             plan["split_rows"], plan["dw_smem"])
 
     def test_rejects_other_dtypes_and_shapes_on_the_cuda_path(self, rng,
                                                              fake_lib):

@@ -171,10 +171,17 @@ class TestKernelLaunchPlan:
     def test_tiles_fit_shared_memory(self, c_in, c_out, stride, itemsize):
         tt, vg, smem = be.plan_tiles(V, c_in, c_out, stride, GAMMA, itemsize)
         tf = (tt - 1) * stride + GAMMA
-        assert smem == itemsize * (tf * vg * c_out + V * c_in + V * c_out)
-        assert smem <= be.SMEM_LIMIT
         if itemsize == 2:
-            assert vg == V and tt >= 4   # bf16: every joint in one CTA
+            # the tensor-core kernel: z and h on padded rows, h on 32 rows,
+            # y, and the two-stage weight ring
+            ring = 2 * be.KC * (-(-c_out // 64) * 64 + be.PAD)
+            assert smem == 2 * (ring + tf * vg * be.pitch(c_out)
+                                + 32 * be.pitch(c_in) + V * c_out)
+            assert vg == V and tt >= 2   # bf16: every joint in one CTA
+        else:
+            assert smem == itemsize * (tf * vg * c_out + V * c_in
+                                       + V * c_out)
+        assert smem <= be.SMEM_LIMIT
         rg = be.THREADS // c_out
         assert -(-V // rg) <= be.MAX_ROWS
 

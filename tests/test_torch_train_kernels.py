@@ -265,7 +265,9 @@ class TestLaunch:
     ENTRY = {"spatial_block_fwd_launch": "spatial_block.cu",
              "spatial_block_bwd_launch": "spatial_block.cu",
              "temporal_block_fwd_launch": "temporal_block.cu",
-             "temporal_block_bwd_launch": "temporal_block.cu"}
+             "temporal_block_bwd_launch": "temporal_block.cu",
+             "temporal_mma_fwd_launch": "temporal_block.cu",
+             "temporal_mma_bwd_launch": "temporal_block.cu"}
 
     @pytest.mark.parametrize("name", sorted(ENTRY))
     def test_c_signature_matches_argtypes(self, name):
@@ -362,6 +364,39 @@ class TestLaunch:
                         "temporal_block_fwd_launch")
         self.check_call(fake_lib["temporal_block_bwd_launch"][0],
                         "temporal_block_bwd_launch")
+
+    def test_temporal_bf16_launches(self, rng, fake_lib):
+        """bf16 goes to the tensor-core launchers, one count per op call
+        whatever the number of kernels the backward launches."""
+        d = temporal_inputs(rng, 16)
+        ins = [torch.from_numpy(d[k]).to(torch.bfloat16)
+               if k in ("z", "wt") else t32(d[k]) for k in TEMPORAL_ARGS]
+        before = (tb.temporal_block_forward.launches,
+                  tb.temporal_block_backward.launches)
+        u = tb._launch_forward(*ins, stride=2, relu2=True)
+        grads = tb._launch_backward(ins[0], torch.zeros(V, N, 8, 16,
+                                                        dtype=torch.bfloat16),
+                                    *ins[1:], stride=2, relu2=True)
+        assert (tb.temporal_block_forward.launches,
+                tb.temporal_block_backward.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+        assert tuple(u.shape) == (V, N, 8, 16) and u.dtype == torch.bfloat16
+        for got, p in zip(grads, ins):
+            assert got.shape == p.shape and got.dtype == p.dtype
+        assert "temporal_block_fwd_launch" not in fake_lib
+        (fwd,), (bwd,) = (fake_lib["temporal_mma_fwd_launch"],
+                          fake_lib["temporal_mma_bwd_launch"])
+        self.check_call(fwd, "temporal_mma_fwd_launch")
+        self.check_call(bwd, "temporal_mma_bwd_launch")
+        wn, smem = tb.plan_mma_forward(T, 16, 16, 2, GAMMA)
+        # ..., V, N, T, C_in, C_out, gamma, stride, aff, relu2, vmajor, wn,
+        # smem
+        assert fwd[6:18] == (V, N, T, 16, 16, GAMMA, 2, 1, 1, 1, wn, smem)
+        plan = tb.plan_mma_backward(V * N, T, 16, 16, 2, GAMMA, True, 264)
+        assert bwd[9:26] == (V, N, T, 16, 16, GAMMA, 2, 1, 1, 1,
+                             plan["wn_dx"], plan["tiles_x"], plan["dx_smem"],
+                             plan["nj_dw"], plan["splits"],
+                             plan["split_rows"], plan["dw_smem"])
 
     def test_rejects_other_dtypes_on_the_cuda_path(self, rng, fake_lib):
         d = temporal_inputs(rng, 16)
