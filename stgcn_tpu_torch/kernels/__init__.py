@@ -47,15 +47,24 @@ forward and backward)  ``(N, T, V, C)``, and
                        compute the standalone gamma x 1 temporal conv
 =====================  =====================================================
 
-The bfloat16 kernels of ``block_eval``, ``temporal_block`` and
-``temporal_conv`` were redesigned for Hopper's tensor cores (the temporal
-taps, ``block_eval``'s stage 1 and projection, the temporal dx and dWt):
-``mma.sync`` bf16 tiles over padded shared rows, weights through a
-``cp.async`` ring (``csrc/tap_mma.cuh``); dx split by input-frame parity
-at stride 2, dWt split over the rows into partial slices summed in order.
-Their float32 kernels stay on the CUDA cores (float32 is the check type;
-tensor cores would make it TF32).  The spatial kernels are scalar in both
-types.
+The bfloat16 kernels of every op run on Hopper's tensor cores (``mma.sync``
+bf16 tiles over padded shared rows, weights through a ``cp.async`` ring,
+``csrc/tap_mma.cuh``):
+
+* ``block_eval``: stage 1, the projection and the temporal taps;
+* ``temporal_block`` and ``temporal_conv``: the taps as implicit
+  GEMMs, dx split by input-frame parity at stride 2, dWt split over the
+  rows into partial slices summed in order;
+* ``spatial_block``, ``spatial_block_save`` and ``spatial_conv``:
+  tiles of whole frames (5 of 25 joints in 128 rows), the expansion
+  y_k = round(h . W_k + b_k) and the aggregation per frame with the joints
+  padded to 32; the backward a row kernel (t_k = round(A_k^T . g), kept in
+  a bf16 scratch, and dA), a dx GEMM and a dW GEMM split over the rows,
+  their partial slices summed in order.
+
+Their bounds and what each design does about them are in the notes at the
+head of each source.  The float32 kernels stay on the CUDA cores (float32
+is the check type; tensor cores would make it TF32).
 
 Every wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its kernel, or raises, for a CUDA tensor; it counts its launches in

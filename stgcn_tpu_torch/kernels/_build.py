@@ -59,6 +59,11 @@ TEMPORAL_CONV_BWD_ARGTYPES = [_P] * 6 + [_I] * 13 + [_P]
 TEMPORAL_MMA_FWD_ARGTYPES = [_P] * 6 + [_I] * 12 + [_P]
 # temporal_mma_bwd_launch(9 pointers, 17 ints, stream), bf16, both ops
 TEMPORAL_MMA_BWD_ARGTYPES = [_P] * 9 + [_I] * 17 + [_P]
+# spatial_mma_fwd_launch(8 pointers, 11 ints, stream), bf16, every op of
+# spatial_block.cu
+SPATIAL_MMA_FWD_ARGTYPES = [_P] * 8 + [_I] * 11 + [_P]
+# spatial_mma_bwd_launch(15 pointers, 18 ints, stream), bf16
+SPATIAL_MMA_BWD_ARGTYPES = [_P] * 15 + [_I] * 18 + [_P]
 # every C entry point and its argument kinds; each returns a cudaError_t
 ENTRY_POINTS = {
     "block_eval_launch": BLOCK_EVAL_ARGTYPES,
@@ -74,6 +79,8 @@ ENTRY_POINTS = {
     "temporal_conv_bwd_launch": TEMPORAL_CONV_BWD_ARGTYPES,
     "temporal_mma_fwd_launch": TEMPORAL_MMA_FWD_ARGTYPES,
     "temporal_mma_bwd_launch": TEMPORAL_MMA_BWD_ARGTYPES,
+    "spatial_mma_fwd_launch": SPATIAL_MMA_FWD_ARGTYPES,
+    "spatial_mma_bwd_launch": SPATIAL_MMA_BWD_ARGTYPES,
 }
 
 

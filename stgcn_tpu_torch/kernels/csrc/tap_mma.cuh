@@ -1,5 +1,5 @@
 // A warp-level bf16 tap product on Hopper's tensor cores, shared by the
-// bf16 kernels of temporal_block.cu and block_eval.cu.
+// bf16 kernels of temporal_block.cu, block_eval.cu and spatial_block.cu.
 //
 // Each of them computes
 //   out[r, o] = sum_tap sum_c A(row_addr(r, tap))[c] . B_tap[c, o]
@@ -24,6 +24,8 @@
 //     layout instead.
 //   * Channel tails are zero in shared memory: K is padded to a multiple
 //     of 16 and N to the tile with zeros, so any channel count runs here.
+//   * stage8() stages activation rows [through an affine and ReLU, rounded
+//     to bf16 on the way].
 
 #pragma once
 
@@ -134,6 +136,40 @@ __device__ __forceinline__ void mma_k16(float (&acc)[MI][NJ][4],
   }
 }
 
+// mma_k16 with the A fragments already in registers (loaded once with
+// ldsm_x4 and reused across column tiles, as the 32 x 32 adjacency is).
+template <int MI, int NJ>
+__device__ __forceinline__ void mma_k16_frag(float (&acc)[MI][NJ][4],
+                                             const uint32_t (&a)[MI][4],
+                                             uint32_t b_addr) {
+  static_assert(NJ % 2 == 0, "B is read 16 columns at a time");
+#pragma unroll
+  for (int j = 0; j < NJ / 2; ++j) {
+    uint32_t b[4];
+    ldsm_x4_t(b, b_addr + j * 16 * (uint32_t)sizeof(bf16));
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      mma_bf16(acc[i][2 * j], a[i], b[0], b[1]);
+      mma_bf16(acc[i][2 * j + 1], a[i], b[2], b[3]);
+    }
+  }
+}
+
+// acc[2] (two n8 blocks) += A (16 x 16) . B (16 x 16) with B stored
+// N-major, [n][k] (the transpose of the usual [k][n]), read by a plain
+// ldmatrix.x4: a_addr as for mma_k16; b_addr the shared address of B row
+// n = at_lane_row(lane) (n rows 0-15 of the tile) at k column
+// at_lane_col(lane).  Matrices 0-3 are (n 0-7, k 0-7), (n 0-7, k 8-15),
+// (n 8-15, k 0-7), (n 8-15, k 8-15): b0, b1 of each n8 block.
+__device__ __forceinline__ void mma_k16_nk(float (&acc)[2][4],
+                                           uint32_t a_addr, uint32_t b_addr) {
+  uint32_t a[4], b[4];
+  ldsm_x4(a, a_addr);
+  ldsm_x4(b, b_addr);
+  mma_bf16(acc[0], a, b[0], b[1]);
+  mma_bf16(acc[1], a, b[2], b[3]);
+}
+
 template <int MI, int NJ>
 __device__ __forceinline__ void zero(float (&acc)[MI][NJ][4]) {
 #pragma unroll
@@ -152,6 +188,42 @@ __device__ __forceinline__ int acc_row(int i, int e, int lane) {
 }
 __device__ __forceinline__ int acc_col(int j, int e, int lane) {
   return 8 * j + 2 * (lane & 3) + (e & 1);
+}
+
+// The affine's input to the ReLU, rounded as torch rounds it (no FMA).
+__device__ __forceinline__ float affine(float v, float s, float t) {
+  return __fadd_rn(__fmul_rn(v, s), t);
+}
+
+// Eight channels c .. c+7 of one activation row into shared memory: zero
+// where !valid (a padding frame, a row past the tile) or past C; [through
+// the affine v * scale[c] + shift[c] and, with relu, the ReLU, rounded,
+// with AFF].  Vector loads where C is a multiple of 8 (the row then starts
+// 16-byte aligned).
+template <bool AFF>
+__device__ __forceinline__ void stage8(bf16* dst, const bf16* row, int c,
+                                       int C, bool valid, const float* scale,
+                                       const float* shift, int relu) {
+  alignas(16) bf16 v[8];
+  if (valid && C % 8 == 0 && c < C) {
+    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(row + c);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = (valid && c + k < C) ? row[c + k] : __float2bfloat16_rn(0.f);
+  }
+  if constexpr (AFF) {
+    if (valid) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (c + k >= C) break;
+        float x = affine(__bfloat162float(v[k]), scale[c + k], shift[c + k]);
+        if (relu) x = fmaxf(x, 0.f);
+        v[k] = __float2bfloat16_rn(x);
+      }
+    }
+  }
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
 }
 
 // Copy the tile src[r * src_pitch + c] (r < rows, c < cols, cols a

@@ -418,41 +418,6 @@ __device__ __forceinline__ size_t line_at(int line, int f, int TT, int C,
   }
 }
 
-// The affine's input to the ReLU, rounded as torch rounds it (no FMA).
-__device__ __forceinline__ float affine(float zv, const float* s2,
-                                        const float* t2, int c) {
-  return __fadd_rn(__fmul_rn(zv, s2[c]), t2[c]);
-}
-
-// Eight channels c .. c+7 of one activation row into shared memory: zero
-// where !valid (a padding frame) or past C; [through the affine and ReLU,
-// rounded, with AFF].
-template <bool AFF>
-__device__ __forceinline__ void stage8(bf16* dst, const bf16* row, int c,
-                                       int C, bool valid, const float* s2,
-                                       const float* t2, int relu2) {
-  alignas(16) bf16 v[8];
-  if (valid && C % 8 == 0 && c < C) {
-    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(row + c);
-  } else {
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      v[k] = (valid && c + k < C) ? row[c + k] : __float2bfloat16_rn(0.f);
-  }
-  if constexpr (AFF) {
-    if (valid) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        if (c + k >= C) break;
-        float h = affine(__bfloat162float(v[k]), s2, t2, c + k);
-        if (relu2) h = fmaxf(h, 0.f);
-        v[k] = __float2bfloat16_rn(h);
-      }
-    }
-  }
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
-}
-
 struct GemmArgs {
   const bf16* x;      // the GEMM's input rows: z (forward) or g (dx)
   const bf16* z;      // dx with AFF: the op's input, for the epilogue
@@ -580,8 +545,8 @@ tap_gemm_kernel(GemmArgs p) {
     }
     const bool valid = f >= 0 && f < Tx;
     const bf16* row = p.x + (valid ? line_at<VM>(l, f, Tx, p.K_in, p.V) : 0);
-    stage8<AFF && !DX>(as + (size_t)sr * AP + c, row, c, p.K_in, valid, p.s2,
-                       p.t2, p.relu2);
+    tap::stage8<AFF && !DX>(as + (size_t)sr * AP + c, row, c, p.K_in, valid,
+                            p.s2, p.t2, p.relu2);
   }
   __syncthreads();
 
@@ -657,7 +622,7 @@ tap_gemm_kernel(GemmArgs p) {
             v[q] += p.bias[oc];
           } else if constexpr (AFF) {
             const float zv = __bfloat162float(p.z[base[mi][h] + oc]);
-            const float pre = affine(zv, p.s2, p.t2, oc);
+            const float pre = tap::affine(zv, p.s2[oc], p.t2[oc]);
             const float dp = (p.relu2 && !(pre > 0.f)) ? 0.f : v[q];
             cs[nj][q] += dp * zv;
             ct[nj][q] += dp;
@@ -787,8 +752,8 @@ tap_dwt_kernel(DwtArgs p) {
         tap::cp_async16(tap::smem_u32(d), n > 0 ? row + c : p.z,
                         n * (int)sizeof(bf16));
       } else {
-        stage8<AFF>(d, row, c, p.Ci - c0, valid, p.s2 + c0, p.t2 + c0,
-                    p.relu2);
+        tap::stage8<AFF>(d, row, c, p.Ci - c0, valid, p.s2 + c0, p.t2 + c0,
+                         p.relu2);
       }
     }
     tap::cp_async_commit();
@@ -833,26 +798,6 @@ tap_dwt_kernel(DwtArgs p) {
       }
   if (do_dbt && threadIdx.x < BN && n0 + (int)threadIdx.x < p.Co)
     slice[(size_t)p.gamma * p.Ci * p.Co + n0 + threadIdx.x] = sb;
-}
-
-// out[e] = sum over slices of partial[slice * E + e] for the few columns
-// and many slices of the dx kernel's ds2 | dt2: one CTA a column, thread i
-// summing slices i, i + 256, ... in order, then a fixed tree.
-__global__ void __launch_bounds__(tap::kThreads)
-reduce_columns(const float* __restrict__ partial, float* __restrict__ out,
-               int slices, int E) {
-  __shared__ float part[tap::kThreads];
-  const int e = blockIdx.x;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < slices; i += blockDim.x)
-    s += partial[(size_t)i * E + e];
-  part[threadIdx.x] = s;
-  __syncthreads();
-  for (int h = blockDim.x / 2; h > 0; h >>= 1) {
-    if ((int)threadIdx.x < h) part[threadIdx.x] += part[threadIdx.x + h];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[e] = part[0];
 }
 
 template <typename K>
@@ -916,9 +861,9 @@ cudaError_t backward(const GemmArgs& dx, int wn_dx, int dx_smem,
   const long long E = (long long)dw.gamma * dw.Ci * dw.Co + dw.Co;
   err = train::launch_reduce(dw.partial, grads, splits, E, st);
   if (err != cudaSuccess || !AFF) return err;
-  reduce_columns<<<2 * dx.N_out, tap::kThreads, 0, st>>>(
-      dx.partial, grads + E, dx.stride * dx.tiles_x, 2 * dx.N_out);
-  return cudaGetLastError();
+  return train::launch_reduce_columns(dx.partial, grads + E,
+                                     dx.stride * dx.tiles_x, 2 * dx.N_out,
+                                     st);
 }
 
 }  // namespace mma_path

@@ -1,6 +1,6 @@
 // Shared pieces of the train-path kernels (spatial_block.cu and
 // temporal_block.cu): dtype conversion, a register-tiled scalar product over
-// shared-memory operands, and the deterministic second pass that sums the
+// shared-memory operands, and the deterministic second passes that sum the
 // per-CTA partial gradients.
 //
 // Cross-CTA reductions.  The TPU kernels accumulate their weight gradients
@@ -107,6 +107,34 @@ inline cudaError_t launch_reduce(const float* partial, float* out, int ctas,
   const long long blocks = (E + kThreads - 1) / kThreads;
   reduce_partials<<<(unsigned)blocks, kThreads, 0, stream>>>(partial, out,
                                                              ctas, E);
+  return cudaGetLastError();
+}
+
+// out[e] = sum over slices of partial[slice * E + e] for the few columns
+// and many slices of a row-tiled kernel's column sums (the bf16 dx kernels'
+// affine gradients): one CTA a column, thread i summing slices i, i + 256,
+// ... in order, then a fixed tree.
+__global__ void __launch_bounds__(kThreads)
+reduce_columns(const float* __restrict__ partial, float* __restrict__ out,
+               int slices, int E) {
+  __shared__ float part[kThreads];
+  const int e = blockIdx.x;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < slices; i += blockDim.x)
+    s += partial[(size_t)i * E + e];
+  part[threadIdx.x] = s;
+  __syncthreads();
+  for (int h = blockDim.x / 2; h > 0; h >>= 1) {
+    if ((int)threadIdx.x < h) part[threadIdx.x] += part[threadIdx.x + h];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[e] = part[0];
+}
+
+inline cudaError_t launch_reduce_columns(const float* partial, float* out,
+                                         int slices, int E,
+                                         cudaStream_t stream) {
+  reduce_columns<<<E, kThreads, 0, stream>>>(partial, out, slices, E);
   return cudaGetLastError();
 }
 

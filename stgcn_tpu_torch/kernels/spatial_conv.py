@@ -13,7 +13,8 @@ float32.  They are the ports of ``spatial_conv_fused`` and
 function is :mod:`~stgcn_tpu_torch.kernels.spatial_block`'s with an
 identity affine and no ReLU, and so are its kernels: the same CUDA source
 (``csrc/spatial_block.cu``) built without the affine, reading and writing
-either layout in place.  For a CPU tensor the ops run the plain versions
+either layout in place, bfloat16 on the tensor cores and float32 on the
+scalar kernels.  For a CPU tensor the ops run the plain versions
 :func:`spatial_conv_forward_reference` and
 :func:`spatial_conv_backward_reference`, which are ``spatial_block``'s plain
 versions with that identity affine and so round where the Pallas kernels
@@ -21,7 +22,8 @@ do (the forward at ``_fwd_kernel``, the backward's t_k and recomputed y_k
 at ``_bwd_kernel``).
 
 ``spatial_conv_forward.launches`` and ``spatial_conv_backward.launches``
-count the kernel launches of both layouts, and nothing else.
+count the op calls that launched kernels, one per call, in both layouts,
+and nothing else.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from stgcn_tpu_torch.kernels.spatial_block import (
     _check_cuda,
     _raise_on,
     check_args,
+    launch_mma_backward,
+    launch_mma_forward,
     partial_ctas,
     plan_frames,
     spatial_block_backward_reference,
@@ -122,17 +126,24 @@ def _launch_forward(x, w, b, a, *, vmajor):
     _check_cuda("spatial_conv", x, (w, b, a))
     v, m, c_in = _dims(x, vmajor)
     _, k, c_out = w.shape
+    out_shape = (*x.shape[:-1], c_out)
+    if x.dtype == torch.bfloat16:
+        out, _ = launch_mma_forward(x, None, None, w, b, a, v=v, m=m,
+                                    relu1=False, aff=False, save=False,
+                                    vmajor=vmajor, out_shape=out_shape)
+        spatial_conv_forward.launches += 1
+        return out
     frames, smem, _ = plan_frames(v, c_in, c_out)
     cd = x.dtype
     x = x.contiguous()
     args = [x, w.to(cd).permute(1, 0, 2).contiguous(), b.to(cd).contiguous(),
             a.to(cd).contiguous()]
-    out = torch.empty((*x.shape[:-1], c_out), dtype=cd, device=x.device)
+    out = torch.empty(out_shape, dtype=cd, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.spatial_conv_fwd_launch(
             *[p.data_ptr() for p in args], out.data_ptr(), v, m, c_in, c_out,
-            k, frames, int(vmajor), int(cd == torch.bfloat16), smem,
+            k, frames, int(vmajor), 0, smem,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "spatial_conv forward")
     spatial_conv_forward.launches += 1
@@ -165,25 +176,30 @@ def _launch_backward(x, g, w, b, a, *, vmajor, need_da):
     if tuple(g.shape) != (*x.shape[:-1], c_out):
         raise ValueError(f"g must be {(*x.shape[:-1], c_out)}, got "
                          f"{tuple(g.shape)}")
-    frames, _, smem = plan_frames(v, c_in, c_out)
-    ctas = min(partial_ctas(x.device), -(-m // frames))
-    cd, f32 = x.dtype, torch.float32
-    wk = w.to(cd).permute(1, 0, 2)                        # (K, C_in, C_out)
-    args = [x.contiguous(), g.to(cd).contiguous(), wk.contiguous(),
-            wk.transpose(1, 2).contiguous(), b.to(cd).contiguous(),
-            a.to(cd).contiguous()]
     sizes = (k * c_in * c_out, k * c_out, k * v * v)
-    dx = torch.empty_like(args[0])
-    partial = torch.empty((ctas, sum(sizes)), dtype=f32, device=x.device)
-    grads = torch.empty(sum(sizes), dtype=f32, device=x.device)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        err = lib.spatial_conv_bwd_launch(
-            *[p.data_ptr() for p in args], dx.data_ptr(), partial.data_ptr(),
-            grads.data_ptr(), v, m, c_in, c_out, k, frames, ctas,
-            int(vmajor), int(need_da), int(cd == torch.bfloat16), smem,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(lib, err, "spatial_conv backward")
+    if x.dtype == torch.bfloat16:
+        dx, grads = launch_mma_backward(x, g, None, None, w, b, a, None, v=v,
+                                        m=m, relu1=False, aff=False,
+                                        vmajor=vmajor, need_da=need_da)
+    else:
+        frames, _, smem = plan_frames(v, c_in, c_out)
+        ctas = min(partial_ctas(x.device), -(-m // frames))
+        cd, f32 = x.dtype, torch.float32
+        wk = w.to(cd).permute(1, 0, 2)                    # (K, C_in, C_out)
+        args = [x.contiguous(), g.to(cd).contiguous(), wk.contiguous(),
+                wk.transpose(1, 2).contiguous(), b.to(cd).contiguous(),
+                a.to(cd).contiguous()]
+        dx = torch.empty_like(args[0])
+        partial = torch.empty((ctas, sum(sizes)), dtype=f32, device=x.device)
+        grads = torch.empty(sum(sizes), dtype=f32, device=x.device)
+        lib = load_library()
+        with torch.cuda.device(x.device):
+            err = lib.spatial_conv_bwd_launch(
+                *[p.data_ptr() for p in args], dx.data_ptr(),
+                partial.data_ptr(), grads.data_ptr(), v, m, c_in, c_out, k,
+                frames, ctas, int(vmajor), int(need_da), 0, smem,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _raise_on(lib, err, "spatial_conv backward")
     spatial_conv_backward.launches += 1
     dw, db, da = torch.split(grads, sizes)
     dw = dw.view(k, c_in, c_out).permute(1, 0, 2)

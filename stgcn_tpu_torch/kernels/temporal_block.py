@@ -29,9 +29,16 @@ import torch.nn.functional as F
 
 from stgcn_tpu_torch.kernels.block_eval import PAD, SMEM_LIMIT, pitch, t_out_of
 from stgcn_tpu_torch.kernels.spatial_block import (
+    MMA_KC,
+    MMA_KR,
     _acc,
     _check_cuda,
+    _f32,
+    _ptr,
     _raise_on,
+    _ring_bytes,
+    dw_splits,
+    dw_tile,
     partial_ctas,
 )
 
@@ -139,8 +146,10 @@ def plan_backward(v: int, c: int, gamma: int) -> tuple[int, int, int]:
 
 # ---- bfloat16: the tensor-core kernels ---------------------------------
 # shared rows are ``pitch(c)`` elements wide (block_eval.pitch, tap_mma.cuh)
-KC = 32        # weight rows per ring stage (temporal_block.cu mma_path::KC)
-KR = 64        # dWt: rows of the GEMM's K per chunk (mma_path::KR)
+# temporal_block.cu's mma_path::KC and KR equal spatial_block.cu's, so the
+# two share the ring's byte count and the dW split planner
+KC = MMA_KC    # weight rows per ring stage (mma_path::KC)
+KR = MMA_KR    # dWt: rows of the GEMM's K per chunk (mma_path::KR)
 
 
 def gemm_tile(n_out: int) -> tuple[int, int, int]:
@@ -169,18 +178,6 @@ def parity_taps(gamma: int, stride: int, parity: int
     taps = list(range(tap0, gamma, stride))
     e0 = (parity + pad - tap0) // stride
     return e0, taps, [e0 - i for i in range(len(taps))]
-
-
-def _f32(p):
-    return None if p is None else p.to(torch.float32).contiguous()
-
-
-def _ptr(p):
-    return None if p is None else p.data_ptr()
-
-
-def _ring_bytes(bn: int) -> int:
-    return 2 * KC * (bn + PAD) * 2
 
 
 def plan_mma_forward(t: int, c_in: int, c_out: int, stride: int,
@@ -214,34 +211,15 @@ def plan_mma_backward(lines: int, t: int, c_in: int, c_out: int,
     dx_smem = (_ring_bytes(bn) + 4 * bm + (2 * 4 * (8 // wn_dx) * bn
                                            if aff else 0)
                + 2 * rows * pitch(c_out))
-    nj_dw, bm_dw, bn_dw = dwt_tile(c_out)
+    nj_dw, bm_dw, bn_dw = dw_tile(c_out)
     dw_smem = 2 * KR * ((bm_dw + PAD) + (bn_dw + PAD)) * 2
     if max(dx_smem, dw_smem) > SMEM_LIMIT:
         raise ValueError(f"no bf16 temporal tile of C_out={c_out} fits in "
                          f"{SMEM_LIMIT} bytes of shared memory")
-    splits, split_rows = dwt_splits(lines * t_out, gamma, c_in, c_out, ctas)
+    splits, split_rows = dw_splits(lines * t_out, gamma, c_in, c_out, ctas)
     return dict(wn_dx=wn_dx, tiles_x=-(-lines * -(-t // stride) // bm),
                 dx_smem=dx_smem, nj_dw=nj_dw, splits=splits,
                 split_rows=split_rows, dw_smem=dw_smem)
-
-
-def dwt_tile(c_out: int) -> tuple[int, int, int]:
-    """``(NJ, BM, BN)`` of the dWt GEMM: 64 input channels by 64 output
-    channels up to 64 of them, else by 128 (warps of 32 x 8*NJ)."""
-    nj = 4 if c_out > 64 else 2
-    return nj, 64, 32 * nj
-
-
-def dwt_splits(rows: int, gamma: int, c_in: int, c_out: int,
-               ctas: int) -> tuple[int, int]:
-    """``(splits, rows per split)`` of the dWt GEMM's K = ``rows``: enough
-    splits for about ``ctas`` CTAs over the ``gamma`` x channel tiles,
-    each a whole number of KR-row chunks."""
-    _, bm, bn = dwt_tile(c_out)
-    tiles = gamma * -(-c_in // bm) * -(-c_out // bn)
-    want = max(1, round(ctas / tiles))
-    split_rows = -(-(-(-rows // want)) // KR) * KR
-    return -(-rows // split_rows), split_rows
 
 
 def launch_mma_forward(x, s2, t2, w, b, *, v, n, t, stride, relu2, aff,

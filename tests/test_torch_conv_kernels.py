@@ -47,6 +47,7 @@ from stgcn_tpu.kernels.temporal_conv_vm import (
     temporal_conv_fused_vm as jax_temporal_conv_vm,
 )
 from stgcn_tpu_torch.kernels import _build
+from stgcn_tpu_torch.kernels import spatial_block as sb
 from stgcn_tpu_torch.kernels import spatial_conv as sc
 from stgcn_tpu_torch.kernels import temporal_block as tb
 from stgcn_tpu_torch.kernels import temporal_conv as tc
@@ -360,7 +361,9 @@ class TestLaunch:
              "temporal_conv_fwd_launch": "temporal_block.cu",
              "temporal_conv_bwd_launch": "temporal_block.cu",
              "temporal_mma_fwd_launch": "temporal_block.cu",
-             "temporal_mma_bwd_launch": "temporal_block.cu"}
+             "temporal_mma_bwd_launch": "temporal_block.cu",
+             "spatial_mma_fwd_launch": "spatial_block.cu",
+             "spatial_mma_bwd_launch": "spatial_block.cu"}
 
     @pytest.mark.parametrize("name", sorted(ENTRY))
     def test_c_signature_matches_argtypes(self, name):
@@ -441,6 +444,44 @@ class TestLaunch:
         assert bwd[9:20] == (V, N * T, 2, 64, K, frames,
                              min(2 * 132, -(-N * T // frames)), int(vmajor),
                              0, 0, smem)
+
+    @pytest.mark.parametrize("layout", LAYOUTS)
+    def test_spatial_bf16_launches(self, rng, adjacency, fake_lib, layout):
+        """bf16 runs the tensor-core launchers without the affine, in
+        either layout; one count per op call."""
+        vmajor = layout == "vntc"
+        d = spatial_inputs(rng, layout, 40, 24, adjacency)
+        ins = [tensor(d[k], torch.bfloat16) for k in SPATIAL_ARGS]
+        before = (sc.spatial_conv_forward.launches,
+                  sc.spatial_conv_backward.launches)
+        z = sc._launch_forward(*ins, vmajor=vmajor)
+        assert tuple(z.shape) == d["x"].shape[:-1] + (24,)
+        assert z.dtype == torch.bfloat16
+        g = torch.zeros(*d["x"].shape[:-1], 24, dtype=torch.bfloat16)
+        grads = sc._launch_backward(ins[0], g, *ins[1:], vmajor=vmajor,
+                                    need_da=True)
+        assert (sc.spatial_conv_forward.launches,
+                sc.spatial_conv_backward.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+        for got, p in zip(grads, ins):
+            assert got.shape == p.shape and got.dtype == p.dtype
+        assert "spatial_conv_fwd_launch" not in fake_lib
+        assert "spatial_conv_bwd_launch" not in fake_lib
+        (fwd,), (bwd,) = (fake_lib["spatial_mma_fwd_launch"],
+                          fake_lib["spatial_mma_bwd_launch"])
+        # no affine (s1, t1), no saved y; no ds1/dt1 slices
+        self.check_call(fwd, "spatial_mma_fwd_launch", null=(1, 2, 7))
+        self.check_call(bwd, "spatial_mma_bwd_launch", null=(2, 3, 8, 12))
+        frames, smem = sb.plan_spatial_mma_forward(V, 40, 24, K)
+        # ..., V, M, C_in, C_out, K, frames, aff, save, relu1, vmajor, smem
+        assert fwd[8:19] == (V, N * T, 40, 24, K, frames, 0, 0, 0,
+                             int(vmajor), smem)
+        plan = sb.plan_spatial_mma_backward(V, N * T, 40, 24, K, 264)
+        assert bwd[15:33] == (V, N * T, 40, 24, K, frames, 0, 0, 0,
+                              int(vmajor), 1, plan["ctas"], plan["t_smem"],
+                              plan["dx_smem"], plan["nj_dw"],
+                              plan["splits"], plan["split_rows"],
+                              plan["dw_smem"])
 
     @pytest.mark.parametrize("layout", LAYOUTS)
     def test_temporal_launches(self, rng, fake_lib, layout):

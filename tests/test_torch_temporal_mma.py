@@ -160,7 +160,7 @@ def render_backward(z, g, s2, t2, wt, *, stride, relu2, aff, vmajor):
     zh = zl * s2 + t2 if aff else zl
     zh = torch.relu(zh) if aff and relu2 else zh
     rows = lines * t_out
-    splits, split_rows = tb.dwt_splits(rows, gamma, c_in, c_out, CTAS)
+    splits, split_rows = tb.dw_splits(rows, gamma, c_in, c_out, CTAS)
     assert (splits, split_rows) == (plan["splits"], plan["split_rows"])
     assert (splits - 1) * split_rows < rows <= splits * split_rows
     g_rows = gl.reshape(rows, c_out)
@@ -312,7 +312,7 @@ class TestPlans:
         assert (2 * be.pitch(c)) % 16 == 0
         assert be.pitch(c) >= c and be.pitch(c) % 16 == be.PAD
         wn, bm, bn = tb.gemm_tile(c)
-        _, dw_bm, dw_bn = tb.dwt_tile(c)
+        _, dw_bm, dw_bn = tb.dw_tile(c)
         for width in (bm, bn, dw_bm, dw_bn, -(-c // 64) * 64):
             assert (2 * (width + be.PAD)) % 16 == 0
         assert (2 * 2 * tb.KC * (bn + be.PAD)) % 16 == 0    # the ring

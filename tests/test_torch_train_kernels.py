@@ -267,7 +267,9 @@ class TestLaunch:
              "temporal_block_fwd_launch": "temporal_block.cu",
              "temporal_block_bwd_launch": "temporal_block.cu",
              "temporal_mma_fwd_launch": "temporal_block.cu",
-             "temporal_mma_bwd_launch": "temporal_block.cu"}
+             "temporal_mma_bwd_launch": "temporal_block.cu",
+             "spatial_mma_fwd_launch": "spatial_block.cu",
+             "spatial_mma_bwd_launch": "spatial_block.cu"}
 
     @pytest.mark.parametrize("name", sorted(ENTRY))
     def test_c_signature_matches_argtypes(self, name):
@@ -312,12 +314,15 @@ class TestLaunch:
         return calls
 
     @staticmethod
-    def check_call(args, name):
+    def check_call(args, name, null=()):
+        """One value per declared argument, of its kind; a pointer is
+        null only at the positions ``null`` (unused by that launch)."""
         declared = _build.ENTRY_POINTS[name]
         assert len(args) == len(declared)
-        for value, kind in zip(args, declared):
+        for i, (value, kind) in enumerate(zip(args, declared)):
             if kind is ctypes.c_void_p:
-                assert isinstance(value, int) and value
+                assert (value is None if i in null
+                        else isinstance(value, int) and value)
             else:
                 assert isinstance(value, int)
         assert args[-1] == 4321
@@ -345,6 +350,59 @@ class TestLaunch:
         assert bwd[11:22] == (V, N * T, 2, 64, K, frames,
                               min(2 * 132, -(-N * T // frames)), 1,
                               0, 0, smem)
+
+    @pytest.mark.parametrize("save", [False, True])
+    def test_spatial_bf16_launches(self, rng, adjacency, fake_lib, save):
+        """bf16 goes to the tensor-core launchers (the save op's too), one
+        count per op call whatever the number of kernels the backward
+        launches."""
+        d = spatial_inputs(rng, 2, 64, adjacency)
+        ins = [torch.from_numpy(d[k]).to(torch.bfloat16)
+               if k in ("x", "w", "b", "a") else t32(d[k])
+               for k in SPATIAL_ARGS]
+        fwd_fn, bwd_fn = ((sb.spatial_block_save_forward,
+                           sb.spatial_block_save_backward) if save else
+                          (sb.spatial_block_forward,
+                           sb.spatial_block_backward))
+        before = (fwd_fn.launches, bwd_fn.launches)
+        g = torch.zeros(V, N, T, 64, dtype=torch.bfloat16)
+        if save:
+            z, y = sb._launch_save_forward(*ins, relu1=True)
+            assert tuple(y.shape) == (K, V, N, T, 64)
+            grads = sb._launch_save_backward(ins[0], g, y, *ins[1:4], ins[5],
+                                             relu1=True)
+        else:
+            z = sb._launch_forward(*ins, relu1=True)
+            grads = sb._launch_backward(ins[0], g, *ins[1:], relu1=True,
+                                        need_da=False)
+        assert (fwd_fn.launches, bwd_fn.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+        assert tuple(z.shape) == (V, N, T, 64) and z.dtype == torch.bfloat16
+        for got, p in zip(grads, ins):
+            assert got.shape == p.shape and got.dtype == p.dtype
+        for scalar in ("spatial_block_fwd_launch", "spatial_block_bwd_launch",
+                       "spatial_block_save_fwd_launch",
+                       "spatial_block_save_bwd_launch"):
+            assert scalar not in fake_lib
+        (fwd,), (bwd,) = (fake_lib["spatial_mma_fwd_launch"],
+                          fake_lib["spatial_mma_bwd_launch"])
+        # the save op writes y and its backward reads it in place of b
+        self.check_call(fwd, "spatial_mma_fwd_launch",
+                        null=() if save else (7,))
+        self.check_call(bwd, "spatial_mma_bwd_launch",
+                        null=(6,) if save else (8,))
+        frames, smem = sb.plan_spatial_mma_forward(V, 2, 64, K)
+        # ..., V, M, C_in, C_out, K, frames, aff, save, relu1, vmajor, smem
+        assert fwd[8:19] == (V, N * T, 2, 64, K, frames, 1, int(save), 1, 1,
+                             smem)
+        plan = sb.plan_spatial_mma_backward(V, N * T, 2, 64, K, 264)
+        # ..., V, M, C_in, C_out, K, frames, aff, save, relu1, vmajor,
+        # need_da, ctas, t_smem, dx_smem, nj_dw, splits, split_rows, dw_smem
+        assert bwd[15:33] == (V, N * T, 2, 64, K, frames, 1, int(save), 1, 1,
+                              0 if not save else 1, plan["ctas"],
+                              plan["t_smem"], plan["dx_smem"], plan["nj_dw"],
+                              plan["splits"], plan["split_rows"],
+                              plan["dw_smem"])
 
     def test_temporal_launches(self, rng, fake_lib):
         d = temporal_inputs(rng, 16)
