@@ -95,7 +95,23 @@ non-zero exit code:
                    the hybrid and routes A and B, of the save op at blocks
                    8-9 beside its plain version, the recompute op and its
                    bound, and of the fused eval step.
-16. kernels     -- one line per kernel with its launches, error, times and
+16. cli_train   -- the training entry point end to end:
+                   ``stgcn_tpu_torch.cli.train.main`` in this process on a
+                   synthetic KTH-format dataset written to disk (25
+                   subjects, 599 sequences of 120-480 frames), through the
+                   CLI's own flags at full width (bench.py's step with
+                   every block fused, spatial-configuration partitioning
+                   and a trained graph, bf16, B=64, fixed T=304): two
+                   epochs with a checkpoint each (8/2/10 launches of
+                   spatial_block / spatial_block_save / temporal_block
+                   each way a train step, 10 block_eval launches a
+                   validation or test batch; finite losses; ``ckpt_<step>``
+                   with the JAX metadata), the same command resumed for a
+                   third epoch (the step count continues), and the README
+                   quick-start shape on the hybrid with bucketed batches
+                   for one epoch; each run's epoch seconds and the
+                   Trainer's ms a step beside fused_time's step.
+17. kernels     -- one line per kernel with its launches, error, times and
                    bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1860,7 +1876,178 @@ def fused_time_phase(dev, gen, peak_flops, peak_bytes,
          fused_kernel_ms_sum=kernel_ms,
          fused_rest_ms=step_ms["fused"] - kernel_ms,
          batch=B, frames=T, dtype="bfloat16")
-    return totals
+    return totals, step_ms
+
+
+# ---- the training entry point ---------------------------------------------
+# The CLI's flags for bench.py's step with every block fused, as a user
+# passes them: spatial-configuration partitioning (K=3, distances from the
+# training set), residual, dropout 0.5, a trained graph (mask mode, so blocks
+# 8-9 run the save op), bf16, B=64 at a fixed T=304.
+CLI_FLAGS = ["--model.partitioning", "2", "--model.residual", "true",
+             "--model.dropout_rate", "0.5",
+             "--model.use_edge_importance", "true",
+             "--model.block_impl", "fused", "--parallel.precision",
+             "bfloat16", "--data.batch_size", str(B),
+             "--data.collate_mode", "fixed", "--data.fixed_len", str(T),
+             "--data.use_native_loader", "false", "--train.lr", "1e-3",
+             "--train.checkpoint_every_epochs", "1"]
+# the README's quick-start shape on the hybrid: bucketed batch lengths
+CLI_HYBRID = ["--model.block_impl", "hybrid", "--model.fused_blocks",
+              ",".join(map(str, FUSED_BLOCKS)), "--data.collate_mode",
+              "bucket"]
+CLI_EPOCHS = 2
+
+
+def run_cli(argv: list[str]) -> tuple[dict, dict]:
+    """``cli.train.main(argv)`` in this process with every launch count set
+    to 0 just before it; returns the counts read just after and what it
+    printed: splits, epochs (the ``[epoch]`` dicts), resume line, test."""
+    import ast
+    import contextlib
+    import io
+
+    from stgcn_tpu_torch.cli.train import main as train_main
+    from stgcn_tpu_torch.kernels.block_eval import block_eval
+
+    counters = {**fused_counters(), "block_eval": block_eval}
+    out = io.StringIO()
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = train_main(argv)
+    except BaseException:
+        print(out.getvalue()[-6000:], file=sys.stderr)
+        raise
+    launches = {name: fn.launches for name, fn in counters.items()}
+    text = out.getvalue()
+    splits = re.search(r"\[data\] splits: train=(\d+) val=(\d+) test=(\d+)",
+                       text)
+    test = re.search(r"\[test\] loss=(\S+) acc=(\S+) n=(\d+)", text)
+    resumed = re.search(r"\[ckpt\] resumed from epoch (\d+)", text)
+    printed = {
+        "rc": rc,
+        "splits": [int(v) for v in splits.groups()] if splits else None,
+        "epochs": [ast.literal_eval(line[len("[epoch] "):])
+                   for line in text.splitlines()
+                   if line.startswith("[epoch] ")],
+        "resumed_from": int(resumed.group(1)) if resumed else None,
+        "test": ([float(test.group(1)), float(test.group(2)),
+                  int(test.group(3))] if test else None),
+    }
+    if rc != 0 or not splits or not test:
+        print(text[-6000:], file=sys.stderr)
+    return launches, printed
+
+
+def cli_train_phase(fused_step_ms: float, smi: str) -> None:
+    """The training CLI end to end (module docstring, phase 16); fails on a
+    non-zero return, a non-finite loss, a launch count off its expected
+    value per step and batch, a missing checkpoint or one without the JAX
+    metadata, or a resume that does not continue the step count."""
+    import math
+    import os
+    import tempfile
+
+    from stgcn_tpu_torch.data import generate_dataset
+    from stgcn_tpu_torch.training.checkpoint import checkpoint_metadata
+
+    blocks, saves = 10, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        start = time.perf_counter()
+        meta = generate_dataset(data_dir)
+        generate_s = time.perf_counter() - start
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        common = ["--data.metadata_file", meta, "--data.dataset_dir",
+                  data_dir, "--train.checkpoint_dir", ckpt_dir,
+                  "--train.log_dir", os.path.join(tmp, "logs")]
+        runs = {
+            "fused": CLI_FLAGS + common + ["--train.epochs",
+                                           str(CLI_EPOCHS)],
+            "fused_resumed": CLI_FLAGS + common + [
+                "--train.epochs", str(CLI_EPOCHS + 1), "--train.resume",
+                "true"],
+            "hybrid_bucket": CLI_FLAGS + CLI_HYBRID + [
+                "--data.metadata_file", meta, "--data.dataset_dir",
+                data_dir, "--train.epochs", "1"],
+        }
+        results = {}
+        for name, argv in runs.items():
+            start = time.perf_counter()
+            launches, printed = run_cli(argv)
+            seconds = time.perf_counter() - start
+            n_train, n_val, n_test = printed["splits"] or (0, 0, 0)
+            steps = math.ceil(n_train / B)
+            eval_batches = math.ceil(n_val / B)
+            epochs = printed["epochs"]
+            hybrid = name == "hybrid_bucket"
+            fused = len(FUSED_BLOCKS) if hybrid else blocks
+            per_step = ({"spatial_block": fused, "spatial_block_save": 0,
+                         "temporal_block": fused} if hybrid else
+                        {"spatial_block": blocks - saves,
+                         "spatial_block_save": saves,
+                         "temporal_block": blocks})
+            want = {f"{op}.{d}": n * steps * len(epochs)
+                    for op, n in per_step.items()
+                    for d in ("forward", "backward")}
+            want["block_eval"] = fused * (
+                eval_batches * len(epochs) + math.ceil(n_test / B))
+            losses = [[e["train_loss"], e.get("val_loss")] for e in epochs]
+            finite = bool(epochs) and all(
+                v is not None and math.isfinite(v) for pair in losses
+                for v in pair)
+            ckpts = sorted(int(f[5:-4]) for f in os.listdir(ckpt_dir)
+                           if f.endswith(".npz"))
+            metas = {s: checkpoint_metadata(os.path.join(ckpt_dir,
+                                                         f"ckpt_{s}"))
+                     for s in ckpts}
+            if name == "fused":
+                ckpt_ok = metas == {
+                    steps * e: {"epoch": e, "step": steps * e,
+                                "final": e == CLI_EPOCHS}
+                    for e in range(1, CLI_EPOCHS + 1)}
+                epochs_ok = [e["epoch"] for e in epochs] == list(
+                    range(CLI_EPOCHS))
+            elif name == "fused_resumed":
+                last = steps * (CLI_EPOCHS + 1)
+                ckpt_ok = metas.get(last) == {
+                    "epoch": CLI_EPOCHS + 1, "step": last, "final": True}
+                epochs_ok = (printed["resumed_from"] == CLI_EPOCHS
+                             and [e["epoch"] for e in epochs] == [
+                                 CLI_EPOCHS])
+            else:
+                ckpt_ok = True      # no checkpoint directory
+                epochs_ok = [e["epoch"] for e in epochs] == [0]
+            epoch_s = [e["epoch_time_s"] for e in epochs]
+            ok = (printed["rc"] == 0 and finite and ckpt_ok and epochs_ok
+                  and launches == want and printed["test"] is not None
+                  and math.isfinite(printed["test"][0]))
+            results[name] = dict(
+                seconds=seconds, splits=printed["splits"],
+                steps_per_epoch=steps, epochs=[e["epoch"] for e in epochs],
+                losses=losses, epoch_seconds=epoch_s,
+                trainer_ms_per_step=[t / steps * 1e3 for t in epoch_s],
+                test=printed["test"], launches=launches,
+                expected_launches=want,
+                checkpoints={str(k): v for k, v in metas.items()}, ok=ok)
+            emit("cli_train", run=name, argv=argv, **results[name])
+            if not ok:
+                raise AssertionError(
+                    f"the training CLI's {name} run failed: rc "
+                    f"{printed['rc']}, finite {finite}, checkpoints "
+                    f"{ckpt_ok}, epochs {epochs_ok}, launches "
+                    f"{launches} against {want}")
+    fused_ms = results["fused"]["trainer_ms_per_step"]
+    emit("cli_train", dataset_seconds=generate_s,
+         fused_trainer_ms_per_step=fused_ms,
+         fused_time_step_ms=fused_step_ms,
+         host_share_of_trainer_step=[1 - fused_step_ms / m
+                                     for m in fused_ms],
+         hybrid_bucket_trainer_ms_per_step=results["hybrid_bucket"][
+             "trainer_ms_per_step"],
+         nvidia_smi=smi, batch=B, frames=T, dtype="bfloat16")
 
 
 def main() -> int:
@@ -2110,10 +2297,13 @@ def main() -> int:
     checkpoint_phase(fused)
     fused_launches = fused["launches"]
     del fused
-    save_totals = fused_time_phase(dev, gen, peak_flops, peak_bytes,
-                                   train["totals"])
+    save_totals, step_ms = fused_time_phase(dev, gen, peak_flops,
+                                            peak_bytes, train["totals"])
 
-    # ---- 16. kernels --------------------------------------------------------
+    # ---- 16. cli_train: the training entry point ---------------------------
+    cli_train_phase(step_ms["fused"], smi)
+
+    # ---- 17. kernels --------------------------------------------------------
     kernels = [{
         "name": "block_eval",
         "route": "cuda",

@@ -8,8 +8,9 @@ same config:
 * ``params/blocks/<i>/spatial/w`` and the rest of the parameter
   dictionaries (:meth:`STGCN.init_params`'s layout, which is the JAX
   package's), ``model_state/blocks/<i>/bn1/mean`` for the BN statistics;
-* ``opt_state/...`` in optax's layout for ``adam`` or ``flat_adam``'s
-  (:mod:`stgcn_tpu_torch.training.optimizers`);
+* ``opt_state/...`` in optax's layout for the optimizer (adam,
+  flat_adam, adamw, sgd or momentum, with or without a schedule and
+  clipping: :mod:`stgcn_tpu_torch.training.optimizers`);
 * ``step``, an int32 scalar;
 * ``rng#prngkey``: the JAX package stores its train PRNG key there as the
   raw ``uint32`` key data of a threefry key.  The port keeps an integer
@@ -31,13 +32,13 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any
 
 import numpy as np
 import torch
 
 from stgcn_tpu_torch.training.optimizers import load_opt_state, opt_state_tree
 from stgcn_tpu_torch.training.train_state import TrainState
+from stgcn_tpu_torch.tree import tree_items
 
 KEY_SUFFIX = "#prngkey"
 
@@ -62,20 +63,6 @@ def train_state_tree(ts: TrainState) -> dict:
             "rng" + KEY_SUFFIX: seed_to_key_data(ts.seed)}
 
 
-def _flatten(tree, prefix: str = "") -> dict[str, Any]:
-    """``{"a/b/0": leaf}`` for every leaf of nested dicts and lists."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        return {prefix: tree}
-    out = {}
-    for k, v in items:
-        out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
-    return out
-
-
 def _as_numpy(leaf) -> np.ndarray:
     if torch.is_tensor(leaf):
         return leaf.detach().cpu().numpy()
@@ -88,7 +75,7 @@ def save_checkpoint(path: str, tree, metadata: dict | None = None) -> str:
     ``tree``: a :class:`TrainState` or a nested tree of leaves."""
     if isinstance(tree, TrainState):
         tree = train_state_tree(tree)
-    arrays = {k: _as_numpy(v) for k, v in _flatten(tree).items()}
+    arrays = {k: _as_numpy(v) for k, v in tree_items(tree).items()}
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".npz.tmp"
     with open(tmp, "wb") as f:
@@ -146,8 +133,8 @@ def restore_checkpoint(path: str, target, skip_prefixes: tuple[str, ...] = ()):
                          skip_prefixes)
     with torch.no_grad():
         for name in ("params", "model_state"):
-            for dst, src in zip(_flatten(getattr(target, name)).values(),
-                                _flatten(tree[name]).values()):
+            for dst, src in zip(tree_items(getattr(target, name)).values(),
+                                tree_items(tree[name]).values()):
                 dst.copy_(src)
     if not any("opt_state".startswith(pre) for pre in skip_prefixes):
         load_opt_state(target.optimizer, target.params, tree["opt_state"])

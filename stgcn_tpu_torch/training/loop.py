@@ -1,21 +1,70 @@
-"""Train and eval steps (port of ``make_train_step`` and ``make_eval_step``,
-``stgcn_tpu/training/loop.py:35-93``).
+"""Train and eval steps and the epoch driver (port of
+``stgcn_tpu/training/loop.py``).
 
 One train step does the forward, the float32 cross-entropy, the backward and
-the Adam update, and returns the loss and accuracy.  The JAX step is one
-jitted function; this one runs eagerly (capturing it in a CUDA graph, and
-the epoch loop ``Trainer`` with early stopping and checkpoints, are not
+the optimizer update, and returns the loss and accuracy.  The JAX step is one
+jitted function; this one runs eagerly (capturing it in a CUDA graph is not
 ported yet).
+
+:class:`Trainer` is the host-side epoch loop around the steps: evaluation,
+early stopping on ``val_loss``, CSV/TensorBoard logging and checkpoints
+named ``ckpt_<step>`` with the JAX package's metadata, so a run resumes in
+either package.  As in the JAX package, the per-step losses stay on the
+device and are fetched once an epoch, and an evaluation pass fetches its
+sums once.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import os
+import time
+from collections.abc import Iterable
+from dataclasses import dataclass, field
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
+from stgcn_tpu_torch import resolve_device
 from stgcn_tpu_torch.training import metrics as M
-from stgcn_tpu_torch.training.train_state import TrainState, step_generator
+from stgcn_tpu_torch.training.checkpoint import (
+    checkpoint_metadata,
+    latest_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from stgcn_tpu_torch.training.optimizers import adam
+from stgcn_tpu_torch.training.train_state import (
+    TrainState,
+    create_train_state,
+    step_generator,
+)
+
+
+def forward_backward(model, ts: TrainState, x: torch.Tensor,
+                     y: torch.Tensor, time_mask: torch.Tensor | None = None):
+    """The forward, loss and backward of one train step, before the
+    update: ``(loss, logits, new_model_state)``, each parameter leaf's
+    ``.grad`` holding the step's gradient."""
+    gen = None
+    if model.config.dropout_rate > 0:
+        gen = step_generator(ts.seed, ts.step, x.device)
+    ts.optimizer.zero_grad(set_to_none=True)
+    logits, new_state = model.apply(ts.params, ts.model_state, x,
+                                    train=True, generator=gen,
+                                    time_mask=time_mask)
+    loss = M.cross_entropy(logits, y)
+    loss.backward()
+    return loss, logits, new_state
+
+
+def apply_update(ts: TrainState, loss, logits, new_state, y) -> dict:
+    """The optimizer update of a step :func:`forward_backward` ran; returns
+    its metrics."""
+    ts.optimizer.step()
+    ts.model_state = new_state
+    ts.step += 1
+    return {"loss": loss.detach(), "acc": M.accuracy(logits.detach(), y)}
 
 
 def make_train_step(model, *, use_time_mask: bool = False) -> Callable:
@@ -34,19 +83,9 @@ def make_train_step(model, *, use_time_mask: bool = False) -> Callable:
 
     def step(ts: TrainState, x: torch.Tensor, y: torch.Tensor,
              time_mask: torch.Tensor | None = None) -> dict:
-        gen = None
-        if model.config.dropout_rate > 0:
-            gen = step_generator(ts.seed, ts.step, x.device)
-        ts.optimizer.zero_grad(set_to_none=True)
-        logits, new_state = model.apply(
-            ts.params, ts.model_state, x, train=True, generator=gen,
-            time_mask=time_mask if use_time_mask else None)
-        loss = M.cross_entropy(logits, y)
-        loss.backward()
-        ts.optimizer.step()
-        ts.model_state = new_state
-        ts.step += 1
-        return {"loss": loss.detach(), "acc": M.accuracy(logits.detach(), y)}
+        out = forward_backward(model, ts, x, y,
+                               time_mask if use_time_mask else None)
+        return apply_update(ts, *out, y)
 
     return step
 
@@ -67,3 +106,199 @@ def make_eval_step(model) -> Callable:
                 "cm": M.confusion_matrix(logits, y, num_classes)}
 
     return step
+
+
+@dataclass
+class EarlyStopping:
+    """val_loss monitor with patience, as the reference configures
+    (patience=100, min_delta=0, mode=min; src/lightning_model.py:21-27)."""
+
+    patience: int = 100
+    min_delta: float = 0.0
+    best: float = float("inf")
+    bad_epochs: int = 0
+
+    def update(self, value: float) -> bool:
+        """Returns True when training should stop."""
+        if value < self.best - self.min_delta:
+            self.best = value
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+        return self.bad_epochs > self.patience
+
+
+@dataclass
+class TrainResult:
+    epochs_run: int = 0
+    history: list = field(default_factory=list)
+    final_state: Any = None
+    test_metrics: dict | None = None
+
+
+class Trainer:
+    """Host-side epoch driver around the train and eval steps.
+
+    ``optimizer``: an optimizer factory such as ``make_optimizer(cfg)``
+    (``adam(lr)`` when None).  ``device``: where the state and batches live,
+    CUDA unless ``"cpu"`` is asked for.  ``check_invariants`` runs
+    :func:`~stgcn_tpu_torch.training.checks.make_checked_train_step`;
+    ``debug_nans`` turns on autograd's anomaly detection for the duration
+    of :meth:`fit`.  ``mesh`` (the JAX package's sharded trainer) is not
+    ported: passing one raises ``NotImplementedError``.
+    """
+
+    def __init__(
+        self,
+        model,
+        optimizer=None,
+        *,
+        lr: float = 1e-4,
+        logger=None,
+        checkpoint_dir: str = "",
+        checkpoint_every_epochs: int = 10,
+        log_every_steps: int = 10,
+        seed: int = 0,
+        debug_nans: bool = False,
+        check_invariants: bool = False,
+        mesh=None,
+        device: str | torch.device | None = None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "Trainer(mesh=...): the parallel paths are not ported yet "
+                "(ROADMAP queue 1 item 7)")
+        self.model = model
+        self.optimizer = optimizer or adam(lr)
+        self.logger = logger
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every_epochs = checkpoint_every_epochs
+        self.log_every_steps = log_every_steps
+        self.seed = seed
+        self.debug_nans = debug_nans
+        self.device = resolve_device(device)
+        if check_invariants:
+            from stgcn_tpu_torch.training.checks import (
+                make_checked_train_step,
+            )
+            self.train_step = make_checked_train_step(model)
+        else:
+            self.train_step = make_train_step(model)
+        self.eval_step = make_eval_step(model)
+
+    # -- state ------------------------------------------------------------
+    def init_state(self) -> TrainState:
+        return create_train_state(self.model, self.optimizer, seed=self.seed,
+                                  device=self.device)
+
+    def _put_batch(self, x, y):
+        return (torch.as_tensor(x).to(self.device),
+                torch.as_tensor(y).to(self.device))
+
+    def maybe_resume(self, state: TrainState) -> tuple[TrainState, int]:
+        """Restore the newest checkpoint into ``state`` if one exists;
+        returns (state, epoch)."""
+        base = (latest_checkpoint(self.checkpoint_dir)
+                if self.checkpoint_dir else None)
+        if base is None:
+            return state, 0
+        restored = restore_checkpoint(base, state)
+        return restored, int(checkpoint_metadata(base).get("epoch", 0))
+
+    # -- loops ------------------------------------------------------------
+    def evaluate(self, state: TrainState, data: Iterable) -> dict:
+        sums = None
+        for x, y, _lens in data:
+            out = self.eval_step(state, *self._put_batch(x, y))
+            out["loss_sum"] = out["loss_sum"].double()
+            sums = out if sums is None else {k: sums[k] + v
+                                             for k, v in out.items()}
+        if sums is None:
+            return {"loss": 0.0, "acc": 0.0, "confusion_matrix": None,
+                    "count": 0}
+        count = int(sums["count"])
+        n = max(count, 1)
+        return {
+            "loss": float(sums["loss_sum"]) / n,
+            "acc": int(sums["correct"]) / n,
+            "confusion_matrix": sums["cm"].cpu().numpy(),
+            "count": count,
+        }
+
+    def fit(
+        self,
+        state: TrainState,
+        train_data: Callable[[int], Iterable],
+        val_data: Callable[[], Iterable] | None = None,
+        *,
+        epochs: int = 1,
+        min_epochs: int = 0,
+        start_epoch: int = 0,
+        early_stopping: EarlyStopping | None = None,
+        eval_every_epochs: int = 1,
+    ) -> TrainResult:
+        """Run the training loop.
+
+        Args:
+          train_data: ``epoch -> iterable of (x, y, lengths)`` (a fresh,
+            possibly reshuffled stream per epoch).
+          val_data: ``() -> iterable`` for validation.
+        """
+        result = TrainResult()
+        anomaly = torch.is_anomaly_enabled()
+        if self.debug_nans:
+            torch.autograd.set_detect_anomaly(True)
+        step_i = state.step
+        try:
+            for epoch in range(start_epoch, epochs):
+                t0 = time.time()
+                losses, accs = [], []
+                for x, y, _lens in train_data(epoch):
+                    m = self.train_step(state, *self._put_batch(x, y))
+                    step_i += 1
+                    losses.append(m["loss"])
+                    accs.append(m["acc"])
+                    if self.logger and step_i % self.log_every_steps == 0:
+                        self.logger.log_dict(
+                            {"step_loss": float(m["loss"]),
+                             "step_acc": float(m["acc"])}, step_i)
+
+                # one device-to-host fetch an epoch
+                losses = torch.stack(losses).tolist() if losses else []
+                accs = torch.stack(accs).tolist() if accs else []
+                epoch_metrics = {
+                    "train_loss": float(np.mean(losses)) if losses else 0.0,
+                    "train_acc": float(np.mean(accs)) if accs else 0.0,
+                    "epoch_time_s": time.time() - t0,
+                }
+                if (val_data is not None
+                        and (epoch + 1) % eval_every_epochs == 0):
+                    vm = self.evaluate(state, val_data())
+                    epoch_metrics["val_loss"] = vm["loss"]
+                    epoch_metrics["val_acc"] = vm["acc"]
+                if self.logger:
+                    self.logger.log_dict(
+                        {k: v for k, v in epoch_metrics.items()
+                         if k != "epoch_time_s"}, epoch)
+                result.history.append({"epoch": epoch, **epoch_metrics})
+                result.epochs_run = epoch + 1
+
+                if (self.checkpoint_dir and
+                        (epoch + 1) % self.checkpoint_every_epochs == 0):
+                    self.save(state, epoch + 1)
+
+                if (early_stopping is not None and "val_loss" in epoch_metrics
+                        and epoch + 1 >= min_epochs
+                        and early_stopping.update(epoch_metrics["val_loss"])):
+                    break
+        finally:
+            torch.autograd.set_detect_anomaly(anomaly)
+        result.final_state = state
+        if self.checkpoint_dir:
+            self.save(state, result.epochs_run, final=True)
+        return result
+
+    def save(self, state: TrainState, epoch: int, final: bool = False) -> None:
+        save_checkpoint(os.path.join(self.checkpoint_dir,
+                                     f"ckpt_{state.step}"), state,
+                        {"epoch": epoch, "step": state.step, "final": final})

@@ -1,118 +1,378 @@
-"""Adam with optax's numerics (port of ``optax.adam`` and ``flat_adam`` as
-the JAX package uses them, ``stgcn_tpu/training/optimizers.py``).
+"""Optimizers and learning-rate schedules with optax's numerics (port of
+``stgcn_tpu/training/optimizers.py``).
 
-optax's Adam divides the bias-corrected first moment by the square root of
-the bias-corrected second moment plus ``eps`` (outside the root), which is
-what ``torch.optim.Adam`` computes.  The update runs as PyTorch's
-multi-tensor (``foreach``) loop over the parameter leaves; its ``fused``
-CUDA kernel is a library kernel and is not used.  ``flat_adam`` computes
-the same update and differs only in how a checkpoint stores its moments.
-Learning-rate schedules (``make_schedule``) are not ported yet.
+The JAX package composes optax transforms; the GPU machine has no optax, so
+this module writes each formula out and applies it with PyTorch's
+multi-tensor (``foreach``) ops over the parameter leaves, in place.
+
+Schedules (:func:`make_schedule`), a function of the update count ``c``:
+
+* ``constant``: ``lr``;
+* ``cosine``: ``lr·0.5·(1 + cos(π·min(c, decay_steps)/decay_steps))``
+  (``optax.cosine_decay_schedule``, alpha 0);
+* ``step``: ``lr·factor^floor(c/decay_steps)`` for ``c > 0``, ``lr`` at 0
+  (``optax.exponential_decay(..., staircase=True)``);
+* with warmup ``w > 0``: ``(0 - lr)·(1 - min(c, w)/w) + lr`` below ``w``
+  (``optax.linear_schedule(0, lr, w)``), then the schedule at ``c - w``
+  (``optax.join_schedules``).
+
+Optimizers (:func:`make_optimizer`), ``g`` the gradient, ``lr`` the
+schedule's value:
+
+* ``adam``: ``mu = (1-b1)·g + b1·mu``, ``nu = (1-b2)·g² + b2·nu``, then
+  ``p += -lr·(mu/(1-b1^t)) / (sqrt(nu/(1-b2^t)) + eps)`` with ``t`` the
+  count after the update;
+* ``adamw``: adam with the decay inside the scaled update,
+  ``p += -lr·(adam + weight_decay·p)`` (``optax.adamw``; ``torch.optim.
+  AdamW`` scales ``p`` by ``1 - lr·wd`` first, the same value in other
+  roundings);
+* ``flat_adam``: adam's numerics in float32 whatever the parameters' dtype
+  (the JAX package keeps its moments as float32 vectors);
+* ``sgd``: ``p += -lr·g``; ``momentum``: ``trace = g + momentum·trace``,
+  ``p += -lr·trace``;
+* with ``clip_norm > 0`` the gradient first goes through optax's
+  ``clip_by_global_norm``: with ``n = sqrt(Σ g²)`` over every leaf, ``g``
+  is kept when ``n < clip_norm`` and becomes ``g / n · clip_norm``
+  otherwise (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``, which
+  scales by ``clip_norm / (n + 1e-6)``).
+
+**The schedule count.**  optax's ``scale_by_schedule`` evaluates the
+schedule at the count *before* the update, so update ``i`` (from 0) takes
+``lr(i)``: under warmup the first update has ``lr = 0``.  The JAX
+package's ``flat_adam`` evaluates it at the count after the update,
+``lr(i + 1)`` (``stgcn_tpu/training/optimizers.py:69-71``).  That quirk of
+the reference is reproduced here, not fixed.
 
 Optimizer state in a checkpoint (:func:`opt_state_tree`,
-:func:`load_opt_state`) takes the JAX package's layout, so a checkpoint
-moves between the packages:
+:func:`load_opt_state`) takes optax's tree for the same optimizer, so a
+checkpoint moves between the packages.  Key paths under ``opt_state/``:
 
-* ``adam``: optax's ``(ScaleByAdamState(count, mu, nu), EmptyState())``,
-  keys ``opt_state/0/count``, ``opt_state/0/mu/<parameter path>`` and
-  ``opt_state/0/nu/<parameter path>``;
-* ``flat_adam``: ``FlatAdamState(count, flat_mu, flat_nu)``, keys
-  ``opt_state/count``, ``opt_state/flat_mu`` and ``opt_state/flat_nu``, each
-  moment one float32 vector of every parameter leaf raveled in the JAX
-  package's leaf order (dictionary keys sorted, lists in order: the order
-  of :func:`stgcn_tpu_torch.tree.tree_leaves`).
+* ``adam``: ``0/count``, ``0/mu/<parameter path>``, ``0/nu/<path>``, and
+  ``1/count`` when the learning rate is a schedule (``make_optimizer``
+  always passes one; ``adam(1e-3)`` has a constant);
+* ``adamw``: adam's ``0/...`` and ``2/count``;
+* ``sgd``: ``1/count``; ``momentum``: ``0/trace/<path>`` and ``1/count``;
+* ``flat_adam``: ``count``, ``flat_mu`` and ``flat_nu``, each moment one
+  float32 vector of every parameter leaf raveled in the JAX package's leaf
+  order (dictionary keys sorted, lists in order:
+  :func:`stgcn_tpu_torch.tree.tree_leaves`);
+* with clipping, the tree above under ``1/`` (``0`` is the clip's empty
+  state).
 
-``mu`` and ``nu`` are ``torch.optim.Adam``'s ``exp_avg`` and ``exp_avg_sq``
-of the same leaf, and ``count`` (int32) is its ``step``, so a restored run
-takes the same next update.
+Per parameter the optimizer keeps ``exp_avg`` (``mu``), ``exp_avg_sq``
+(``nu``) and ``step`` (the count, a float32 scalar), as ``torch.optim.Adam``
+names them, or ``momentum_buffer`` (``trace``); a restored run takes the
+same next update.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from collections.abc import Callable, Sequence
 
 import numpy as np
 import torch
 
 from stgcn_tpu_torch.tree import tree_leaves, tree_map
 
+Schedule = Callable[[int], float]
+
+OPTIMIZERS = ("adam", "flat_adam", "adamw", "sgd", "momentum")
+_ADAMS = ("adam", "flat_adam", "adamw")
+
+
+# ---- schedules ----------------------------------------------------------
+
+def constant_schedule(value: float) -> Schedule:
+    return lambda count: value
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int) -> Schedule:
+    """``optax.cosine_decay_schedule(init_value, decay_steps)``."""
+    if not decay_steps > 0:
+        raise ValueError(f"the cosine schedule needs positive decay_steps, "
+                         f"got {decay_steps}")
+
+    def schedule(count):
+        c = min(count, decay_steps)
+        return init_value * (0.5 * (1 + math.cos(math.pi * c / decay_steps)))
+    return schedule
+
+
+def exponential_decay(init_value: float, transition_steps: int,
+                      decay_rate: float) -> Schedule:
+    """``optax.exponential_decay(..., staircase=True)`` (no
+    ``transition_begin``, ``end_value``); a constant for
+    ``transition_steps <= 0`` or a zero rate, as there."""
+    if transition_steps <= 0 or decay_rate == 0:
+        return constant_schedule(init_value)
+
+    def schedule(count):
+        p = math.floor(count / transition_steps)
+        return init_value if count <= 0 else init_value * decay_rate ** p
+    return schedule
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Schedule:
+    """``optax.linear_schedule`` (``polynomial_schedule`` of power 1)."""
+    if transition_steps <= 0:
+        return constant_schedule(init_value)
+
+    def schedule(count):
+        c = min(max(count, 0), transition_steps)
+        frac = 1 - c / transition_steps
+        return (init_value - end_value) * frac + end_value
+    return schedule
+
+
+def join_schedules(schedules: Sequence[Schedule],
+                   boundaries: Sequence[int]) -> Schedule:
+    """``optax.join_schedules``: past each boundary the next schedule, at
+    the count less the boundary."""
+    def schedule(count):
+        out = schedules[0](count)
+        for boundary, sched in zip(boundaries, schedules[1:]):
+            if count >= boundary:
+                out = sched(count - boundary)
+        return out
+    return schedule
+
+
+def make_schedule(cfg) -> Schedule:
+    """The schedule of a ``TrainSection``-like config (``lr``,
+    ``lr_schedule``, ``lr_warmup_steps``, ``lr_decay_steps``,
+    ``lr_step_factor``)."""
+    base = cfg.lr
+    if cfg.lr_schedule == "constant":
+        sched = constant_schedule(base)
+    elif cfg.lr_schedule == "cosine":
+        sched = cosine_decay_schedule(base, cfg.lr_decay_steps)
+    elif cfg.lr_schedule == "step":
+        sched = exponential_decay(base, cfg.lr_decay_steps,
+                                  cfg.lr_step_factor)
+    else:
+        raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")
+    if cfg.lr_warmup_steps > 0:
+        warmup = linear_schedule(0.0, base, cfg.lr_warmup_steps)
+        sched = join_schedules([warmup, sched], [cfg.lr_warmup_steps])
+    return sched
+
+
+# ---- optimizers ---------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class Adam:
-    """``optax.adam(learning_rate, b1, b2, eps)``, or with ``flat``
-    ``flat_adam``; call it on the parameter leaves to get the optimizer that
-    updates them in place."""
+class OptimizerSpec:
+    """One of :data:`OPTIMIZERS` with its hyperparameters; call it on the
+    parameter leaves to get the :class:`OptaxOptimizer` that updates them
+    in place.  ``learning_rate`` is a number or a schedule (a function of
+    the update count)."""
 
-    learning_rate: float = 1e-3
+    name: str = "adam"
+    learning_rate: float | Schedule = 1e-3
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
-    flat: bool = False
+    weight_decay: float = 0.0
+    momentum: float = 0.9
+    clip_norm: float = 0.0
 
-    def __call__(self, leaves: list[torch.Tensor]) -> torch.optim.Optimizer:
-        opt = torch.optim.Adam(leaves, lr=self.learning_rate,
-                               betas=(self.b1, self.b2), eps=self.eps,
-                               foreach=True)
-        opt.flat_moments = self.flat      # the checkpoint layout
-        return opt
+    def __post_init__(self):
+        if self.name not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {self.name!r}")
+
+    @property
+    def scheduled(self) -> bool:
+        return callable(self.learning_rate)
+
+    def lr(self, count: int) -> float:
+        if not self.scheduled:
+            return self.learning_rate
+        # flat_adam's quirk: the count after the update (module docstring)
+        return self.learning_rate(count + (self.name == "flat_adam"))
+
+    def __call__(self, leaves: list[torch.Tensor]) -> "OptaxOptimizer":
+        return OptaxOptimizer(leaves, self)
 
 
-def adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8) -> Adam:
-    return Adam(learning_rate, b1, b2, eps)
+def adam(learning_rate: float | Schedule = 1e-3, b1: float = 0.9,
+         b2: float = 0.999, eps: float = 1e-8) -> OptimizerSpec:
+    return OptimizerSpec("adam", learning_rate, b1, b2, eps)
 
 
-def flat_adam(learning_rate: float = 1e-3, b1: float = 0.9,
-              b2: float = 0.999, eps: float = 1e-8) -> Adam:
-    """Adam whose checkpoints store each moment as one flat vector."""
-    return Adam(learning_rate, b1, b2, eps, flat=True)
+def flat_adam(learning_rate: float | Schedule = 1e-3, b1: float = 0.9,
+              b2: float = 0.999, eps: float = 1e-8) -> OptimizerSpec:
+    """Adam in float32 whose checkpoints store each moment as one flat
+    vector."""
+    return OptimizerSpec("flat_adam", learning_rate, b1, b2, eps)
 
 
-def opt_state_tree(optimizer: torch.optim.Optimizer, params: dict):
+def make_optimizer(cfg) -> OptimizerSpec:
+    """The optimizer of a ``TrainSection``-like config (``optimizer``,
+    ``weight_decay``, ``momentum``, ``grad_clip_norm`` and the schedule's
+    fields), as the JAX package's ``make_optimizer`` builds it."""
+    clip = cfg.grad_clip_norm if cfg.grad_clip_norm > 0 else 0.0
+    return OptimizerSpec(cfg.optimizer, make_schedule(cfg),
+                         weight_decay=cfg.weight_decay,
+                         momentum=cfg.momentum, clip_norm=clip)
+
+
+class OptaxOptimizer(torch.optim.Optimizer):
+    """The update of an :class:`OptimizerSpec` on a list of leaves; the
+    gradient of a leaf without ``.grad`` counts as zeros, as in optax."""
+
+    def __init__(self, leaves: list[torch.Tensor], spec: OptimizerSpec):
+        super().__init__(list(leaves), {})
+        self.spec = spec
+        self.count = 0          # updates taken
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        spec = self.spec
+        params = [p for group in self.param_groups for p in group["params"]]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
+        if spec.clip_norm > 0:
+            grads = _clip_by_global_norm(grads, spec.clip_norm)
+        lr = spec.lr(self.count)
+        self.count += 1
+        if spec.name == "flat_adam":
+            # -lr * mu_hat / (sqrt(nu_hat) + eps), in that order, float32
+            mu_hat, denom = self._adam(params, grads)
+            updates = torch._foreach_div(torch._foreach_mul(mu_hat, -lr),
+                                         denom)
+            torch._foreach_add_(params, [u.to(p.dtype) for u, p
+                                         in zip(updates, params)])
+            return
+        if spec.name in _ADAMS:
+            updates = torch._foreach_div(*self._adam(params, grads))
+            if spec.name == "adamw":
+                torch._foreach_add_(updates, params, alpha=spec.weight_decay)
+        elif spec.name == "momentum":
+            trace = [self.state[p].setdefault(
+                "momentum_buffer", torch.zeros_like(p)) for p in params]
+            torch._foreach_mul_(trace, spec.momentum)
+            torch._foreach_add_(trace, grads)
+            updates = trace
+        else:
+            updates = grads
+        torch._foreach_add_(params, updates, alpha=-lr)
+
+    def _adam(self, params, grads):
+        """Moments updated in place; returns ``mu_hat`` and
+        ``sqrt(nu_hat) + eps``, the bias-corrected moments."""
+        spec, t = self.spec, self.count
+        flat = spec.name == "flat_adam"
+        if flat:
+            grads = [g.to(torch.float32) for g in grads]
+            # jnp.power(b1, c) of float32 operands
+            bc1, bc2 = (float(np.float32(1.0) - np.power(
+                np.float32(b), np.float32(t))) for b in (spec.b1, spec.b2))
+        else:
+            bc1, bc2 = 1 - spec.b1 ** t, 1 - spec.b2 ** t
+        step = torch.tensor(float(t), dtype=torch.float32)
+        mu, nu = [], []
+        for p, g in zip(params, grads):
+            st = self.state[p]
+            if "exp_avg" not in st:
+                st["exp_avg"] = torch.zeros_like(g)
+                st["exp_avg_sq"] = torch.zeros_like(g)
+            st["step"] = step
+            mu.append(st["exp_avg"])
+            nu.append(st["exp_avg_sq"])
+        torch._foreach_mul_(mu, spec.b1)
+        torch._foreach_add_(mu, grads, alpha=1 - spec.b1)
+        torch._foreach_mul_(nu, spec.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - spec.b2)
+        mu_hat = torch._foreach_div(mu, bc1)
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        torch._foreach_add_(denom, spec.eps)
+        return mu_hat, denom
+
+
+def _clip_by_global_norm(grads: list[torch.Tensor], max_norm: float
+                         ) -> list[torch.Tensor]:
+    """optax's ``clip_by_global_norm`` (module docstring), on the device:
+    no host synchronisation."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    clipped = torch._foreach_mul(torch._foreach_div(grads, norm), max_norm)
+    return [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
+
+
+# ---- optimizer state in optax's tree ------------------------------------
+
+def opt_state_tree(optimizer: OptaxOptimizer, params: dict):
     """The optimizer's state as the JAX package's ``opt_state`` tree of
-    numpy arrays (zeros for a leaf not stepped yet)."""
-    count = 0
-    moments = {"mu": [], "nu": []}
-    for p in tree_leaves(params):
-        st = optimizer.state.get(p, {})
-        if "step" in st:
-            count = int(st["step"])
-        for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-            m = st.get(key)
-            moments[name].append(
-                np.zeros(tuple(p.shape), np.float32) if m is None
-                else m.detach().to(torch.float32).cpu().numpy())
-    count = np.asarray(count, np.int32)
-    if getattr(optimizer, "flat_moments", False):
-        return {"count": count, **{
-            f"flat_{name}": np.concatenate([m.ravel() for m in ms])
-            for name, ms in moments.items()}}
-    index = {id(p): i for i, p in enumerate(tree_leaves(params))}
-    return [{"count": count,
-             **{name: tree_map(lambda p, ms=ms: ms[index[id(p)]], params)
-                for name, ms in moments.items()}}]
+    numpy arrays (module docstring; zeros for a leaf not stepped yet)."""
+    spec = optimizer.spec
+    leaves = tree_leaves(params)
+    count = np.asarray(optimizer.count, np.int32)
+
+    def moments(key, dtype=None):
+        out = []
+        for p in leaves:
+            m = optimizer.state.get(p, {}).get(key)
+            m = torch.zeros_like(p) if m is None else m.detach()
+            out.append(m.to(dtype or m.dtype).cpu().numpy())
+        return out
+
+    def as_tree(ms):
+        index = {id(p): i for i, p in enumerate(leaves)}
+        return tree_map(lambda p: ms[index[id(p)]], params)
+
+    if spec.name == "flat_adam":
+        core = {"count": count, **{
+            f"flat_{n}": np.concatenate([m.ravel() for m in moments(
+                key, torch.float32)])
+            for n, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}}
+    else:
+        if spec.name in _ADAMS:
+            first = {"count": count,
+                     "mu": as_tree(moments("exp_avg")),
+                     "nu": as_tree(moments("exp_avg_sq"))}
+        elif spec.name == "momentum":
+            first = {"trace": as_tree(moments("momentum_buffer"))}
+        else:
+            first = {}
+        core = [first] + [{}] * (spec.name == "adamw") + [
+            {"count": count} if spec.scheduled else {}]
+    return [{}, core] if spec.clip_norm > 0 else core
 
 
-def load_opt_state(optimizer: torch.optim.Optimizer, params: dict,
-                   tree) -> None:
+def load_opt_state(optimizer: OptaxOptimizer, params: dict, tree) -> None:
     """Set the optimizer's state from an ``opt_state`` tree in the layout
     :func:`opt_state_tree` gives (numpy arrays or tensors)."""
+    spec = optimizer.spec
     leaves = tree_leaves(params)
-    if getattr(optimizer, "flat_moments", False):
+    if spec.clip_norm > 0:
+        tree = tree[1]
+    if spec.name == "flat_adam":
         count = tree["count"]
         sizes = [p.numel() for p in leaves]
-        mus, nus = (np.split(np.asarray(tree[f"flat_{n}"]),
-                             np.cumsum(sizes)[:-1]) for n in ("mu", "nu"))
-    else:
+        state = {key: np.split(np.asarray(tree[f"flat_{n}"]),
+                               np.cumsum(sizes)[:-1])
+                 for n, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}
+    elif spec.name in _ADAMS:
         count = tree[0]["count"]
-        mus, nus = (tree_leaves(tree[0][n]) for n in ("mu", "nu"))
-    if not len(mus) == len(nus) == len(leaves):
-        raise ValueError(f"opt_state holds {len(mus)} moments for "
-                         f"{len(leaves)} parameter leaves")
-    for p, mu, nu in zip(leaves, mus, nus):
-        def moment(m):
-            m = torch.as_tensor(np.asarray(m)).reshape(p.shape)
-            return m.to(dtype=p.dtype, device=p.device).clone()
-        optimizer.state[p] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": moment(mu), "exp_avg_sq": moment(nu)}
+        state = {key: tree_leaves(tree[0][n])
+                 for n, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}
+    else:
+        count = tree[-1]["count"] if spec.scheduled else 0
+        state = ({"momentum_buffer": tree_leaves(tree[0]["trace"])}
+                 if spec.name == "momentum" else {})
+    for key, ms in state.items():
+        if len(ms) != len(leaves):
+            raise ValueError(f"opt_state holds {len(ms)} moments for "
+                             f"{len(leaves)} parameter leaves")
+    optimizer.count = int(np.asarray(count))
+    step = torch.tensor(float(optimizer.count), dtype=torch.float32)
+    moment_dtype = torch.float32 if spec.name == "flat_adam" else None
+    for i, p in enumerate(leaves):
+        st = {key: torch.as_tensor(np.array(ms[i])).reshape(p.shape).to(
+            dtype=moment_dtype or p.dtype, device=p.device)
+            for key, ms in state.items()}
+        if spec.name in _ADAMS:
+            st["step"] = step
+        optimizer.state[p] = st

@@ -20,3 +20,18 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in tree_leaves(v)]
     return [tree]
+
+
+def tree_items(tree, prefix: str = "") -> dict:
+    """``{"a/b/0": leaf}`` for every leaf, keyed by its path (the JAX
+    package's checkpoint key paths), in :func:`tree_leaves`' order."""
+    if isinstance(tree, dict):
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(tree_items(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out

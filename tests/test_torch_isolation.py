@@ -4,8 +4,10 @@ The GPU machine the port runs on has torch, numpy, scipy, einops, pytest and
 hypothesis, and no jax, jaxlib, pandas, ml_dtypes or optax.  A subprocess
 recreates that with an import hook, serves a prediction, takes one hybrid
 train step, saves and restores a checkpoint, runs an eval step and serves
-from the checkpoint on the CPU; an AST scan checks every module of the
-port and ``chip_smoke.py``.
+from the checkpoint on the CPU; a second one imports ``stgcn_tpu_torch.data``
+and runs the training CLI for one synthetic epoch on the CPU, TensorBoard
+hidden as well; an AST scan checks every module of the port and
+``chip_smoke.py``.
 """
 
 import ast
@@ -22,7 +24,7 @@ FORBIDDEN = ("jax", "jaxlib", "pandas", "ml_dtypes", "optax", "stgcn_tpu")
 PORT_FILES = sorted((ROOT / "stgcn_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
-SCRIPT = textwrap.dedent("""
+HOOK = textwrap.dedent("""
     import sys
 
     FORBIDDEN = {forbidden!r}
@@ -47,7 +49,9 @@ SCRIPT = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Block())
+""")
 
+SCRIPT = HOOK + textwrap.dedent("""
     import numpy as np
     import stgcn_tpu_torch
     from stgcn_tpu_torch.graph.adjacency import Strategy
@@ -99,14 +103,49 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-def test_port_serves_without_jax_or_the_jax_package():
+# the CLI case also hides TensorBoard, which the GPU machine lacks too
+CLI_BLOCKED = FORBIDDEN + ("tensorboard", "tensorboardX", "tensorflow")
+
+CLI_SCRIPT = HOOK + textwrap.dedent("""
+    import os
+    import stgcn_tpu_torch.data
+    from stgcn_tpu_torch.cli.train import main
+
+    tmp = sys.argv[1]
+    assert main(["--data.synthetic", "true", "--train.epochs", "1",
+                 "--data.batch_size", "64", "--data.collate_mode", "fixed",
+                 "--data.fixed_len", "16", "--model.num_layers", "9",
+                 "--train.device", "cpu",
+                 "--train.checkpoint_dir", os.path.join(tmp, "ckpt"),
+                 "--train.log_dir", os.path.join(tmp, "logs")]) == 0
+    assert os.path.exists(os.path.join(tmp, "stgcn_synth", "metadata.csv"))
+    assert os.path.exists(os.path.join(tmp, "logs", "val_loss.csv"))
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+    assert not loaded, loaded
+    print("ISOLATED-OK")
+""")
+
+
+def run_isolated(script: str, *args: str, env_extra=None):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
-    res = subprocess.run(
-        [sys.executable, "-c", SCRIPT.format(forbidden=FORBIDDEN)],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+    env.update(env_extra or {})
+    res = subprocess.run([sys.executable, "-c", script, *args],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=240)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED-OK" in res.stdout
+
+
+def test_port_serves_without_jax_or_the_jax_package():
+    run_isolated(SCRIPT.format(forbidden=FORBIDDEN))
+
+
+def test_cli_trains_without_jax_pandas_or_tensorboard(tmp_path):
+    # two torch threads: the tier-1 suite runs six workers at once
+    run_isolated(CLI_SCRIPT.format(forbidden=CLI_BLOCKED), str(tmp_path),
+                 env_extra={"TMPDIR": str(tmp_path),
+                            "OMP_NUM_THREADS": "2"})
 
 
 def imported_roots(path: Path) -> set[str]:
