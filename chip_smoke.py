@@ -8,11 +8,12 @@ non-zero exit code:
 
 1. device       -- a CUDA device is present; its name and power limit.
 2. build        -- nvcc builds the kernel library from the port's ``csrc/``;
-                   then ``sass``: ``cuobjdump -sass`` counts the HMMA
-                   (tensor-core) instructions of every bf16 tensor-core
-                   kernel (the temporal taps, block_eval, and the spatial
-                   forward, t, dx and dW kernels), and the run fails if
-                   one has none; ``cuobjdump -res-usage`` gives each one's
+                   then ``sass``: ``cuobjdump -sass`` counts the tensor-core
+                   instructions of every bf16 tensor-core kernel: HGMMA
+                   (wgmma) in the temporal taps' GEMM and dWt kernels, HMMA
+                   (mma.sync) in block_eval and the spatial forward, t, dx
+                   and dW kernels; the run fails if one has none of its
+                   kind; ``cuobjdump -res-usage`` gives each one's
                    registers, stack and spill bytes beside it.
 3. kernel       -- ``block_eval`` against its plain PyTorch version on the
                    six block shapes of DEFAULT_PLAN at B=64, T=304 (float32
@@ -36,7 +37,7 @@ non-zero exit code:
                    tightly against the plain version on the same bf16
                    inputs, their backwards twice (bitwise equal), and at
                    an odd width (C=40, T=37; the temporal op at strides 1
-                   and 2).
+                   and 2, and at C=36, whose weights TMA cannot read).
 7. train        -- ``bench.py``'s train step through ``make_train_step``:
                    full-width DEFAULT_PLAN, bf16, dropout 0.5, the hybrid
                    with blocks 0-6 fused, Adam 1e-3, B=64, T=304; 28 op
@@ -46,7 +47,10 @@ non-zero exit code:
                    batch.
 8. train_time   -- CUDA-event times of the train step (kernel path and op
                    path) and of each fused block's ops, forward and
-                   backward, beside their plain versions and bounds.
+                   backward, beside their plain versions and bounds, and
+                   cuDNN's conv of the same temporal shape beside
+                   temporal_block (``conv_library_ms``: without the affine,
+                   so a yardstick and not that op's ``library_ms``).
 9. conv_kernel  -- the standalone-conv routes' ``spatial_conv`` and
                    ``temporal_conv`` ops, forward and backward kernels, in
                    both layouts (V-major and (N, T, V, C)), against their
@@ -55,7 +59,7 @@ non-zero exit code:
                    float32 oracle), plus a fixed graph; both ops' bf16
                    tensor-core kernels also tightly, their backwards twice,
                    and at an odd width (C=40, T=37, both layouts; the
-                   temporal op at strides 1 and 2).
+                   temporal op at strides 1 and 2, and at C=36).
 10. route_train -- the train step of route A (``layout="vntc"``) and of
                    route B (``spatial_impl``/``temporal_impl="pallas"``):
                    bench.py's configuration on the op chain; 10 launches of
@@ -94,7 +98,8 @@ non-zero exit code:
 15. fused_time  -- CUDA-event times of the fused step beside the op path,
                    the hybrid and routes A and B, of the save op at blocks
                    8-9 beside its plain version, the recompute op and its
-                   bound, and of the fused eval step.
+                   bound, of the fused step's kernels with cuDNN's conv
+                   beside temporal_block, and of the fused eval step.
 16. cli_train   -- the training entry point end to end:
                    ``stgcn_tpu_torch.cli.train.main`` in this process on a
                    synthetic KTH-format dataset written to disk (25
@@ -109,8 +114,11 @@ non-zero exit code:
                    with the JAX metadata), the same command resumed for a
                    third epoch (the step count continues), and the README
                    quick-start shape on the hybrid with bucketed batches
-                   for one epoch; each run's epoch seconds and the
-                   Trainer's ms a step beside fused_time's step.
+                   for two epochs, reported apart.  Each epoch's steps are
+                   measured by the work they did (rows x padded frames over
+                   B x T) and by CUDA events around each step; its host
+                   share is the epoch time no step covers, beside a step
+                   of the CLI's own configuration timed in this phase.
 17. kernels     -- one line per kernel with its launches, error, times and
                    bound.
 
@@ -166,10 +174,16 @@ SPATIAL_TIGHT_SHARE = 1e-3
 # the odd width of the tensor-core checks: channel tails and the parity
 # split at both strides
 ODD_C, ODD_T = 40, 37
-# the bf16 tensor-core kernels, by the names of their symbols
-MMA_KERNELS = ("tap_gemm_kernel", "tap_dwt_kernel", "block_eval_mma_kernel",
-               "spatial_mma_fwd_kernel", "spatial_mma_t_kernel",
-               "spatial_mma_dx_kernel", "spatial_mma_dw_kernel")
+# the temporal ops' second odd width: not a multiple of 8, so their
+# weights cannot go through TMA (16-byte strides) and take the plain-load
+# producer; drawn from a generator of its own
+ODD_C8 = 36
+# the bf16 tensor-core kernels on mma.sync (HMMA), by their symbols' names
+MMA_KERNELS = ("block_eval_mma_kernel", "spatial_mma_fwd_kernel",
+               "spatial_mma_t_kernel", "spatial_mma_dx_kernel",
+               "spatial_mma_dw_kernel")
+# the bf16 temporal kernels on wgmma (HGMMA)
+WGMMA_KERNELS = ("tap_gemm_kernel", "tap_dwt_kernel")
 # f32 whole-network check and bf16 serving check
 FORWARD_REL = 1e-3
 ARGMAX_AGREEMENT = 0.99
@@ -448,9 +462,11 @@ def check_repeat(name, first, second, phase, **case) -> None:
 
 
 def sass_phase(lib_path) -> dict:
-    """HMMA instructions in each bf16 tensor-core kernel of the built
-    library, from ``cuobjdump -sass`` beside ``nvcc``; fails if a kernel
-    has none, or if a family is missing."""
+    """Tensor-core instructions in each bf16 tensor-core kernel of the built
+    library, from ``cuobjdump -sass`` beside ``nvcc``: HGMMA (wgmma) in
+    every temporal kernel, HMMA (mma.sync) in block_eval's and the spatial
+    ones; fails if a kernel has none of its kind, or if a family is
+    missing."""
     from stgcn_tpu_torch.kernels import _build
 
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -462,19 +478,30 @@ def sass_phase(lib_path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             current = m.group(1)
-            counts[current] = 0
-        elif current is not None and "HMMA" in line:
-            counts[current] += 1
-    hmma = {k: v for k, v in counts.items()
-            if any(name in k for name in MMA_KERNELS)}
-    ok = (all(hmma.values())
-          and all(any(name in k for k in hmma) for name in MMA_KERNELS))
-    emit("sass", cuobjdump=str(cuobjdump), kernels=len(hmma), hmma=hmma,
-         resources=resource_usage(cuobjdump, lib_path, hmma), ok=ok)
+            counts[current] = {"HMMA": 0, "HGMMA": 0}
+        elif current is not None:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts[current][op] += 1
+
+    def family(names, op):
+        return {k: v[op] for k, v in counts.items()
+                if any(name in k for name in names)}
+
+    hmma, hgmma = family(MMA_KERNELS, "HMMA"), family(WGMMA_KERNELS, "HGMMA")
+    ok = all(all(found.values())
+             and all(any(name in k for k in found) for name in names)
+             for found, names in ((hmma, MMA_KERNELS),
+                                  (hgmma, WGMMA_KERNELS)))
+    emit("sass", cuobjdump=str(cuobjdump), kernels=len(hmma) + len(hgmma),
+         hmma=hmma, hgmma=hgmma,
+         resources=resource_usage(cuobjdump, lib_path, {**hmma, **hgmma}),
+         ok=ok)
     if not ok:
-        raise AssertionError("a bf16 tensor-core kernel has no HMMA "
-                             "instruction, or is missing from the library")
-    return hmma
+        raise AssertionError("a bf16 temporal kernel has no HGMMA "
+                             "instruction, another bf16 tensor-core kernel "
+                             "no HMMA, or one is missing from the library")
+    return {**hmma, **hgmma}
 
 
 def resource_usage(cuobjdump, lib_path, kernels) -> dict:
@@ -593,6 +620,10 @@ def train_kernel_phase(dev, gen, odd_gen) -> dict:
     # cases above keep their inputs
     spatial_odd = torch.Generator(device=dev).manual_seed(SEED + 2)
     spatial_case(ODD_C, ODD_C, ODD_T, torch.bfloat16, rng=spatial_odd)
+    # C=36 (weights without 16-byte strides), from a generator of its own
+    odd8 = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for stride in (1, 2):
+        temporal_case(ODD_C8, stride, ODD_T, torch.bfloat16, rng=odd8)
     return worst
 
 
@@ -736,6 +767,10 @@ def train_phase(dev, gen, peak_flops, peak_bytes) -> dict:
     ops_step_ms = cuda_time_ms(lambda: step_ops(ts_ops, x, y), reps=3)
     del ts_ops, ts_fall
     totals: dict = {}
+    # cuDNN's conv of each block's temporal shape draws from a generator of
+    # its own, so the kernels' inputs stay those of earlier runs
+    lib_gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    conv_lib: dict = {}
     for i, (ci, co, stride, t) in zip(FUSED_BLOCKS, fused_block_shapes()):
         sp = as_dtype(random_spatial(gen, B, t, ci, co, dev), torch.bfloat16)
         tp = as_dtype(random_temporal(gen, B, t, co, dev), torch.bfloat16)
@@ -790,6 +825,10 @@ def train_phase(dev, gen, peak_flops, peak_bytes) -> dict:
                               ("bound_ms", bound), ("ops_ms", t_ops),
                               ("bytes_ms", t_bytes)):
                 tot[name] += val
+        for direction, ms in temporal_conv_library_ms(lib_gen, co, stride, t,
+                                                      dev).items():
+            row[f"temporal_block.{direction}"]["conv_library_ms"] = ms
+            conv_lib[direction] = conv_lib.get(direction, 0.0) + ms
         emit("train_time", block=i, c_in=ci, c_out=co, stride=stride,
              t_in=t, **row)
     emit("train_time", train_step_ms=step_ms,
@@ -801,8 +840,23 @@ def train_phase(dev, gen, peak_flops, peak_bytes) -> dict:
                             for k, v in totals.items()},
          bound_ms_per_step={".".join(k): v["bound_ms"]
                             for k, v in totals.items()},
+         conv_library_ms_per_step={f"temporal_block.{d}": v
+                                   for d, v in conv_lib.items()},
          batch=B, frames=T, dtype="bfloat16")
-    return {"launches": launches, "totals": totals}
+    return {"launches": launches, "totals": totals, "conv_library": conv_lib}
+
+
+def temporal_conv_library_ms(gen, c, stride, t, dev) -> dict:
+    """direction -> CUDA-event ms of cuDNN's conv (``library_fns``) at the
+    temporal op's shape of one block, V-major, bf16: the plain temporal
+    conv without ``temporal_block``'s affine and ReLU, so a yardstick beside
+    that op (``conv_library_ms``), not its ``library_ms``."""
+    import torch
+
+    args, g = random_conv(gen, "temporal_conv", c, c, stride, t, True, dev)
+    args = {k: v.to(torch.bfloat16) for k, v in args.items()}
+    lib = library_fns(args, g.to(torch.bfloat16), True, stride)
+    return {d: cuda_time_ms(fn) for d, fn in lib.items()}
 
 
 def bound_kind(ops_ms: float, bytes_ms: float) -> str:
@@ -1018,6 +1072,13 @@ def conv_kernel_phase(dev, gen, odd_gen) -> dict:
     for layout, vmajor in LAYOUTS.items():
         run("spatial_conv", ODD_C, ODD_C, 1, ODD_T, True, torch.bfloat16,
             layout, vmajor, spatial_odd)
+    # the temporal conv at C=36 (weights without 16-byte strides, so no
+    # TMA), from a generator of its own
+    odd8 = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for layout, vmajor in LAYOUTS.items():
+        for stride in (1, 2):
+            run("temporal_conv", ODD_C8, ODD_C8, stride, ODD_T, True,
+                torch.bfloat16, layout, vmajor, odd8)
     return worst
 
 
@@ -1764,14 +1825,15 @@ def checkpoint_phase(fused) -> None:
                              "from the saved one")
 
 
-def fused_time_phase(dev, gen, peak_flops, peak_bytes,
-                     hybrid_totals) -> dict:
+def fused_time_phase(dev, gen, peak_flops, peak_bytes, hybrid_totals,
+                     hybrid_conv_library) -> dict:
     """CUDA-event ms of the fused step beside the op path, the hybrid and
     routes A and B; of the save op per direction at blocks 8-9 beside its
     plain version, the recompute op and its bound; of the fused step's
     kernels (``hybrid_totals``, train_time's sums over blocks 0-6, plus
-    blocks 7-9 timed here); and of the fused eval forward through
-    ``make_eval_step``.  Returns the save op's per-step sums per
+    blocks 7-9 timed here) with cuDNN's conv beside temporal_block
+    (``hybrid_conv_library`` for blocks 0-6); and of the fused eval forward
+    through ``make_eval_step``.  Returns the save op's per-step sums per
     direction."""
     import torch
 
@@ -1836,10 +1898,13 @@ def fused_time_phase(dev, gen, peak_flops, peak_bytes,
          saved_y_mbytes=2 * B * t * V * co * 2 / 1e6,
          **{f"spatial_block_save.{d}": e for d, e in row.items()})
 
-    # the fused step's ops beyond the hybrid's blocks 0-6
+    # the fused step's ops beyond the hybrid's blocks 0-6; cuDNN's conv
+    # beside temporal_block from a generator of its own
     bf = torch.bfloat16
     per_step = {k: v["ms"] for k, v in hybrid_totals.items()}
     per_step.update({k: v["ms"] for k, v in totals.items()})
+    lib_gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    conv_lib = dict(hybrid_conv_library)
     for i, (ci, co, stride, t) in enumerate(plan_block_shapes()):
         if i in FUSED_BLOCKS:
             continue
@@ -1862,6 +1927,9 @@ def fused_time_phase(dev, gen, peak_flops, peak_bytes,
         per_step[("temporal_block", "backward")] += cuda_time_ms(
             lambda: tb.temporal_block_backward(tp["z"], gu, *tp_rest,
                                                stride=stride, relu2=True))
+        for direction, ms in temporal_conv_library_ms(lib_gen, co, stride, t,
+                                                      dev).items():
+            conv_lib[direction] += ms
     kernel_ms = sum(per_step.values())
     emit("fused_time", **{f"{k}_step_ms": v for k, v in step_ms.items()},
          **{f"{k}_sequences_per_s": B / v * 1e3 for k, v in step_ms.items()},
@@ -1875,8 +1943,10 @@ def fused_time_phase(dev, gen, peak_flops, peak_bytes,
                                    for k, v in per_step.items()},
          fused_kernel_ms_sum=kernel_ms,
          fused_rest_ms=step_ms["fused"] - kernel_ms,
+         conv_library_ms_per_step={f"temporal_block.{d}": v
+                                   for d, v in conv_lib.items()},
          batch=B, frames=T, dtype="bfloat16")
-    return totals, step_ms
+    return totals
 
 
 # ---- the training entry point ---------------------------------------------
@@ -1897,29 +1967,58 @@ CLI_HYBRID = ["--model.block_impl", "hybrid", "--model.fused_blocks",
               ",".join(map(str, FUSED_BLOCKS)), "--data.collate_mode",
               "bucket"]
 CLI_EPOCHS = 2
+CLI_HYBRID_EPOCHS = 2    # the second without the first's first calls
 
 
-def run_cli(argv: list[str]) -> tuple[dict, dict]:
+def run_cli(argv: list[str]) -> tuple[dict, dict, dict]:
     """``cli.train.main(argv)`` in this process with every launch count set
-    to 0 just before it; returns the counts read just after and what it
-    printed: splits, epochs (the ``[epoch]`` dicts), resume line, test."""
+    to 0 just before it; returns the counts read just after, what it
+    printed (splits, epochs: the ``[epoch]`` dicts, resume line, test) and
+    its train steps: the Trainer's step wrapped to record each batch's
+    (rows, padded frames) and CUDA events around it, and the step and
+    train state it ran."""
     import ast
     import contextlib
     import io
 
+    import torch
+
     from stgcn_tpu_torch.cli.train import main as train_main
     from stgcn_tpu_torch.kernels.block_eval import block_eval
+    from stgcn_tpu_torch.training import loop
 
     counters = {**fused_counters(), "block_eval": block_eval}
     out = io.StringIO()
+    steps: dict = {"batches": []}
+    make_step = loop.make_train_step
+
+    def timed_step(model, **kw):
+        step = make_step(model, **kw)
+
+        def wrapped(ts, x, y, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = step(ts, x, y, *args, **kwargs)
+            end.record()
+            steps["batches"].append((x.shape[0], x.shape[1], start, end))
+            steps.update(step=step, ts=ts)
+            return result
+
+        return wrapped
+
     for fn in counters.values():
         fn.launches = 0
+    loop.make_train_step = timed_step
     try:
         with contextlib.redirect_stdout(out):
             rc = train_main(argv)
     except BaseException:
         print(out.getvalue()[-6000:], file=sys.stderr)
         raise
+    finally:
+        loop.make_train_step = make_step
+    torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     text = out.getvalue()
     splits = re.search(r"\[data\] splits: train=(\d+) val=(\d+) test=(\d+)",
@@ -1938,17 +2037,40 @@ def run_cli(argv: list[str]) -> tuple[dict, dict]:
     }
     if rc != 0 or not splits or not test:
         print(text[-6000:], file=sys.stderr)
-    return launches, printed
+    return launches, printed, steps
 
 
-def cli_train_phase(fused_step_ms: float, smi: str) -> None:
+def epoch_work(batches, epoch_s) -> dict:
+    """One epoch's train steps measured by the work they did: ``work_steps``
+    is the rows x padded frames of its batches over B x T (a batch of 39
+    sequences is 39/64 of a step, one of T=512 is 512/304), the device's
+    ms of its steps from their CUDA events, and the Trainer's epoch time
+    over that work; the host's share is the epoch time no step's events
+    cover."""
+    work = sum(rows * frames for rows, frames, _, _ in batches) / (B * T)
+    device_ms = sum(start.elapsed_time(end) for _, _, start, end in batches)
+    return dict(batches=len(batches),
+                shapes=[[rows, frames] for rows, frames, _, _ in batches],
+                work_steps=work, epoch_s=epoch_s,
+                trainer_ms_per_work_step=epoch_s * 1e3 / work,
+                device_ms=device_ms,
+                device_ms_per_work_step=device_ms / work,
+                host_share=1 - device_ms / (epoch_s * 1e3))
+
+
+def cli_train_phase(smi: str, dev) -> None:
     """The training CLI end to end (module docstring, phase 16); fails on a
     non-zero return, a non-finite loss, a launch count off its expected
     value per step and batch, a missing checkpoint or one without the JAX
-    metadata, or a resume that does not continue the step count."""
+    metadata, or a resume that does not continue the step count.  Each
+    epoch's steps are measured by their work (``epoch_work``), beside a
+    step of the CLI's own configuration (K=3, a trained graph, fused)
+    timed here at B=64, T=304 after its first run."""
     import math
     import os
     import tempfile
+
+    import torch
 
     from stgcn_tpu_torch.data import generate_dataset
     from stgcn_tpu_torch.training.checkpoint import checkpoint_metadata
@@ -1971,15 +2093,15 @@ def cli_train_phase(fused_step_ms: float, smi: str) -> None:
                 "true"],
             "hybrid_bucket": CLI_FLAGS + CLI_HYBRID + [
                 "--data.metadata_file", meta, "--data.dataset_dir",
-                data_dir, "--train.epochs", "1"],
+                data_dir, "--train.epochs", str(CLI_HYBRID_EPOCHS)],
         }
-        results = {}
+        results, cli_step_ms = {}, None
         for name, argv in runs.items():
             start = time.perf_counter()
-            launches, printed = run_cli(argv)
+            launches, printed, steps = run_cli(argv)
             seconds = time.perf_counter() - start
             n_train, n_val, n_test = printed["splits"] or (0, 0, 0)
-            steps = math.ceil(n_train / B)
+            batches_per_epoch = math.ceil(n_train / B)
             eval_batches = math.ceil(n_val / B)
             epochs = printed["epochs"]
             hybrid = name == "hybrid_bucket"
@@ -1989,7 +2111,7 @@ def cli_train_phase(fused_step_ms: float, smi: str) -> None:
                         {"spatial_block": blocks - saves,
                          "spatial_block_save": saves,
                          "temporal_block": blocks})
-            want = {f"{op}.{d}": n * steps * len(epochs)
+            want = {f"{op}.{d}": n * batches_per_epoch * len(epochs)
                     for op, n in per_step.items()
                     for d in ("forward", "backward")}
             want["block_eval"] = fused * (
@@ -2005,13 +2127,14 @@ def cli_train_phase(fused_step_ms: float, smi: str) -> None:
                      for s in ckpts}
             if name == "fused":
                 ckpt_ok = metas == {
-                    steps * e: {"epoch": e, "step": steps * e,
-                                "final": e == CLI_EPOCHS}
+                    batches_per_epoch * e: {
+                        "epoch": e, "step": batches_per_epoch * e,
+                        "final": e == CLI_EPOCHS}
                     for e in range(1, CLI_EPOCHS + 1)}
                 epochs_ok = [e["epoch"] for e in epochs] == list(
                     range(CLI_EPOCHS))
             elif name == "fused_resumed":
-                last = steps * (CLI_EPOCHS + 1)
+                last = batches_per_epoch * (CLI_EPOCHS + 1)
                 ckpt_ok = metas.get(last) == {
                     "epoch": CLI_EPOCHS + 1, "step": last, "final": True}
                 epochs_ok = (printed["resumed_from"] == CLI_EPOCHS
@@ -2019,34 +2142,55 @@ def cli_train_phase(fused_step_ms: float, smi: str) -> None:
                                  CLI_EPOCHS])
             else:
                 ckpt_ok = True      # no checkpoint directory
-                epochs_ok = [e["epoch"] for e in epochs] == [0]
-            epoch_s = [e["epoch_time_s"] for e in epochs]
+                epochs_ok = [e["epoch"] for e in epochs] == list(
+                    range(CLI_HYBRID_EPOCHS))
+            batches = steps["batches"]
+            split_ok = bool(epochs) and len(batches) == (
+                batches_per_epoch * len(epochs))
+            per_epoch = ([epoch_work(batches[i * batches_per_epoch:
+                                             (i + 1) * batches_per_epoch],
+                                     e["epoch_time_s"])
+                          for i, e in enumerate(epochs)] if split_ok else [])
+            if name == "fused" and split_ok:
+                # a step of the CLI's own configuration at B x T, on the
+                # state the run trained, from a generator of its own
+                cli_gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+                x = torch.randn(B, T, V, 2, generator=cli_gen, device=dev)
+                y = torch.randint(0, 6, (B,), generator=cli_gen, device=dev)
+                cli_step_ms = cuda_time_ms(
+                    lambda: steps["step"](steps["ts"], x, y), reps=5)
+            for e in per_epoch:     # the fused runs share its config
+                e["host_share_vs_cli_step"] = (
+                    1 - e["work_steps"] * cli_step_ms / (e["epoch_s"] * 1e3)
+                    if cli_step_ms and not hybrid else None)
             ok = (printed["rc"] == 0 and finite and ckpt_ok and epochs_ok
-                  and launches == want and printed["test"] is not None
+                  and split_ok and launches == want
+                  and printed["test"] is not None
                   and math.isfinite(printed["test"][0]))
             results[name] = dict(
                 seconds=seconds, splits=printed["splits"],
-                steps_per_epoch=steps, epochs=[e["epoch"] for e in epochs],
-                losses=losses, epoch_seconds=epoch_s,
-                trainer_ms_per_step=[t / steps * 1e3 for t in epoch_s],
-                test=printed["test"], launches=launches,
-                expected_launches=want,
+                batches_per_epoch=batches_per_epoch,
+                epochs=[e["epoch"] for e in epochs], losses=losses,
+                per_epoch=per_epoch, test=printed["test"],
+                launches=launches, expected_launches=want,
                 checkpoints={str(k): v for k, v in metas.items()}, ok=ok)
             emit("cli_train", run=name, argv=argv, **results[name])
+            del steps
             if not ok:
                 raise AssertionError(
                     f"the training CLI's {name} run failed: rc "
                     f"{printed['rc']}, finite {finite}, checkpoints "
-                    f"{ckpt_ok}, epochs {epochs_ok}, launches "
-                    f"{launches} against {want}")
-    fused_ms = results["fused"]["trainer_ms_per_step"]
-    emit("cli_train", dataset_seconds=generate_s,
-         fused_trainer_ms_per_step=fused_ms,
-         fused_time_step_ms=fused_step_ms,
-         host_share_of_trainer_step=[1 - fused_step_ms / m
-                                     for m in fused_ms],
-         hybrid_bucket_trainer_ms_per_step=results["hybrid_bucket"][
-             "trainer_ms_per_step"],
+                    f"{ckpt_ok}, epochs {epochs_ok}, steps {split_ok}, "
+                    f"launches {launches} against {want}")
+
+    def column(run, key):
+        return [e[key] for e in results[run]["per_epoch"]]
+
+    emit("cli_train", dataset_seconds=generate_s, cli_step_ms=cli_step_ms,
+         **{f"{run}_{key}": column(run, key) for run in results
+            for key in ("trainer_ms_per_work_step",
+                        "device_ms_per_work_step", "host_share",
+                        "host_share_vs_cli_step")},
          nvidia_smi=smi, batch=B, frames=T, dtype="bfloat16")
 
 
@@ -2297,11 +2441,11 @@ def main() -> int:
     checkpoint_phase(fused)
     fused_launches = fused["launches"]
     del fused
-    save_totals, step_ms = fused_time_phase(dev, gen, peak_flops,
-                                            peak_bytes, train["totals"])
+    save_totals = fused_time_phase(dev, gen, peak_flops, peak_bytes,
+                                   train["totals"], train["conv_library"])
 
     # ---- 16. cli_train: the training entry point ---------------------------
-    cli_train_phase(step_ms["fused"], smi)
+    cli_train_phase(smi, dev)
 
     # ---- 17. kernels --------------------------------------------------------
     kernels = [{

@@ -47,14 +47,20 @@ forward and backward)  ``(N, T, V, C)``, and
                        compute the standalone gamma x 1 temporal conv
 =====================  =====================================================
 
-The bfloat16 kernels of every op run on Hopper's tensor cores (``mma.sync``
-bf16 tiles over padded shared rows, weights through a ``cp.async`` ring,
-``csrc/tap_mma.cuh``):
+The bfloat16 kernels of every op run on Hopper's tensor cores:
+
+* ``temporal_block`` and ``temporal_conv`` on warpgroup MMA (``wgmma``
+  with A from registers, ``csrc/wgmma.cuh``): the taps as implicit GEMMs
+  of 128 rows by the whole C_out, the weights through a TMA ring with
+  mbarriers, dx split by input-frame parity at stride 2 (it also writes the
+  post-activation ``zh`` for dWt), dWt staging each chunk of rows once for
+  all nine taps and splitting the rows into partial slices summed in
+  order;
+
+and on ``mma.sync`` (bf16 tiles over padded shared rows, weights through a
+``cp.async`` ring, ``csrc/tap_mma.cuh``):
 
 * ``block_eval``: stage 1, the projection and the temporal taps;
-* ``temporal_block`` and ``temporal_conv``: the taps as implicit
-  GEMMs, dx split by input-frame parity at stride 2, dWt split over the
-  rows into partial slices summed in order;
 * ``spatial_block``, ``spatial_block_save`` and ``spatial_conv``:
   tiles of whole frames (5 of 25 joints in 128 rows), the expansion
   y_k = round(h . W_k + b_k) and the aggregation per frame with the joints

@@ -47,33 +47,59 @@
 // and 143.4 for C=256 (T_out=76): 0.036 to 0.145 ms of tensor-core time,
 // against 25 to 125 MB moved, 0.007 to 0.037 ms of memory time.  The
 // backward does twice the operations.  (chip_smoke.py temporal_cost
-// recomputes both per block.)
+// recomputes both per block.)  So the tensor cores bound every block, and
+// what keeps a kernel from them is feeding them: operands read again from
+// L2, barriers, latency that nothing overlaps, and the epilogue.
 //
-// Design, bf16 (every main path): tensor cores through tap_mma.cuh.
+// Design, bf16 (every main path): Hopper's warpgroup MMA (wgmma.cuh).
 //   * Forward: an implicit GEMM, M = the (joint line, output frame) rows,
-//     N = C_out, K = gamma x C_in.  Rows are flattened with the frame
-//     fastest, so a CTA of BM rows needs about BM*s + gamma - s input
-//     frames of one or two lines (the halo): it stages them once as bf16
-//     in shared memory [, applying the affine, the ReLU and the rounding on
-//     the way, which gives exactly zh].  Each row reads its tap g at a
-//     per-row offset + g; Wt chunks of KC input channels stream through
-//     the cp.async ring.  The epilogue adds bt, rounds and stores.
+//     N = C_out, K = gamma x C_in.  A CTA owns 128 rows and the whole
+//     C_out up to 256 (so its input rows are staged, and their affine
+//     computed, once): a producer warpgroup and two consumer warpgroups of
+//     64 rows each, registers moved to the consumers with setmaxnreg (two
+//     CTAs an SM at N = 64).  Rows are flattened with the frame fastest,
+//     so a tile of 128 rows needs about 128*s + gamma - s input frames of
+//     one to three lines (the halo): every thread stages them once as bf16
+//     with cp.async [, then applies the affine, the ReLU and the rounding
+//     in place, which gives exactly zh], while TMA already brings the
+//     first weight stages.  Each row reads tap i at its staged row offset
+//     + i: wgmma takes A from registers (ldmatrix at each row's own
+//     address, which no shared-memory descriptor could express), m64nNk16.
+//     B, the weights of one tap and 64 input channels (32 where a ring of
+//     64 would hold fewer than three stages), comes by TMA into a ring of
+//     2-4 128B-swizzled stages with full and empty mbarriers: no CTA-wide
+//     barrier per chunk, and each A fragment feeds a whole N = 256 row.
+//     The epilogue adds bt, rounds and stores; the per-column constants
+//     wait in shared memory, so no load waits behind a store.
 //   * dx: the same GEMM on g and WtT.  At stride s the input frames split
 //     by parity p = f mod s: frame f = j*s + p takes only the taps with
 //     t*s - pad + tap = f, tap = tap0 + i*s, over the contiguous g rows
 //     t = j + e0 - i; for gamma = 9, pad = 4, s = 2 even frames take taps
 //     0,2,4,6,8 and odd frames taps 1,3,5,7, so no product with a zero row
 //     is left.  [The epilogue recomputes the pre-activation from z, masks
-//     by the ReLU, writes dz = round(dpre * s2) and adds the column sums
-//     of dpre * z and dpre of its rows into its CTA's slice.]  Frames no
-//     tap reaches get dz = 0 from zero-filled g rows.
-//   * dWt: per tap, dWt_tap = zh_shifted^T . g is a GEMM with K = the
-//     N*T_out*V rows, split across CTAs into float32 partial slices (about
-//     two CTAs per SM), summed in slice order.  [zh is recomputed from z
-//     while staging.]  dbt, the column sum of g, is taken in the same pass
-//     by the CTAs of tap 0.
+//     by the ReLU, writes dz = round(dpre * s2) and zh = round(relu(pre))
+//     for dWt, and adds the column sums of dpre * z and dpre of its rows
+//     into its CTA's slice (the eight warps' sums in order); z comes in and
+//     dz, zh go out through shared memory in whole 16-byte pieces of
+//     rows.]  Frames no tap reaches get dz = 0 from zero-filled g rows.
+//   * dWt: dWt_tap = zh_shifted^T . g, K = the N*T_out*V rows, split
+//     across CTAs (one an SM) into float32 partial slices summed in slice
+//     order.  A CTA owns 64 x 64 channels and up to 9 taps: its producer
+//     stages each chunk of 128 g rows and the zh frames their taps read
+//     once, by TMA (V-major; each line's frames in 8-row boxes) or
+//     cp.async, into a ring of 2-4 stages; three consumer warpgroups take
+//     three taps each from that staging (A = zh^T by ldmatrix.trans at the
+//     rows' offsets + tap, B = g swizzled), so at C = 256 each zh row is
+//     staged 4 times (once per C_out tile) and each g row 4 times (once
+//     per C_in tile).  [zh is the dx kernel's.]  dbt, the column sum of
+//     g, is taken from the same
+//     stages by the CTAs of the first tap group and channel tile.
 //   The wrapper's backward is one op call: dx, dWt and the reduction
 //   passes are launched together.
+//   Any channel count runs: K and N tails are zero-filled (TMA's
+//   out-of-bounds fill, or the copies' zero fill), and weights or rows
+//   without 16-byte strides (C % 8 != 0) go through plain loads into the
+//   same swizzled layouts.
 // Design, float32 (the port's check type; on tensor cores it would be
 // TF32): scalar FMA on the CUDA cores.  A CTA of 256 threads may take a
 // group of VG joints.
@@ -90,7 +116,8 @@
 //     frames.  A fixed number of CTAs loop over the (frames, sequence,
 //     joint group) work items, so the partial slices stay few.
 // Tiles are chosen to fit in 227 KB (temporal_block.py plan_forward,
-// plan_backward and plan_mma, temporal_conv.py plan_conv).
+// plan_backward, plan_mma_forward and plan_mma_backward, temporal_conv.py
+// plan_conv).
 //
 // Launch contract (checked by the Python wrappers): z, g, Wt in T; s2, t2
 // (AFF only) and bt float32; Wt is (gamma, C_in, C_out) and WtT
@@ -98,6 +125,7 @@
 // launcher returns cudaGetLastError() after its launches.
 
 #include "tap_mma.cuh"
+#include "wgmma.cuh"
 #include "train_common.cuh"
 
 namespace {
@@ -396,12 +424,83 @@ cudaError_t bwd(const void* z, const void* g, const void* s2, const void* t2,
 
 }  // namespace
 
-// ---- bf16: the tensor-core kernels (tap_mma.cuh) ---------------------------
+// ---- bf16: the warpgroup kernels (wgmma.cuh) --------------------------------
 namespace mma_path {
 
 using tap::bf16;
-constexpr int KC = 32;  // weight rows (input channels) per ring stage
-constexpr int KR = 64;  // dWt: rows of the GEMM's K per chunk
+constexpr int BM = 128;             // GEMM rows of a tile: 2 warpgroups x 64
+constexpr int KC = wg::kBoxRows;    // input channels of a ring stage (64),
+                                    // or 32 where a deeper ring needs it
+constexpr int kGemmThreads = 384;   // a producer warpgroup, 2 consumers
+constexpr int kMaxStages = 4;
+
+// Registers of the GEMM kernel by N tile: two CTAs an SM at N = 64, else
+// one; setmaxnreg moves the producer's share to the consumers (one CTA:
+// 128 * 40 + 256 * 232 = 64,512 of 65,536; two: 128 * 24 + 256 * 104 =
+// 29,696 of the 30,720 a CTA launches with at 80 a thread).
+template <int BN>
+struct GemmRegs {
+  static constexpr int ctas = BN == 64 ? 2 : 1;
+  static constexpr int producer = BN == 64 ? 24 : 40;
+  static constexpr int consumer = BN == 64 ? 104 : 232;
+};
+constexpr int DW_KR = 128;          // dWt: GEMM K rows (rows of g) a chunk
+constexpr int DW_BM = 64;           // dWt: input channels of a CTA (wgmma M)
+constexpr int DW_BN = 64;           // dWt: output channels of a CTA (N)
+constexpr int kDwConsumers = 3;     // consumer warpgroups of the dWt kernel
+constexpr int DW_TPW = 3;           // taps a consumer warpgroup
+constexpr int DW_TAPS = kDwConsumers * DW_TPW;  // taps of a CTA
+constexpr int DW_GBYTES = DW_KR * 128;  // g of a stage: swizzled, 16 KB
+constexpr int kDwtThreads = 128 * (1 + kDwConsumers);
+// 128 * 56 + 384 * 152 = 65,536
+constexpr int kDwProducerRegs = 56, kDwConsumerRegs = 152;
+
+__host__ __device__ inline int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// The most input rows a tile of bm GEMM rows stages (temporal_block.py
+// staged_rows): each line its rows touch needs (rows - 1) * walk + ntap.
+__host__ __device__ inline int staged_rows(int bm, int per_line, int walk,
+                                           int ntap) {
+  int seg = (bm - 1 + per_line - 1) / per_line + 1;
+  if (seg > bm) seg = bm;
+  return walk * (bm - seg) + seg * ntap;
+}
+
+// The most zh rows a dWt chunk stages (temporal_block.py dwt_rows): as
+// staged_rows, with each line's frames padded to 8 rows.
+__host__ __device__ inline int dwt_rows(int per_line, int walk, int ntap) {
+  int seg = (DW_KR - 1 + per_line - 1) / per_line + 1;
+  if (seg > DW_KR) seg = DW_KR;
+  return staged_rows(DW_KR, per_line, walk, ntap) + 7 * seg;
+}
+
+// Shared bytes of the GEMM kernel (temporal_block.py gemm_smem): the
+// alignment slack, the ring (stages of kc input channels) and its
+// barriers, the row offsets, [the column sums of dx with AFF,] the
+// epilogue's per-column constants, the staged rows.
+inline int gemm_smem(int bn, int kc, int stages, int staged, int k_in,
+                     bool dx_aff) {
+  return wg::kAtomBytes + stages * (bn * kc * 2 + 16) + 4 * BM +
+         (dx_aff ? 2 * 8 * bn * 4 : 0) + 2 * bn * 4 +
+         staged * tap::pitch_of(k_in) * 2;
+}
+
+// A dWt stage: g's DW_KR rows, then the zrows staged zh rows, both in
+// 128-byte rows of 64 channels, 128B-swizzled, each starting on a swizzle
+// atom; then the rows' offsets.  Whole atoms, so every stage starts
+// aligned.
+__host__ __device__ inline int dw_zh_bytes(int zrows) {
+  return round_up(zrows * 128, wg::kAtomBytes);
+}
+__host__ __device__ inline int dw_stage_bytes(int zrows) {
+  return round_up(DW_GBYTES + dw_zh_bytes(zrows) + 4 * DW_KR,
+                  wg::kAtomBytes);
+}
+inline int dwt_smem(int zrows, int stages) {  // temporal_block.py dwt_smem
+  return wg::kAtomBytes + stages * (dw_stage_bytes(zrows) + 16) + 128 * 8 * 4;
+}
 
 // Offset of (line, frame f, channel 0) in a tensor of TT frames and C
 // channels.  A line is one (joint, sequence) pair: line v*N + n of a
@@ -418,7 +517,303 @@ __device__ __forceinline__ size_t line_at(int line, int f, int TT, int C,
   }
 }
 
+constexpr int kNoFrame = -(1 << 30);  // a staged row that holds no frame
+
+// The rows of a tile: `rows` flattened (line, j) rows from r0, J of them
+// a line.  Their input frames are staged line by line: `first` rows of
+// line l0 from row ja0, then whole lines, each line's rows needing
+// (rows - 1) * walk + ntap frames from frame j0 * walk + off0 (the halo).
+// With pad8 each line's frames start on a multiple of 8 staged rows (the
+// dWt kernel's 8-row TMA boxes); the rows past a line's frames hold no
+// frame and are never read.  Row r reads its tap i at staged row
+// rowoff(r) + i; rows past the end read staged row 0 and are not stored.
+struct Tile {
+  int rows, J, walk, off0, l0, ja0, first, len_first, len_full, lp_first,
+      lp_full, S;
+
+  __device__ void init(int r0, int bm, int end, int J_, int walk_,
+                       int ntap, int off0_, bool pad8 = false) {
+    J = J_;
+    walk = walk_;
+    off0 = off0_;
+    rows = min(bm, end - r0);
+    l0 = r0 / J;
+    ja0 = r0 - l0 * J;
+    first = min(J - ja0, rows);
+    len_first = (first - 1) * walk + ntap;
+    len_full = (J - 1) * walk + ntap;
+    lp_first = pad8 ? round_up(len_first, 8) : len_first;
+    lp_full = pad8 ? round_up(len_full, 8) : len_full;
+    const int rest = rows - first;
+    const int tail = rest % J ? (rest % J - 1) * walk + ntap : 0;
+    S = lp_first + (rest / J) * lp_full + (pad8 ? round_up(tail, 8) : tail);
+  }
+  __device__ int rowoff(int r) const {
+    if (r < first) return r * walk;
+    if (r >= rows) return 0;
+    const int q = r - first;
+    return lp_first + (q / J) * lp_full + (q % J) * walk;
+  }
+  // (line, frame) of staged row sr; kNoFrame on a padding row
+  __device__ void frame(int sr, int& l, int& f) const {
+    if (sr < lp_first) {
+      l = l0;
+      f = sr < len_first ? ja0 * walk + off0 + sr : kNoFrame;
+    } else {
+      const int q = sr - lp_first;
+      l = l0 + 1 + q / lp_full;
+      const int pos = q % lp_full;
+      f = pos < len_full ? off0 + pos : kNoFrame;
+    }
+  }
+};
+
+// A position in a line-major walk over rows: line l (= n * V + v of an
+// (N, T, V, C) tensor) and frame f, moved on without divisions.
+struct LinePos {
+  int l, n, v, f;
+  __device__ void set(int line, int frame, int V) {
+    l = line;
+    n = line / V;
+    v = line - n * V;
+    f = frame;
+  }
+  __device__ void next_line(int V) {
+    ++l;
+    if (++v == V) {
+      v = 0;
+      ++n;
+    }
+  }
+};
+
+// line_at() of a walk position.
+template <bool VM>
+__device__ __forceinline__ size_t pos_at(const LinePos& p, int TT, int C,
+                                         int V) {
+  return VM ? ((size_t)p.l * TT + p.f) * C
+            : (((size_t)p.n * TT + p.f) * V + p.v) * C;
+}
+
+// The staged rows sr, sr + step, ... of a tile: each one's line and frame,
+// walked segment by segment (the first line's frames, then a line's at a
+// time), with no division a row.
+struct RowWalk {
+  LinePos p;
+  int f0, pos, len, lp;  // the line's first frame, row in it, frames, rows
+
+  __device__ void init(const Tile& tl, int sr, int V) {
+    int line;
+    if (sr < tl.lp_first) {
+      line = tl.l0;
+      f0 = tl.ja0 * tl.walk + tl.off0;
+      pos = sr;
+      len = tl.len_first;
+      lp = tl.lp_first;
+    } else {
+      const int q = sr - tl.lp_first;
+      line = tl.l0 + 1 + q / tl.lp_full;
+      f0 = tl.off0;
+      pos = q % tl.lp_full;
+      len = tl.len_full;
+      lp = tl.lp_full;
+    }
+    p.set(line, 0, V);
+    p.f = frame();
+  }
+  __device__ int frame() const { return pos < len ? f0 + pos : kNoFrame; }
+  __device__ void advance(const Tile& tl, int step, int V) {
+    pos += step;
+    while (pos >= lp) {  // past the line's rows: into the next line's
+      pos -= lp;
+      p.next_line(V);
+      f0 = tl.off0;
+      len = tl.len_full;
+      lp = tl.lp_full;
+    }
+    p.f = frame();
+  }
+};
+
+// Staged row sr, columns c .. c + 7: at pitch P, or (SW) in 128-byte rows
+// of 64 channels, 128B-swizzled (sw128()).
+template <bool SW>
+__device__ __forceinline__ bf16* staged_at(bf16* dst, int P, int sr, int c) {
+  if constexpr (SW) {
+    return reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(dst) +
+                                   wg::sw128(sr, c >> 3));
+  } else {
+    return dst + (size_t)sr * P + c;
+  }
+}
+
+// Copies of a tile's staged rows: `cols` columns (a multiple of 8) from
+// column c0 of x's rows (C channels, a multiple of 8; TT frames), zero past
+// C and on frames outside [0, TT), into dst at pitch P, by threads i, i + n,
+// ...  All are cp.async, so every copy is in flight at once; the caller
+// commits and waits.  Where n is a multiple of the pieces a row, a
+// thread's pieces share one column and it walks their rows.
+template <bool VM, bool SW = false>
+__device__ __forceinline__ void copy_rows(bf16* dst, int P, const Tile& tl,
+                                          const bf16* x, int TT, int C,
+                                          int c0, int cols, int V, int i,
+                                          int n) {
+  const int pieces = cols / 8;
+  if (n % pieces == 0) {
+    const int step = n / pieces;
+    const int c = (i % pieces) * 8;
+    const bool col_ok = c0 + c < C;
+    int sr = i / pieces;
+    if (sr >= tl.S) return;
+    RowWalk w;
+    w.init(tl, sr, V);
+    for (; sr < tl.S; sr += step) {
+      const bool valid = col_ok && w.p.f >= 0 && w.p.f < TT;
+      const bf16* src = valid ? x + pos_at<VM>(w.p, TT, C, V) + c0 + c : x;
+      tap::cp_async16(tap::smem_u32(staged_at<SW>(dst, P, sr, c)), src,
+                      valid ? 16 : 0);
+      w.advance(tl, step, V);
+    }
+    return;
+  }
+  for (int e = i; e < tl.S * pieces; e += n) {
+    const int sr = e / pieces;
+    const int c = (e - sr * pieces) * 8;
+    int l, f;
+    tl.frame(sr, l, f);
+    const bool valid = f >= 0 && f < TT && c0 + c < C;
+    const bf16* src = valid ? x + line_at<VM>(l, f, TT, C, V) + c0 + c : x;
+    tap::cp_async16(tap::smem_u32(staged_at<SW>(dst, P, sr, c)), src,
+                    valid ? 16 : 0);
+  }
+}
+
+// The affine and ReLU, rounded, of eight staged channels in place.
+__device__ __forceinline__ void affine8(bf16* d, const float* sc,
+                                        const float* sh, int relu2) {
+  alignas(16) bf16 v[8];
+  *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(d);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float h = tap::affine(__bfloat162float(v[k]), sc[k], sh[k]);
+    if (relu2) h = fmaxf(h, 0.f);
+    v[k] = __float2bfloat16_rn(h);
+  }
+  *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(v);
+}
+
+// The affine and ReLU, rounded, in place over the rows copy_rows() brought
+// in, by the same threads (each on its own copies, which its cp.async wait
+// has made visible to it): valid frames and channels only, so the padding
+// stays zero.  As copy_rows, a thread whose pieces share one column walks
+// their rows with its eight scales and shifts in registers.
+__device__ __forceinline__ void affine_rows(bf16* dst, int P, const Tile& tl,
+                                            int TT, int C, int c0, int cols,
+                                            const float* s2, const float* t2,
+                                            int relu2, int V, int i, int n) {
+  const int pieces = cols / 8;
+  if (n % pieces == 0) {
+    const int step = n / pieces;
+    const int c = (i % pieces) * 8;
+    int sr = i / pieces;
+    if (c0 + c >= C || sr >= tl.S) return;
+    float sc[8], sh[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      sc[k] = s2[c0 + c + k];
+      sh[k] = t2[c0 + c + k];
+    }
+    RowWalk w;
+    w.init(tl, sr, V);
+    for (; sr < tl.S; sr += step) {
+      if (w.p.f >= 0 && w.p.f < TT)
+        affine8(dst + (size_t)sr * P + c, sc, sh, relu2);
+      w.advance(tl, step, V);
+    }
+    return;
+  }
+  for (int e = i; e < tl.S * pieces; e += n) {
+    const int sr = e / pieces;
+    const int c = (e - sr * pieces) * 8;
+    int l, f;
+    tl.frame(sr, l, f);
+    if (f < 0 || f >= TT || c0 + c >= C) continue;
+    affine8(dst + (size_t)sr * P + c, s2 + c0 + c, t2 + c0 + c, relu2);
+  }
+}
+
+// Plain loads of the same rows where x's rows are not 16-byte aligned
+// (C % 8 != 0), [through the affine and ReLU on the way].
+template <bool AFF, bool VM, bool SW = false>
+__device__ __forceinline__ void load_rows(bf16* dst, int P, const Tile& tl,
+                                          const bf16* x, int TT, int C,
+                                          int c0, int cols, const float* s2,
+                                          const float* t2, int relu2, int V,
+                                          int i, int n) {
+  const int pieces = cols / 8;
+  for (int e = i; e < tl.S * pieces; e += n) {
+    const int sr = e / pieces;
+    const int c = (e - sr * pieces) * 8;
+    int l, f;
+    tl.frame(sr, l, f);
+    const bool valid = f >= 0 && f < TT;
+    const bf16* row = x + (valid ? line_at<VM>(l, f, TT, C, V) + c0 : 0);
+    tap::stage8<AFF>(staged_at<SW>(dst, P, sr, c), row, c, C - c0, valid,
+                     s2 + c0, t2 + c0, relu2);
+  }
+}
+
+// Stage a tile's rows by threads i, i + n, ...: copy_rows (then
+// affine_rows with AFF) where x's rows are 16-byte aligned, else
+// load_rows.  The caller publishes them with a barrier.
+template <bool AFF, bool VM>
+__device__ __forceinline__ void stage_rows(bf16* dst, int P, const Tile& tl,
+                                           const bf16* x, int TT, int C,
+                                           int c0, int cols, const float* s2,
+                                           const float* t2, int relu2, int V,
+                                           int i, int n) {
+  if (C % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    copy_rows<VM>(dst, P, tl, x, TT, C, c0, cols, V, i, n);
+    tap::cp_async_commit();
+    tap::cp_async_wait<0>();
+    if constexpr (AFF)
+      affine_rows(dst, P, tl, TT, C, c0, cols, s2, t2, relu2, V, i, n);
+  } else {
+    load_rows<AFF, VM>(dst, P, tl, x, TT, C, c0, cols, s2, t2, relu2, V, i,
+                       n);
+  }
+}
+
+// One halving exchange of a warp's column sums across lane bit BIT: the
+// lanes with the bit set keep part[HALF .. 2 HALF), the others part[0 ..
+// HALF), each adding its partner's copy of what it keeps into part[0 ..
+// HALF).
+template <int HALF, int BIT>
+__device__ __forceinline__ void halve(float (&part)[32], int lane) {
+  const bool upper = (lane >> BIT) & 1;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float keep = upper ? part[HALF + i] : part[i];
+    const float give = upper ? part[i] : part[HALF + i];
+    part[i] = keep + __shfl_xor_sync(0xffffffffu, give, 1 << BIT);
+  }
+}
+
+// Two neighbouring columns o, o + 1 of a bf16 row, rounded; one paired
+// store where both exist and the row's width is even.
+__device__ __forceinline__ void store2(bf16* dst, const float (&v)[2], int o,
+                                       int n, bool pair) {
+  if (pair) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) =
+        __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+    if (o < n) dst[0] = __float2bfloat16_rn(v[0]);
+    if (o + 1 < n) dst[1] = __float2bfloat16_rn(v[1]);
+  }
+}
+
 struct GemmArgs {
+  CUtensorMap wmap;   // the weights' TMA map, when tma
   const bf16* x;      // the GEMM's input rows: z (forward) or g (dx)
   const bf16* z;      // dx with AFF: the op's input, for the epilogue
   const float* s2;    // AFF
@@ -426,26 +821,38 @@ struct GemmArgs {
   const bf16* w;      // (gamma, K_in, N_out): Wt (forward) or WtT (dx)
   const float* bias;  // forward: bt
   bf16* out;          // forward: u (T_out frames); dx: dz (T frames)
+  bf16* zh;           // dx with AFF: zh of every input row, for dWt
   float* partial;     // dx with AFF: [slice][ds2 (N_out) | dt2 (N_out)]
-  int V, N, T, T_out, K_in, N_out, gamma, stride, pad, relu2, tiles_x;
+  int V, N, T, T_out, K_in, N_out, gamma, stride, pad, relu2, tiles_x,
+      stages, kc, tma;
 };
 
 // The forward (DX false) or one input-frame parity of dx (DX true,
-// parity blockIdx.z) as an implicit GEMM.  A CTA owns BM rows of the
-// flattened (line, output frame) rows and BN output channels; its 8 warps
-// are WM x WN tiles of 32 x 32.
-template <bool AFF, bool VM, bool DX, int WN>
-__global__ void __launch_bounds__(tap::kThreads)
-tap_gemm_kernel(GemmArgs p) {
-  constexpr int WM = 8 / WN, BM = 32 * WM, BN = 32 * WN;
-  constexpr int BP = BN + tap::kPad;  // pitch of a ring stage
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);       // [2][KC][BP]
-  int* rowoff = reinterpret_cast<int*>(ring + 2 * KC * BP);  // [BM]
-  float* red = reinterpret_cast<float*>(rowoff + BM);   // [2][WM][BN]
-  bf16* as = reinterpret_cast<bf16*>(red + (DX && AFF ? 2 * WM * BN : 0));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / WN, wn = warp % WN;
+// parity blockIdx.z) as an implicit GEMM.  A CTA owns BM = 128 rows of
+// the flattened (line, output frame) rows and BN output channels (the
+// whole C_out up to 256); warpgroup 0 produces the weight ring, 1 and 2
+// each compute 64 rows with wgmma m64nBNk16.  Every thread stages the
+// tile's input frames first (A, read by ldmatrix at each row's offset
+// plus the tap's shift) while TMA brings the ring's first stages; the
+// weights stream in chunks of kc input channels of one tap.
+template <bool AFF, bool VM, bool DX, int BN>
+__global__ void __launch_bounds__(kGemmThreads, GemmRegs<BN>::ctas)
+tap_gemm_kernel(const __grid_constant__ GemmArgs p) {
+  constexpr int NB = BN / wg::kBoxCols;  // 64-column tiles of a stage
+  const int kc = p.kc;
+  const int box = kc * 128;              // bytes of a 64-column tile
+  const int STAGE = NB * box;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring = wg::align_atom(smem_raw);   // [stages][NB][kc][64]
+  const int nst = p.stages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + nst * STAGE);
+  uint64_t* empty = full + nst;
+  int* rowoff = reinterpret_cast<int*>(empty + nst);         // [BM]
+  float* red = reinterpret_cast<float*>(rowoff + BM);        // [2][8][BN]
+  // the epilogue's columns: bt (forward), or s2 and t2 (dx with AFF)
+  float* cvec = red + (DX && AFF ? 2 * 8 * BN : 0);          // [2][BN]
+  bf16* as = reinterpret_cast<bf16*>(cvec + 2 * BN);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int s = p.stride;
 
   // Tap i multiplies weight tap tap0 + i*tstep into staged row
@@ -482,7 +889,7 @@ tap_gemm_kernel(GemmArgs p) {
                        p.N_out;
   if (r0 >= R) {  // a parity with fewer rows: an empty slice
     if constexpr (DX && AFF) {
-      for (int t = threadIdx.x; t < BN; t += blockDim.x)
+      for (int t = tid; t < BN; t += blockDim.x)
         if (n0 + t < p.N_out) {
           p.partial[slice + n0 + t] = 0.f;
           p.partial[slice + p.N_out + n0 + t] = 0.f;
@@ -492,178 +899,304 @@ tap_gemm_kernel(GemmArgs p) {
   }
   const int Kp = tap::round16(p.K_in);
   const int AP = Kp + tap::kPad;
-  const int nkc = (Kp + KC - 1) / KC;
+  const int nkc = (Kp + kc - 1) / kc;
   const int nchunks = ntap * nkc;
-
-  auto issue = [&](int ch) {
+  const uint32_t ring_u = wg::smem_u32(ring);
+  // TMA of chunk ch into its stage: tap i's kc input channels from k0
+  auto tma_chunk = [&](int ch) {
+    const int st = ch % nst;
     const int i = ch / nkc;
-    const int k0 = (ch - i * nkc) * KC;
-    const int rows_valid = min(KC, p.K_in - k0);
-    const bf16* src =
-        rows_valid > 0
-            ? p.w + ((size_t)(tap0 + i * tstep) * p.K_in + k0) * p.N_out + n0
-            : p.w;
-    tap::stage_tile(ring + (ch & 1) * KC * BP, BP, src, p.N_out, KC,
-                    rows_valid, BN, p.N_out - n0);
-    tap::cp_async_commit();
+    const uint32_t fb = wg::smem_u32(full + st);
+    wg::mbar_expect_tx(fb, STAGE);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      wg::tma_load_3d(ring_u + st * STAGE + j * box, &p.wmap, fb,
+                      n0 + j * wg::kBoxCols, (ch - i * nkc) * kc,
+                      tap0 + i * tstep);
   };
-  issue(0);  // the first weight chunk loads while the rows are staged
-
-  // The tile's rows: `first` rows of line l0 from frame row ja0, then
-  // whole lines; each line's staged frames follow the previous line's.
-  const int rows = min(BM, R - r0);
-  const int l0 = r0 / J;
-  const int ja0 = r0 - l0 * J;
-  const int first = min(J - ja0, rows);
-  const int len_first = (first - 1) * walk + ntap;
-  const int len_full = (J - 1) * walk + ntap;
-  const int rest = rows - first;
-  const int S = len_first + (rest / J) * len_full +
-                (rest % J ? (rest % J - 1) * walk + ntap : 0);
-  for (int r = threadIdx.x; r < BM; r += blockDim.x) {
-    int off = 0;  // rows past the end read row 0 and are not stored
-    if (r < first) {
-      off = r * walk;
-    } else if (r < rows) {
-      const int q = r - first;
-      off = len_first + (q / J) * len_full + (q % J) * walk;
+  int issued = 0;  // chunks whose TMA went out before the rows' staging
+  if (tid == 0) {
+    for (int i = 0; i < nst; ++i) {
+      wg::mbar_init(wg::smem_u32(full + i), 1);
+      wg::mbar_init(wg::smem_u32(empty + i), 8);  // the 8 consumer warps
     }
-    rowoff[r] = off;
-  }
-  const int pieces = Kp / 8;
-  for (int e = threadIdx.x; e < S * pieces; e += blockDim.x) {
-    const int sr = e / pieces;
-    const int c = (e - sr * pieces) * 8;
-    int l, f;
-    if (sr < len_first) {
-      l = l0;
-      f = ja0 * walk + off0 + sr;
-    } else {
-      const int q = sr - len_first;
-      l = l0 + 1 + q / len_full;
-      f = off0 + q % len_full;
+    wg::fence_barrier_init();
+    if (p.tma) {
+      issued = min(nst, nchunks);
+      for (int ch = 0; ch < issued; ++ch) tma_chunk(ch);
     }
-    const bool valid = f >= 0 && f < Tx;
-    const bf16* row = p.x + (valid ? line_at<VM>(l, f, Tx, p.K_in, p.V) : 0);
-    tap::stage8<AFF && !DX>(as + (size_t)sr * AP + c, row, c, p.K_in, valid,
-                            p.s2, p.t2, p.relu2);
   }
+  Tile tl;
+  tl.init(r0, BM, R, J, walk, ntap, off0);
+  for (int r = tid; r < BM; r += blockDim.x) rowoff[r] = tl.rowoff(r);
+  for (int t = tid; t < BN; t += blockDim.x) {
+    const bool in = n0 + t < p.N_out;
+    if constexpr (!DX) {
+      cvec[t] = in ? p.bias[n0 + t] : 0.f;
+    } else if constexpr (AFF) {
+      cvec[t] = in ? p.s2[n0 + t] : 0.f;
+      cvec[BN + t] = in ? p.t2[n0 + t] : 0.f;
+    }
+  }
+  stage_rows<AFF && !DX, VM>(as, AP, tl, p.x, Tx, p.K_in, 0, Kp, p.s2, p.t2,
+                             p.relu2, p.V, tid, blockDim.x);
   __syncthreads();
 
-  int my_off[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    my_off[i] = rowoff[wm * 32 + i * 16 + tap::a_lane_row(lane)];
-  const int col8 = tap::lane_col8(lane);
-  float acc[2][4][4];
-  tap::zero(acc);
-  tap::ring_loop(
-      nchunks,
-      [&](int ch) {
-        if (ch > 0) issue(ch);  // chunk 0 went out before the rows' staging
-      },
-      [&](int ch) {
-        const int i = ch / nkc;
-        const int k0 = (ch - i * nkc) * KC;
-        const int shift = DX ? ntap - 1 - i : i;
-        const int steps = min(KC, Kp - k0) / 16;
-        const bf16* bs = ring + (ch & 1) * KC * BP;
-#pragma unroll
-        for (int kk = 0; kk < KC / 16; ++kk) {
-          if (kk >= steps) break;
-          uint32_t a_addr[2];
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-            a_addr[mi] = tap::smem_u32(as + (size_t)(my_off[mi] + shift) * AP +
-                                       k0 + kk * 16 + col8);
-          tap::mma_k16<2, 4>(
-              acc, a_addr,
-              tap::smem_u32(bs + (kk * 16 + (lane & 15)) * BP + wn * 32 +
-                            col8));
+  if (warp < 4) {  // ---- producer: the weight ring ----
+    wg::setmaxnreg_dec<GemmRegs<BN>::producer>();
+    for (int ch = issued; ch < nchunks; ++ch) {
+      const int st = ch % nst;
+      const int i = ch / nkc;
+      const int k0 = (ch - i * nkc) * kc;
+      const int wtap = tap0 + i * tstep;
+      const uint32_t fb = wg::smem_u32(full + st);
+      if (p.tma) {
+        if (tid == 0) {
+          if (ch >= nst)
+            wg::mbar_wait(wg::smem_u32(empty + st), ((ch / nst) & 1) ^ 1);
+          tma_chunk(ch);
         }
-      });
-
-  // Epilogue.  Row bases of this thread's four rows (two m16 blocks, two
-  // halves); -1 marks a row past the tile's end.
-  long long base[2][2];
+      } else {  // weights TMA cannot read: plain loads, same layout
+        if (ch >= nst)
+          wg::mbar_wait(wg::smem_u32(empty + st), ((ch / nst) & 1) ^ 1);
+        for (int e = tid; e < NB * kc * 8; e += 128) {
+          const int j = e / (kc * 8);
+          const int kr = (e / 8) % kc;
+          const int c8 = e % 8;
+          const int k = k0 + kr;
+          const int n = n0 + j * wg::kBoxCols + c8 * 8;
+          alignas(16) bf16 v[8];
+          const bf16* src = p.w + ((size_t)wtap * p.K_in + k) * p.N_out + n;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wm * 32 + tap::acc_row(mi, 2 * h, lane);
-      base[mi][h] = -1;
-      if (r < rows) {
-        const int gr = r0 + r;
-        const int l = gr / J;
-        const int j = gr - l * J;
-        base[mi][h] = (long long)line_at<VM>(l, j * ostride + par, To,
-                                             p.N_out, p.V);
+          for (int q = 0; q < 8; ++q)
+            v[q] = (k < p.K_in && n + q < p.N_out) ? src[q]
+                                                   : __float2bfloat16_rn(0.f);
+          *reinterpret_cast<uint4*>(ring + st * STAGE + j * box +
+                                    wg::sw128(kr, c8)) =
+              *reinterpret_cast<const uint4*>(v);
+        }
+        wg::fence_proxy_async();
+        wg::named_sync(1, 128);
+        if (tid == 0) wg::mbar_arrive(fb);
       }
     }
-  float cs[4][2], ct[4][2];  // dx with AFF: column sums of dpre*z, dpre
+    return;
+  }
+
+  // ---- consumers: warpgroups 1 and 2, rows 64 * cw .. ----
+  wg::setmaxnreg_inc<GemmRegs<BN>::consumer>();
+  const int cw = warp / 4 - 1;
+  const int wi = warp & 3;
+  const int my_off = rowoff[cw * 64 + wi * 16 + tap::a_lane_row(lane)];
+  const uint32_t a_base =
+      wg::smem_u32(as) + (uint32_t)(tap::lane_col8(lane) * 2);
+  float acc[BN / 2];
 #pragma unroll
-  for (int nj = 0; nj < 4; ++nj) cs[nj][0] = cs[nj][1] = ct[nj][0] =
-      ct[nj][1] = 0.f;
+  for (int q = 0; q < BN / 2; ++q) acc[q] = 0.f;
+  uint32_t fa[2][KC / 16][4];
+  // One chunk: A fragments by ldmatrix, then the k16 steps as one wgmma
+  // group; the group before it is waited for, and its stage released.
+  auto chunk = [&](int ch, uint32_t(&a)[KC / 16][4]) {
+    const int st = ch % nst;
+    const int i = ch / nkc;
+    const int k0 = (ch - i * nkc) * kc;
+    const int shift = DX ? ntap - 1 - i : i;
+    const int steps = min(kc, Kp - k0) / 16;
+    const uint32_t arow = a_base + (uint32_t)(((my_off + shift) * AP + k0) * 2);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int kk = 0; kk < KC / 16; ++kk)
+      if (kk < steps) tap::ldsm_x4(a[kk], arow + kk * 32);
+    wg::mbar_wait(wg::smem_u32(full + st), (ch / nst) & 1);
+    const uint64_t desc = wg::desc_sw128(ring_u + st * STAGE, box);
+    wg::fence_operand(acc);
+    wg::fence();
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
+    for (int kk = 0; kk < KC / 16; ++kk)
+      if (kk < steps) wg::mma_rs<BN>(acc, a[kk], wg::desc_step(desc, kk));
+    wg::commit();
+    wg::wait<1>();
+    wg::fence_operand(acc);
+    if (ch > 0 && lane == 0)
+      wg::mbar_arrive(wg::smem_u32(empty + (ch - 1) % nst));
+  };
+  for (int ch = 0; ch < nchunks; ch += 2) {
+    chunk(ch, fa[0]);
+    if (ch + 1 < nchunks) chunk(ch + 1, fa[1]);
+  }
+  wg::wait<0>();
+  wg::fence_operand(acc);
+
+  // Epilogue: this thread's rows rbase and rbase + 8 of the tile, columns
+  // n0 + 8 jn + 2 (lane & 3) + q; -1 marks a row past the tile's end.
+  const int rbase = cw * 64 + wi * 16 + (lane >> 2);
+  long long base[2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (base[mi][h] < 0) continue;
-        const int o = n0 + wn * 32 + tap::acc_col(nj, 0, lane);
-        float v[2];
+  for (int h = 0; h < 2; ++h) {
+    const int r = rbase + 8 * h;
+    base[h] = -1;
+    if (r < tl.rows) {
+      const int gr = r0 + r;
+      const int l = gr / J;
+      const int j = gr - l * J;
+      base[h] = (long long)line_at<VM>(l, j * ostride + par, To, p.N_out, p.V);
+    }
+  }
+  // dx with AFF and whole 16-byte pieces of rows (N_out % 8 == 0): z comes
+  // in, and dz and zh go out, through shared memory in coalesced pieces
+  // rather than as each thread's scattered pairs: z into the ring's bytes
+  // (then dz over it, in place), zh into the staged rows', both at pitch
+  // AP (dx with AFF is square, so AP covers N_out).  `tiled` says so.  At
+  // N = 256 the direct pairs measured faster on the H100 (PERF.md).
+  bool tiled = false;
+  bf16* ztile = reinterpret_cast<bf16*>(ring);
+  bf16* htile = as;
+  const int ct = tid - 128;  // this thread among the 256 consumers
+  auto tile_pieces = [&](auto&& piece) {
+    for (int e = ct; e < BM * (BN / 8); e += 256) {
+      const int r = e / (BN / 8);
+      const int c = (e - r * (BN / 8)) * 8;
+      if (rowoff[r] >= 0 && n0 + c < p.N_out) piece(r, c, rowoff[r]);
+    }
+  };
+  if constexpr (DX && AFF) {
+    tiled = BN <= 128 && p.N_out % 8 == 0 && nst * STAGE >= BM * AP * 2 &&
+            ((reinterpret_cast<uintptr_t>(p.z) |
+              reinterpret_cast<uintptr_t>(p.out) |
+              reinterpret_cast<uintptr_t>(p.zh)) & 15) == 0;
+    if (tiled) {
+      wg::named_sync(2, 256);  // both warpgroups are done with the ring
+      if (ct < BM) {           // each row's index in (rows, N_out)
+        int ri = -1;
+        if (ct < tl.rows) {
+          const int gr = r0 + ct;
+          const int l = gr / J;
+          ri = (int)(line_at<VM>(l, (gr - l * J) * ostride + par, To, 1,
+                                 p.V));
+        }
+        rowoff[ct] = ri;
+      }
+      wg::named_sync(2, 256);
+      tile_pieces([&](int r, int c, int ri) {
+        tap::cp_async16(tap::smem_u32(ztile + r * AP + c),
+                        p.z + (size_t)ri * p.N_out + n0 + c, 16);
+      });
+      tap::cp_async_commit();
+      tap::cp_async_wait<0>();
+      wg::named_sync(2, 256);
+    }
+  }
+  // Groups of eight n8 blocks (64 columns).  With AFF, a group's z values
+  // are loaded first, all at once (read-only loads, so none waits on the
+  // stores before it), and dx's column sums of dpre * z and dpre taken
+  // over the group: the thread's two rows, then the warp's eight row
+  // groups (lane bits 4, 3, 2) by halving exchanges, after which lane group
+  // lane >> 2 holds block 8 jg + (lane >> 2)'s sums.
+  const int col0 = n0 + 2 * (lane & 3);
+  const bool even = p.N_out % 2 == 0;
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int oc = o + q;
-          v[q] = acc[mi][nj][2 * h + q];
-          if (oc >= p.N_out) continue;
-          if constexpr (!DX) {
-            v[q] += p.bias[oc];
-          } else if constexpr (AFF) {
-            const float zv = __bfloat162float(p.z[base[mi][h] + oc]);
-            const float pre = tap::affine(zv, p.s2[oc], p.t2[oc]);
-            const float dp = (p.relu2 && !(pre > 0.f)) ? 0.f : v[q];
-            cs[nj][q] += dp * zv;
-            ct[nj][q] += dp;
-            v[q] = dp * p.s2[oc];
+  for (int jg = 0; jg < BN / 64; ++jg) {
+    float part[32];  // [block jl][dpre z col 0, col 1, dpre col 0, col 1]
+    float2 zg[8][2];  // dx with AFF: z of the group's columns, both rows
+    if constexpr (DX && AFF) {
+#pragma unroll
+      for (int jl = 0; jl < 8; ++jl) {
+        const int o = col0 + (jg * 8 + jl) * 8;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          zg[jl][h] = make_float2(0.f, 0.f);
+          if (base[h] < 0) continue;
+          if (tiled) {
+            if (o < p.N_out)
+              zg[jl][h] = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(
+                      ztile + (rbase + 8 * h) * AP + (o - n0)));
+            continue;
+          }
+          const bf16* zr = p.z + base[h] + o;
+          if (o + 1 < p.N_out && even) {
+            zg[jl][h] = __bfloat1622float2(
+                __ldg(reinterpret_cast<const __nv_bfloat162*>(zr)));
+          } else if (o < p.N_out) {
+            zg[jl][h].x = __bfloat162float(__ldg(zr));
           }
         }
-        bf16* dst = p.out + base[mi][h] + o;
-        if (o + 1 < p.N_out && p.N_out % 2 == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) =
-              __floats2bfloat162_rn(v[0], v[1]);
-        } else {
-          if (o < p.N_out) dst[0] = __float2bfloat16_rn(v[0]);
-          if (o + 1 < p.N_out) dst[1] = __float2bfloat16_rn(v[1]);
+      }
+    }
+#pragma unroll
+    for (int jl = 0; jl < 8; ++jl) {
+      const int jn = jg * 8 + jl;
+      const int o = col0 + jn * 8;
+      const bool pair = o + 1 < p.N_out && even;
+      const int cl = o - n0;  // the column within the tile
+      float cs[2] = {0.f, 0.f}, ct[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (base[h] >= 0) {
+          float v[2] = {acc[4 * jn + 2 * h], acc[4 * jn + 2 * h + 1]};
+          if constexpr (!DX) {
+            v[0] += cvec[cl];
+            v[1] += cvec[cl + 1];
+          } else if constexpr (AFF) {
+            const float zv[2] = {zg[jl][h].x, zg[jl][h].y};
+            float hv[2];  // zh = round([relu](pre)), the dWt kernel's input
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const float sc = cvec[cl + q];
+              const float pre = tap::affine(zv[q], sc, cvec[BN + cl + q]);
+              const float dp = (p.relu2 && !(pre > 0.f)) ? 0.f : v[q];
+              cs[q] += dp * zv[q];
+              ct[q] += dp;
+              v[q] = dp * sc;
+              hv[q] = p.relu2 ? fmaxf(pre, 0.f) : pre;
+            }
+            if (tiled) {  // both in the tiles, stored below
+              if (o < p.N_out) {
+                const int at = (rbase + 8 * h) * AP + cl;
+                *reinterpret_cast<__nv_bfloat162*>(htile + at) =
+                    __floats2bfloat162_rn(hv[0], hv[1]);
+                *reinterpret_cast<__nv_bfloat162*>(ztile + at) =
+                    __floats2bfloat162_rn(v[0], v[1]);
+              }
+              continue;
+            }
+            store2(p.zh + base[h] + o, hv, o, p.N_out, pair);
+          }
+          store2(p.out + base[h] + o, v, o, p.N_out, pair);
         }
       }
-  if constexpr (DX && AFF) {
-    // Column sums: the thread's rows, then the warp's eight row groups
-    // (xor over lane bits 2-4), then the WM warps in order.
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float a = cs[nj][q], b = ct[nj][q];
-#pragma unroll
-        for (int m = 4; m < 32; m <<= 1) {
-          a += __shfl_xor_sync(0xffffffffu, a, m);
-          b += __shfl_xor_sync(0xffffffffu, b, m);
-        }
-        if (lane < 4) {
-          const int col = wn * 32 + tap::acc_col(nj, q, lane);
-          red[wm * BN + col] = a;
-          red[(WM + wm) * BN + col] = b;
-        }
-      }
-    __syncthreads();
-    for (int t = threadIdx.x; t < BN; t += blockDim.x) {
+      part[4 * jl] = cs[0];
+      part[4 * jl + 1] = cs[1];
+      part[4 * jl + 2] = ct[0];
+      part[4 * jl + 3] = ct[1];
+    }
+    if constexpr (DX && AFF) {
+      halve<16, 4>(part, lane);
+      halve<8, 3>(part, lane);
+      halve<4, 2>(part, lane);
+      const int col = (jg * 8 + (lane >> 2)) * 8 + 2 * (lane & 3);
+      red[(cw * 4 + wi) * BN + col] = part[0];
+      red[(cw * 4 + wi) * BN + col + 1] = part[1];
+      red[(8 + cw * 4 + wi) * BN + col] = part[2];
+      red[(8 + cw * 4 + wi) * BN + col + 1] = part[3];
+    }
+  }
+  if constexpr (DX && AFF) {  // then the eight warps in order
+    wg::named_sync(2, 256);
+    if (tiled) {  // dz and zh out of the tiles, in whole pieces
+      tile_pieces([&](int r, int c, int ri) {
+        const size_t at = (size_t)ri * p.N_out + n0 + c;
+        *reinterpret_cast<uint4*>(p.out + at) =
+            *reinterpret_cast<const uint4*>(ztile + r * AP + c);
+        *reinterpret_cast<uint4*>(p.zh + at) =
+            *reinterpret_cast<const uint4*>(htile + r * AP + c);
+      });
+    }
+    for (int t = tid - 128; t < BN; t += 256) {
       if (n0 + t >= p.N_out) continue;
       float a = 0.f, b = 0.f;
-      for (int w = 0; w < WM; ++w) {
+      for (int w = 0; w < 8; ++w) {
         a += red[w * BN + t];
-        b += red[(WM + w) * BN + t];
+        b += red[(8 + w) * BN + t];
       }
       p.partial[slice + n0 + t] = a;
       p.partial[slice + p.N_out + n0 + t] = b;
@@ -672,132 +1205,312 @@ tap_gemm_kernel(GemmArgs p) {
 }
 
 struct DwtArgs {
-  const bf16* z;     // the op's input (V-major or (N, T, V, C)), C_in
+  CUtensorMap gmap;  // tma: g as (C_out, rows), 64 x DW_KR boxes
+  CUtensorMap zmap;  // tma: zh as (C_in, T, lines), 64 x 8 x 1 boxes
+  const bf16* zh;    // the taps' input (V-major or (N, T, V, C)), C_in: the
+                     // op's input, or with the affine the dx kernel's zh
   const bf16* g;     // dL/du, C_out
-  const float* s2;   // AFF
-  const float* t2;   // AFF
   float* partial;    // [split][gamma*C_in*C_out (dWt) | C_out (dbt)]
-  int V, N, T, T_out, Ci, Co, gamma, stride, pad, relu2, split_rows;
+  int V, N, T, T_out, Ci, Co, gamma, stride, pad, split_rows, zrows, stages,
+      tma;
 };
 
 // dWt_tap[c, o] = sum over rows (line, t) of zh[line, t*s - pad + tap][c]
-// * g[line, t][o]: a CTA owns one tap, BM = 64 input channels, BN output
-// channels and one split of the rows; its 8 warps are 2 x 4 tiles of
-// 32 x 8*NJ.  zh (A, stored [row][c]) and g (B, [row][o]) stream through a
-// two-stage ring in chunks of KR rows.  The CTAs of tap 0 and the first
-// channel tile also sum g's columns (dbt).
-template <bool AFF, bool VM, int NJ>
-__global__ void __launch_bounds__(tap::kThreads)
-tap_dwt_kernel(DwtArgs p) {
-  constexpr int WN = 4, BM = 64, BN = 8 * NJ * WN;
-  constexpr int AP = BM + tap::kPad, BP = BN + tap::kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* za = reinterpret_cast<bf16*>(smem_raw);  // [2][KR][AP]
-  bf16* gs = za + 2 * KR * AP;                   // [2][KR][BP]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / WN, wn = warp % WN;
-  const int nct = (p.Ci + BM - 1) / BM;
-  const int tap_i = blockIdx.x / nct;
-  const int c0 = (blockIdx.x - tap_i * nct) * BM;
-  const int n0 = blockIdx.y * BN;
+// * g[line, t][o].  A CTA owns DW_BM input channels, DW_BN output
+// channels, up to DW_TAPS taps and one split of the rows.  Its producer
+// warpgroup stages each chunk of DW_KR rows once, into a ring of 3-4
+// stages: the rows of g (swizzled, the wgmma B) and the zh frames those
+// rows' taps read (the chunk plus its halo, each line's frames from a
+// multiple of 8 rows), with each row's offset.  V-major tensors with
+// 16-byte rows go through TMA: one warp computes the offsets and one
+// thread issues a box of g and 8-row boxes of zh per line, zero-filled
+// outside the frames; two more warps sum g's columns (dbt) from the
+// stages.  Otherwise the warpgroup copies with cp.async, nst - 2 chunks
+// ahead of the one it publishes.  Each of the three consumer warpgroups
+// computes three taps from that one staging: A = zh^T by ldmatrix.trans at
+// the rows' offsets plus the tap, m64n64k16.  With the affine, zh comes
+// from the dx kernel's epilogue, which has every input row's
+// pre-activation at hand, so staging is the same copy for both ops.
+template <bool VM>
+__global__ void __launch_bounds__(kDwtThreads, 1)
+tap_dwt_kernel(const __grid_constant__ DwtArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* stages = wg::align_atom(smem_raw);
+  const int stage_bytes = dw_stage_bytes(p.zrows);
+  const int nst = p.stages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + nst * stage_bytes);
+  uint64_t* empty = full + nst;
+  float* red = reinterpret_cast<float*>(empty + nst);  // [128][8]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nct = (p.Ci + DW_BM - 1) / DW_BM;
+  const int tg = blockIdx.x / nct;
+  const int c0 = (blockIdx.x - tg * nct) * DW_BM;
+  const int tap_lo = tg * DW_TAPS;
+  const int ntap = min(DW_TAPS, p.gamma - tap_lo);
+  const int n0 = blockIdx.y * DW_BN;
   const int R = p.V * p.N * p.T_out;
   const int k_begin = blockIdx.z * p.split_rows;
   const int k_end = min(R, k_begin + p.split_rows);
-  const int nchunks = (int)((k_end - k_begin + KR - 1) / KR);
-  const bool do_dbt = tap_i == 0 && c0 == 0;
-  const bool g_aligned = p.Co % 8 == 0;
-  const bool z_aligned = !AFF && p.Ci % 8 == 0;
-
-  auto stage = [&](int ch) {
-    const int kb = k_begin + ch * KR;
-    bf16* zd = za + (ch & 1) * KR * AP;
-    bf16* gd = gs + (ch & 1) * KR * BP;
-    for (int e = threadIdx.x; e < KR * (BN / 8); e += blockDim.x) {
-      const int r = e / (BN / 8);
-      const int c = (e - r * (BN / 8)) * 8;
-      const int gr = kb + r;
-      int valid = 0;
-      const bf16* src = p.g;
-      if (gr < k_end) {
-        const int l = gr / p.T_out;
-        const int t = gr - l * p.T_out;
-        valid = min(8, max(0, p.Co - n0 - c));
-        if (valid > 0) src = p.g + line_at<VM>(l, t, p.T_out, p.Co, p.V) + n0 + c;
-      }
-      bf16* d = gd + r * BP + c;
-      if (g_aligned) {
-        tap::cp_async16(tap::smem_u32(d), src, valid * (int)sizeof(bf16));
-      } else {
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          d[k] = k < valid ? src[k] : __float2bfloat16_rn(0.f);
-      }
-    }
-    for (int e = threadIdx.x; e < KR * (BM / 8); e += blockDim.x) {
-      const int r = e / (BM / 8);
-      const int c = (e - r * (BM / 8)) * 8;
-      const int gr = kb + r;
-      bool valid = false;
-      const bf16* row = p.z;
-      if (gr < k_end) {
-        const int l = gr / p.T_out;
-        const int t = gr - l * p.T_out;
-        const int f = t * p.stride - p.pad + tap_i;
-        valid = f >= 0 && f < p.T;
-        if (valid) row = p.z + line_at<VM>(l, f, p.T, p.Ci, p.V) + c0;
-      }
-      bf16* d = zd + r * AP + c;
-      if (z_aligned) {
-        const int n = valid ? min(8, max(0, p.Ci - c0 - c)) : 0;
-        tap::cp_async16(tap::smem_u32(d), n > 0 ? row + c : p.z,
-                        n * (int)sizeof(bf16));
-      } else {
-        tap::stage8<AFF>(d, row, c, p.Ci - c0, valid, p.s2 + c0, p.t2 + c0,
-                         p.relu2);
-      }
-    }
-    tap::cp_async_commit();
-  };
-
-  float acc[2][NJ][4];
-  tap::zero(acc);
-  float sb = 0.f;
-  const int col8 = tap::lane_col8(lane);
-  tap::ring_loop(nchunks, stage, [&](int ch) {
-    const bf16* zd = za + (ch & 1) * KR * AP;
-    const bf16* gd = gs + (ch & 1) * KR * BP;
-#pragma unroll
-    for (int kk = 0; kk < KR / 16; ++kk) {
-      uint32_t a_addr[2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        a_addr[mi] = tap::smem_u32(zd + (kk * 16 + tap::at_lane_row(lane)) * AP +
-                                   wm * 32 + mi * 16 + tap::at_lane_col(lane));
-      const uint32_t b_addr = tap::smem_u32(gd + (kk * 16 + (lane & 15)) * BP +
-                                            wn * 8 * NJ + col8);
-      tap::mma_k16<2, NJ, true>(acc, a_addr, b_addr);
-    }
-    if (do_dbt && (int)threadIdx.x < BN) {
-      for (int r = 0; r < KR; ++r)
-        sb += __bfloat162float(gd[r * BP + threadIdx.x]);
-    }
-  });
-
+  const int nchunks = (k_end - k_begin + DW_KR - 1) / DW_KR;
+  const bool do_dbt = tg == 0 && c0 == 0;
   const size_t E = (size_t)p.gamma * p.Ci * p.Co + p.Co;
   float* slice = p.partial + (size_t)blockIdx.z * E;
+  // a stage's g, zh and row offsets
+  auto g_of = [&](int st) { return stages + st * stage_bytes; };
+  auto zh_of = [&](int st) {
+    return reinterpret_cast<bf16*>(g_of(st) + DW_GBYTES);
+  };
+  auto ro_of = [&](int st) {
+    return reinterpret_cast<int*>(g_of(st) + DW_GBYTES +
+                                  dw_zh_bytes(p.zrows));
+  };
+  auto chunk_tile = [&](int ch, Tile& tl) {
+    tl.init(k_begin + ch * DW_KR, DW_KR, k_end, p.T_out, p.stride, ntap,
+            tap_lo - p.pad, true);
+  };
+  // the consumer warps, and with TMA the two dbt warps, release a stage
+  const int releasers = 4 * kDwConsumers + (p.tma && do_dbt ? 2 : 0);
+  if (tid == 0) {
+    for (int i = 0; i < nst; ++i) {
+      wg::mbar_init(wg::smem_u32(full + i), 1);
+      wg::mbar_init(wg::smem_u32(empty + i), releasers);
+    }
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {  // ---- producer warpgroup ----
+    wg::setmaxnreg_dec<kDwProducerRegs>();
+    float sb[8];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int q = 0; q < 8; ++q) sb[q] = 0.f;
+    // dbt's sums: `n` threads from i, each over 16-byte chunk i % 8 of g's
+    // rows i / 8, + n / 8, ... of a stage
+    auto sum_g = [&](int st, int i, int n) {
+      for (int e = i; e < DW_KR * 8; e += n) {
+        alignas(16) bf16 v[8];
+        *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(
+            g_of(st) + wg::sw128(e / 8, e % 8));
 #pragma unroll
-    for (int nj = 0; nj < NJ; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = c0 + wm * 32 + tap::acc_row(mi, e, lane);
-        const int o = n0 + wn * 8 * NJ + tap::acc_col(nj, e, lane);
-        if (c < p.Ci && o < p.Co)
-          slice[((size_t)tap_i * p.Ci + c) * p.Co + o] = acc[mi][nj][e];
+        for (int q = 0; q < 8; ++q) sb[q] += __bfloat162float(v[q]);
       }
-  if (do_dbt && threadIdx.x < BN && n0 + (int)threadIdx.x < p.Co)
-    slice[(size_t)p.gamma * p.Ci * p.Co + n0 + threadIdx.x] = sb;
+    };
+    // dbt: the 16 (or 8) threads of each chunk column, in order
+    auto write_dbt = [&](int i, int n, int bar_id) {
+      if (i < n) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) red[i * 8 + q] = sb[q];
+      }
+      wg::named_sync(bar_id, n);
+      if (i < DW_BN && n0 + i < p.Co) {
+        const int c8 = i / 8, q = i % 8;
+        float a = 0.f;
+        for (int t = c8; t < n; t += 8) a += red[t * 8 + q];
+        slice[(size_t)p.gamma * p.Ci * p.Co + n0 + i] = a;
+      }
+    };
+    if (p.tma) {
+      if (warp == 0) {  // the row offsets and the TMA boxes
+        for (int ch = 0; ch < nchunks; ++ch) {
+          const int st = ch % nst;
+          if (ch >= nst)
+            wg::mbar_wait(wg::smem_u32(empty + st), ((ch / nst) & 1) ^ 1);
+          Tile tl;
+          chunk_tile(ch, tl);
+          int* ro = ro_of(st);
+          for (int r = lane; r < DW_KR; r += 32) ro[r] = tl.rowoff(r);
+          __syncwarp();
+          if (lane == 0) {
+            const uint32_t fb = wg::smem_u32(full + st);
+            wg::mbar_expect_tx(fb, DW_GBYTES + (tl.S / 8) * wg::kAtomBytes);
+            wg::tma_load_2d(wg::smem_u32(g_of(st)), &p.gmap, fb, n0,
+                            k_begin + ch * DW_KR);
+            const uint32_t zs = wg::smem_u32(zh_of(st));
+            // each line's frames in 8-row boxes
+            int sr = 0, line = tl.l0, f = tl.ja0 * tl.walk + tl.off0;
+            int len = tl.len_first, lp = tl.lp_first;
+            while (sr < tl.S) {
+              for (int b = 0; b < len; b += 8)
+                wg::tma_load_3d(zs + (sr + b) * 128, &p.zmap, fb, c0, f + b,
+                                line);
+              sr += lp;
+              ++line;
+              f = tl.off0;
+              len = min(tl.len_full, tl.S - sr);
+              lp = tl.lp_full;
+            }
+          }
+        }
+      } else if (warp >= 2 && do_dbt) {
+        const int i = tid - 64;
+        for (int ch = 0; ch < nchunks; ++ch) {
+          const int st = ch % nst;
+          wg::mbar_wait(wg::smem_u32(full + st), (ch / nst) & 1);
+          sum_g(st, i, 64);
+          __syncwarp();
+          if (lane == 0) wg::mbar_arrive(wg::smem_u32(empty + st));
+        }
+        write_dbt(i, 64, 1);
+      }
+      return;
+    }
+    const bool g_vec =
+        p.Co % 8 == 0 && (reinterpret_cast<uintptr_t>(p.g) & 15) == 0;
+    // Chunk ch into its stage once the consumers released it: the rows'
+    // offsets, then g's rows and the zh rows as one cp.async group (plain
+    // loads where rows are not 16-byte aligned).
+    auto issue = [&](int ch) {
+      const int st = ch % nst;
+      unsigned char* sg = g_of(st);
+      int* ro = ro_of(st);
+      if (ch >= nst)
+        wg::mbar_wait(wg::smem_u32(empty + st), ((ch / nst) & 1) ^ 1);
+      const int kb = k_begin + ch * DW_KR;
+      Tile tl;
+      chunk_tile(ch, tl);
+      for (int r = tid; r < DW_KR; r += 128) ro[r] = tl.rowoff(r);
+      // g: thread tid stages 16-byte chunk c8 = tid % 8 of rows tid / 8,
+      // + 16, ..., walking their (line, t)
+      const int c8 = tid % 8;
+      const int n = n0 + c8 * 8;
+      LinePos gp;
+      {
+        const int gr = kb + tid / 8;
+        const int l = gr / p.T_out;
+        gp.set(l, gr - l * p.T_out, p.V);
+      }
+      for (int r = tid / 8; r < DW_KR; r += 16) {
+        const bool valid = kb + r < k_end && n < p.Co;
+        const bf16* src =
+            valid ? p.g + pos_at<VM>(gp, p.T_out, p.Co, p.V) + n : p.g;
+        if (g_vec) {
+          tap::cp_async16(wg::smem_u32(sg + wg::sw128(r, c8)), src,
+                          valid ? 16 : 0);
+        } else {
+          alignas(16) bf16 v[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            v[q] = valid && n + q < p.Co ? src[q] : __float2bfloat16_rn(0.f);
+          *reinterpret_cast<uint4*>(sg + wg::sw128(r, c8)) =
+              *reinterpret_cast<const uint4*>(v);
+        }
+        gp.f += 16;
+        while (gp.f >= p.T_out) {
+          gp.f -= p.T_out;
+          gp.next_line(p.V);
+        }
+      }
+      if (p.Ci % 8 == 0 && (reinterpret_cast<uintptr_t>(p.zh) & 15) == 0)
+        copy_rows<VM, true>(zh_of(st), 0, tl, p.zh, p.T, p.Ci, c0, DW_BM,
+                            p.V, tid, 128);
+      else
+        load_rows<false, VM, true>(zh_of(st), 0, tl, p.zh, p.T, p.Ci, c0,
+                                   DW_BM, nullptr, nullptr, 0, p.V, tid,
+                                   128);
+    };
+    // Chunk ch, its copies landed: dbt's sums, then the full barrier.
+    auto publish = [&](int ch) {
+      const int st = ch % nst;
+      if (do_dbt) sum_g(st, tid, 128);
+      wg::fence_proxy_async();
+      wg::named_sync(1, 128);
+      if (tid == 0) wg::mbar_arrive(wg::smem_u32(full + st));
+    };
+    // One cp.async group a chunk (empty ones past the end); chunk ch is
+    // published once chunk ch + ahead is issued.  Issuing chunk ch waits
+    // for chunk ch - nst, two behind the last one published (a ring of two
+    // stages, the shallowest the planner falls back to, runs no chunk
+    // ahead).
+    const int ahead = nst - 2;
+    for (int ch = 0; ch < nchunks + ahead; ++ch) {
+      if (ch < nchunks) issue(ch);
+      tap::cp_async_commit();
+      if (ch >= ahead) {
+        if (ahead >= 2)
+          tap::cp_async_wait<2>();
+        else if (ahead == 1)
+          tap::cp_async_wait<1>();
+        else
+          tap::cp_async_wait<0>();
+        publish(ch - ahead);
+      }
+    }
+    if (do_dbt) write_dbt(tid, 128, 1);
+    return;
+  }
+
+  // ---- consumers: warpgroup cw takes taps tap_lo + cw + 3 i ----
+  wg::setmaxnreg_inc<kDwConsumerRegs>();
+  const int cw = warp / 4 - 1;
+  const int wi = warp & 3;
+  float acc[DW_TPW][DW_BN / 2];
+#pragma unroll
+  for (int i = 0; i < DW_TPW; ++i)
+#pragma unroll
+    for (int q = 0; q < DW_BN / 2; ++q) acc[i][q] = 0.f;
+  // Every warpgroup runs DW_TPW products: a tap past the group's end
+  // re-reads the group's first tap and is not stored (a branch around the
+  // wgmma would make ptxas serialize them).
+  bool mine[DW_TPW];
+  int shift[DW_TPW];
+#pragma unroll
+  for (int i = 0; i < DW_TPW; ++i) {
+    mine[i] = cw + kDwConsumers * i < ntap;
+    shift[i] = mine[i] ? cw + kDwConsumers * i : 0;
+  }
+  uint32_t fa[2][DW_TPW][4];
+  const int krow = tap::at_lane_row(lane);
+  // this lane's 16-byte chunk of a zh row: channels wi * 16 + 0 or 8
+  const int zc = wi * 2 + (tap::at_lane_col(lane) >> 3);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const int st = ch % nst;
+    const int* ro = ro_of(st);
+    const uint32_t zs_u = wg::smem_u32(zh_of(st));
+    const uint64_t desc = wg::desc_sw128(wg::smem_u32(g_of(st)), DW_GBYTES);
+    wg::mbar_wait(wg::smem_u32(full + st), (ch / nst) & 1);
+#pragma unroll
+    for (int kk = 0; kk < DW_KR / 16; ++kk) {
+      const int off = ro[kk * 16 + krow];
+#pragma unroll
+      for (int i = 0; i < DW_TPW; ++i)
+        tap::ldsm_x4_t(fa[kk & 1][i],
+                       zs_u + wg::sw128(off + shift[i], zc));
+#pragma unroll
+      for (int i = 0; i < DW_TPW; ++i) wg::fence_operand(acc[i]);
+      wg::fence();
+#pragma unroll
+      for (int i = 0; i < DW_TPW; ++i)
+        wg::mma_rs<DW_BN>(acc[i], fa[kk & 1][i], wg::desc_step(desc, kk));
+      wg::commit();
+      wg::wait<1>();
+    }
+    wg::wait<0>();
+#pragma unroll
+    for (int i = 0; i < DW_TPW; ++i) wg::fence_operand(acc[i]);
+    if (lane == 0) wg::mbar_arrive(wg::smem_u32(empty + st));
+  }
+
+#pragma unroll
+  for (int i = 0; i < DW_TPW; ++i) {
+    if (!mine[i]) continue;
+    const int tp = tap_lo + cw + kDwConsumers * i;
+#pragma unroll
+    for (int jn = 0; jn < DW_BN / 8; ++jn)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + wi * 16 + (lane >> 2) + 8 * h;
+        const int o = n0 + jn * 8 + 2 * (lane & 3);
+        if (c >= p.Ci) continue;
+        float* dst = slice + ((size_t)tp * p.Ci + c) * p.Co + o;
+        const float v0 = acc[i][4 * jn + 2 * h], v1 = acc[i][4 * jn + 2 * h + 1];
+        if (o + 1 < p.Co && p.Co % 2 == 0) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          if (o < p.Co) dst[0] = v0;
+          if (o + 1 < p.Co) dst[1] = v1;
+        }
+      }
+  }
 }
 
 template <typename K>
@@ -806,57 +1519,53 @@ cudaError_t prepare(K kernel, int smem_bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
-template <bool AFF, bool VM, int WN>
-cudaError_t gemm_fwd(const GemmArgs& a, int smem, cudaStream_t st) {
-  constexpr int BM = 32 * (8 / WN), BN = 32 * WN;
-  auto kernel = tap_gemm_kernel<AFF, VM, false, WN>;
+template <bool AFF, bool VM, bool DX, int BN>
+cudaError_t gemm(const GemmArgs& a, dim3 grid, int smem, cudaStream_t st) {
+  auto kernel = tap_gemm_kernel<AFF, VM, DX, BN>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  const long long R = (long long)a.V * a.N * a.T_out;
-  dim3 grid((unsigned)((R + BM - 1) / BM), (a.N_out + BN - 1) / BN, 1);
-  kernel<<<grid, tap::kThreads, smem, st>>>(a);
+  kernel<<<grid, kGemmThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <bool AFF, bool VM, int WN>
-cudaError_t gemm_dx(const GemmArgs& a, int smem, cudaStream_t st) {
-  constexpr int BN = 32 * WN;
-  auto kernel = tap_gemm_kernel<AFF, VM, true, WN>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.tiles_x, (a.N_out + BN - 1) / BN, a.stride);
-  kernel<<<grid, tap::kThreads, smem, st>>>(a);
-  return cudaGetLastError();
+// The N tile: 64, 128 or 256 output channels.
+template <bool AFF, bool VM, bool DX>
+cudaError_t gemm_bn(const GemmArgs& a, int bn, int smem, cudaStream_t st) {
+  dim3 grid;
+  if constexpr (DX) {
+    grid = dim3(a.tiles_x, (a.N_out + bn - 1) / bn, a.stride);
+  } else {
+    const long long R = (long long)a.V * a.N * a.T_out;
+    grid = dim3((unsigned)((R + BM - 1) / BM), (a.N_out + bn - 1) / bn, 1);
+  }
+  switch (bn) {
+    case 64:
+      return gemm<AFF, VM, DX, 64>(a, grid, smem, st);
+    case 128:
+      return gemm<AFF, VM, DX, 128>(a, grid, smem, st);
+    default:
+      return gemm<AFF, VM, DX, 256>(a, grid, smem, st);
+  }
 }
 
-template <bool AFF, bool VM, int NJ>
+template <bool VM>
 cudaError_t dwt(const DwtArgs& a, int splits, int smem, cudaStream_t st) {
-  constexpr int BM = 64, BN = 32 * NJ;
-  auto kernel = tap_dwt_kernel<AFF, VM, NJ>;
+  auto kernel = tap_dwt_kernel<VM>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.gamma * ((a.Ci + BM - 1) / BM), (a.Co + BN - 1) / BN, splits);
-  kernel<<<grid, tap::kThreads, smem, st>>>(a);
+  dim3 grid(((a.gamma + DW_TAPS - 1) / DW_TAPS) * ((a.Ci + DW_BM - 1) / DW_BM),
+            (a.Co + DW_BN - 1) / DW_BN, splits);
+  kernel<<<grid, kDwtThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-// WN (warps along N) is 2 or 4: N tiles of 64 or 128 channels.
 template <bool AFF, bool VM>
-cudaError_t forward(const GemmArgs& a, int wn, int smem, cudaStream_t st) {
-  return wn == 4 ? gemm_fwd<AFF, VM, 4>(a, smem, st)
-                 : gemm_fwd<AFF, VM, 2>(a, smem, st);
-}
-
-// dWt's NJ (2 or 4): N tiles of 64 or 128 channels.
-template <bool AFF, bool VM>
-cudaError_t backward(const GemmArgs& dx, int wn_dx, int dx_smem,
-                     const DwtArgs& dw, int nj_dw, int dw_smem, int splits,
+cudaError_t backward(const GemmArgs& dx, int bn_dx, int dx_smem,
+                     const DwtArgs& dw, int splits, int dw_smem,
                      float* grads, cudaStream_t st) {
-  cudaError_t err = wn_dx == 4 ? gemm_dx<AFF, VM, 4>(dx, dx_smem, st)
-                               : gemm_dx<AFF, VM, 2>(dx, dx_smem, st);
+  cudaError_t err = gemm_bn<AFF, VM, true>(dx, bn_dx, dx_smem, st);
   if (err != cudaSuccess) return err;
-  err = nj_dw == 4 ? dwt<AFF, VM, 4>(dw, splits, dw_smem, st)
-                   : dwt<AFF, VM, 2>(dw, splits, dw_smem, st);
+  err = dwt<VM>(dw, splits, dw_smem, st);
   if (err != cudaSuccess) return err;
   const long long E = (long long)dw.gamma * dw.Ci * dw.Co + dw.Co;
   err = train::launch_reduce(dw.partial, grads, splits, E, st);
@@ -864,6 +1573,34 @@ cudaError_t backward(const GemmArgs& dx, int wn_dx, int dx_smem,
   return train::launch_reduce_columns(dx.partial, grads + E,
                                      dx.stride * dx.tiles_x, 2 * dx.N_out,
                                      st);
+}
+
+// The weights' ring: TMA where it can read them, else plain loads.
+inline void weight_source(GemmArgs& a, const void* w, int gamma) {
+  a.tma = wg::tma_can_read(w, a.N_out) &&
+          wg::encode_weight_map(&a.wmap, w, gamma, a.K_in, a.N_out, a.kc);
+}
+
+// dWt's staging: TMA for V-major g and zh with 16-byte rows, over splits
+// of whole chunks; else cp.async.
+inline void dwt_source(DwtArgs& a, bool vmajor) {
+  const cuuint64_t lines = (cuuint64_t)a.V * a.N;
+  const cuuint64_t gdims[2] = {(cuuint64_t)a.Co, lines * a.T_out};
+  const cuuint64_t gstrides[1] = {(cuuint64_t)a.Co * 2};
+  const cuuint32_t gbox[2] = {wg::kBoxCols, DW_KR};
+  const cuuint64_t zdims[3] = {(cuuint64_t)a.Ci, (cuuint64_t)a.T, lines};
+  const cuuint64_t zstrides[2] = {(cuuint64_t)a.Ci * 2,
+                                  (cuuint64_t)a.T * a.Ci * 2};
+  const cuuint32_t zbox[3] = {wg::kBoxCols, 8, 1};
+  a.tma = vmajor && a.split_rows % DW_KR == 0 &&
+          wg::tma_can_read(a.g, a.Co) && wg::tma_can_read(a.zh, a.Ci) &&
+          wg::encode_map(&a.gmap, a.g, 2, gdims, gstrides, gbox) &&
+          wg::encode_map(&a.zmap, a.zh, 3, zdims, zstrides, zbox);
+}
+
+inline bool bad_tile(int bn, int kc, int stages) {
+  return (bn != 64 && bn != 128 && bn != 256) || (kc != 32 && kc != 64) ||
+         stages < 2 || stages > kMaxStages;
 }
 
 }  // namespace mma_path
@@ -926,17 +1663,19 @@ extern "C" int temporal_conv_bwd_launch(
                                 static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 launchers run the tensor-core kernels, for both ops: aff = 1
-// is temporal_block (V-major z, the affine and ReLU), aff = 0
-// temporal_conv (vmajor picks the layout; s2, t2 unused).  wn (2 or 4)
-// sets the N tile of 64 or 128 channels, as temporal_block.py plan_mma
-// gives it with the shared bytes.
+// The bf16 launchers run the warpgroup kernels, for both ops: aff = 1 is
+// temporal_block (V-major z, the affine and ReLU), aff = 0 temporal_conv
+// (vmajor picks the layout; s2, t2 unused).  bn (64, 128 or 256) is the N
+// tile, kc (64 or 32) the input channels of a weight ring stage and stages
+// (2-4) the ring's depth, as temporal_block.py plan_mma_forward gives them
+// with the shared bytes.
 extern "C" int temporal_mma_fwd_launch(
     const void* x, const void* s2, const void* t2, const void* wt,
     const void* bt, void* out, int V, int N, int T, int C_in, int C_out,
-    int gamma, int stride, int aff, int relu2, int vmajor, int wn,
-    int smem_bytes, void* stream) {
-  if (stride < 1 || gamma < 1 || gamma % 2 == 0 || (wn != 2 && wn != 4) ||
+    int gamma, int stride, int aff, int relu2, int vmajor, int bn, int kc,
+    int stages, int smem_bytes, void* stream) {
+  if (stride < 1 || gamma < 1 || gamma % 2 == 0 ||
+      mma_path::bad_tile(bn, kc, stages) ||
       (long long)V * N * T >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   mma_path::GemmArgs a{};
@@ -956,40 +1695,71 @@ extern "C" int temporal_mma_fwd_launch(
   a.gamma = gamma;
   a.stride = stride;
   a.relu2 = relu2;
-  if (a.T_out < 1) return (int)cudaErrorInvalidValue;
+  a.stages = stages;
+  a.kc = kc;
+  if (a.T_out < 1 ||
+      smem_bytes < mma_path::gemm_smem(
+                       bn, kc, stages,
+                       mma_path::staged_rows(mma_path::BM, a.T_out, stride,
+                                             gamma),
+                       C_in, false))
+    return (int)cudaErrorInvalidValue;
+  mma_path::weight_source(a, wt, gamma);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (aff)
-    err = mma_path::forward<true, true>(a, wn, smem_bytes, s);
+    err = mma_path::gemm_bn<true, true, false>(a, bn, smem_bytes, s);
   else if (vmajor)
-    err = mma_path::forward<false, true>(a, wn, smem_bytes, s);
+    err = mma_path::gemm_bn<false, true, false>(a, bn, smem_bytes, s);
   else
-    err = mma_path::forward<false, false>(a, wn, smem_bytes, s);
+    err = mma_path::gemm_bn<false, false, false>(a, bn, smem_bytes, s);
   return (int)err;
 }
 
-// One op call's backward: the dx kernel (tiles_x row tiles per input-frame
-// parity, partial_dx its [stride * tiles_x][2 * C_in] ds2 | dt2 slices,
-// aff only), the dWt kernel (splits slices of split_rows rows in
-// partial_dw, each [gamma * C_in * C_out | C_out]; N tiles of 32 * nj_dw
-// channels) and the passes that sum the slices in order into grads =
-// [dWt | dbt (| ds2 | dt2)].  Rows (V * N * T) must fit in an int.
+// One op call's backward: the dx kernel (tiles_x row tiles of 128 per
+// input-frame parity, N tiles of bn_dx, a ring of stages_dx stages of
+// kc_dx channels;
+// partial_dx its [stride * tiles_x][2 * C_in] ds2 | dt2 slices, and zh
+// a bf16 scratch of x's shape that takes round([relu](x * s2 + t2)), aff
+// only), the dWt kernel (splits slices of split_rows rows in partial_dw,
+// each [gamma * C_in * C_out | C_out]; a ring of dw_stages, 2-4) and
+// the passes that sum the slices
+// in order into grads = [dWt | dbt (| ds2 | dt2)].  Rows (V * N * T) must
+// fit in an int.
 extern "C" int temporal_mma_bwd_launch(
     const void* x, const void* g, const void* s2, const void* t2,
-    const void* wtT, void* dx, void* partial_dw, void* partial_dx,
+    const void* wtT, void* dx, void* partial_dw, void* partial_dx, void* zh,
     void* grads, int V, int N, int T, int C_in, int C_out, int gamma,
-    int stride, int aff, int relu2, int vmajor, int wn_dx, int tiles_x,
-    int dx_smem, int nj_dw, int splits, int split_rows, int dw_smem,
-    void* stream) {
+    int stride, int aff, int relu2, int vmajor, int bn_dx, int kc_dx,
+    int stages_dx, int tiles_x, int dx_smem, int splits, int split_rows,
+    int dw_stages, int dw_smem, void* stream) {
   const int pad = (gamma - 1) / 2;
   const int T_out = (T + 2 * pad - gamma) / stride + 1;
   const long long lines = (long long)V * N;
   const long long dx_rows = lines * ((T + stride - 1) / stride);
   if (stride < 1 || gamma < 1 || gamma % 2 == 0 || T_out < 1 ||
-      lines * T >= (1LL << 31) || (wn_dx != 2 && wn_dx != 4) ||
-      (nj_dw != 2 && nj_dw != 4) || splits < 1 || split_rows < 1 ||
+      lines * T >= (1LL << 31) ||
+      mma_path::bad_tile(bn_dx, kc_dx, stages_dx) ||
+      splits < 1 || split_rows < 1 || dw_stages < 2 || dw_stages > 4 ||
+      (aff && zh == nullptr) ||
       (long long)splits * split_rows < lines * T_out ||
-      (long long)tiles_x * (32 * (8 / wn_dx)) < dx_rows)
+      (long long)tiles_x * mma_path::BM < dx_rows)
+    return (int)cudaErrorInvalidValue;
+  int staged = 0;  // the dx tiles' staged rows, the larger parity's
+  for (int par = 0; par < stride; ++par) {
+    const int per_line = (T - par + stride - 1) / stride;
+    const int tap0 = (par + pad) % stride;
+    const int ntap = (gamma - tap0 + stride - 1) / stride;
+    if (per_line > 0) {
+      const int rows = mma_path::staged_rows(mma_path::BM, per_line, 1, ntap);
+      if (rows > staged) staged = rows;
+    }
+  }
+  const int zrows = mma_path::dwt_rows(
+      T_out, stride, gamma < mma_path::DW_TAPS ? gamma : mma_path::DW_TAPS);
+  if (dx_smem < mma_path::gemm_smem(bn_dx, kc_dx, stages_dx, staged, C_out,
+                                    aff != 0) ||
+      dw_smem < mma_path::dwt_smem(zrows, dw_stages))
     return (int)cudaErrorInvalidValue;
   mma_path::GemmArgs a{};
   a.x = static_cast<const tap::bf16*>(g);
@@ -999,6 +1769,7 @@ extern "C" int temporal_mma_bwd_launch(
   a.w = static_cast<const tap::bf16*>(wtT);
   a.out = static_cast<tap::bf16*>(dx);
   a.partial = static_cast<float*>(partial_dx);
+  a.zh = static_cast<tap::bf16*>(zh);
   a.V = V;
   a.N = N;
   a.T = T;
@@ -1010,11 +1781,12 @@ extern "C" int temporal_mma_bwd_launch(
   a.pad = pad;
   a.relu2 = relu2;
   a.tiles_x = tiles_x;
+  a.stages = stages_dx;
+  a.kc = kc_dx;
+  mma_path::weight_source(a, wtT, gamma);
   mma_path::DwtArgs w{};
-  w.z = static_cast<const tap::bf16*>(x);
+  w.zh = static_cast<const tap::bf16*>(aff ? zh : x);
   w.g = static_cast<const tap::bf16*>(g);
-  w.s2 = static_cast<const float*>(s2);
-  w.t2 = static_cast<const float*>(t2);
   w.partial = static_cast<float*>(partial_dw);
   w.V = V;
   w.N = N;
@@ -1025,19 +1797,21 @@ extern "C" int temporal_mma_bwd_launch(
   w.gamma = gamma;
   w.stride = stride;
   w.pad = pad;
-  w.relu2 = relu2;
   w.split_rows = split_rows;
+  w.zrows = zrows;
+  mma_path::dwt_source(w, vmajor != 0 || aff != 0);
+  w.stages = dw_stages;
   float* out = static_cast<float*>(grads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (aff)
-    err = mma_path::backward<true, true>(a, wn_dx, dx_smem, w, nj_dw,
-                                         dw_smem, splits, out, s);
+    err = mma_path::backward<true, true>(a, bn_dx, dx_smem, w, splits,
+                                         dw_smem, out, s);
   else if (vmajor)
-    err = mma_path::backward<false, true>(a, wn_dx, dx_smem, w, nj_dw,
-                                          dw_smem, splits, out, s);
+    err = mma_path::backward<false, true>(a, bn_dx, dx_smem, w, splits,
+                                          dw_smem, out, s);
   else
-    err = mma_path::backward<false, false>(a, wn_dx, dx_smem, w, nj_dw,
-                                           dw_smem, splits, out, s);
+    err = mma_path::backward<false, false>(a, bn_dx, dx_smem, w, splits,
+                                           dw_smem, out, s);
   return (int)err;
 }

@@ -1,0 +1,361 @@
+// Hopper's asynchronous tensor-core path for the bf16 temporal kernels of
+// temporal_block.cu: warpgroup MMA (wgmma) with A in registers and B in
+// 128B-swizzled shared memory, mbarrier rings, and TMA tile loads.
+//
+//   * mma_rs<N>() issues wgmma.mma_async m64nNk16 (N = 64, 128 or 256),
+//     bf16 inputs, float32 accumulators: a warpgroup (four warps) owns 64
+//     rows, each warp 16 of them.  A comes from registers in mma.sync's
+//     m16n8k16 A layout per warp (ldmatrix.x4 of a row-major tile, or
+//     ldmatrix.x4.trans of a K-major one, tap_mma.cuh), so each A row may
+//     sit anywhere in shared memory: the temporal kernels read row r of a
+//     tap at its own staged offset plus the tap's shift, which no
+//     shared-memory descriptor can express.  The accumulators are laid out
+//     as mma.sync's per n8 block: d[4j + e] is row (lane >> 2) + 8 (e >> 1)
+//     of the warp's 16, column 8j + 2 (lane & 3) + (e & 1).
+//   * B is MN-major (its N columns contiguous, the layout of the weights
+//     (gamma, K, N) and of g's rows) and 128B-swizzled: tiles of 64 K rows
+//     by 64 columns (one 128-byte row each), 8 KB apiece, with 16-byte
+//     chunk c of row k stored at chunk c ^ (k & 7) (sw128()).  Its
+//     descriptor (desc_sw128()) steps 1024 bytes between groups of 8 K
+//     rows and box_bytes between 64-column tiles, so one k16 step moves the
+//     start by 2048 bytes.  Every tile starts 1024-byte aligned.
+//   * Rings: a full and an empty mbarrier a stage.  A producer fills a
+//     stage (TMA, which counts its bytes on the full barrier, or plain
+//     stores followed by fence_proxy_async() and an arrive) once the
+//     consumers have released it; consumers wait on the full barrier, run
+//     their wgmma groups and arrive on the empty one.  Stage ch of a ring
+//     of S waits for phase parity (ch / S) & 1 on full and, for ch >= S,
+//     ((ch / S) & 1) ^ 1 on empty.
+//   * The weights' TMA map (encode_weight_map(), host side) is a 3-D
+//     (N, K, gamma) tensor with boxes of 64 columns by 64 (or 32) K rows,
+//     zero-filled outside it, so K and N tails need no masks.  TMA needs 16-byte global strides
+//     (N % 8 == 0) and a 16-byte-aligned base; other weights go through
+//     plain loads into the same swizzled layout.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wg {
+namespace {  // each translation unit keeps its own copy
+
+constexpr int kBoxRows = 64;                 // K rows of a B tile
+constexpr int kBoxCols = 64;                 // bf16 columns: 128 bytes
+constexpr int kAtomBytes = 1024;             // 8 swizzled rows of 128 bytes
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte-aligned address at or after p (the planners leave
+// 1024 bytes of slack for it).
+__device__ __forceinline__ unsigned char* align_atom(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((kAtomBytes - (a & (kAtomBytes - 1))) & (kAtomBytes - 1));
+}
+
+// Byte offset of 16-byte chunk c (0..7) of row k in a swizzled tile.
+__device__ __forceinline__ uint32_t sw128(int k, int c) {
+  return (uint32_t)(k * 128 + ((c ^ (k & 7)) << 4));
+}
+
+// ---- mbarriers --------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// Plain shared-memory stores made visible to wgmma and TMA (the async
+// proxy); each storing thread runs it before the barrier that publishes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// A barrier over `threads` threads (whole warps) under id (1..15).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- TMA --------------------------------------------------------------------
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// ---- registers --------------------------------------------------------------
+// A warpgroup's register budget: every warp of it runs the same call.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ---- wgmma ------------------------------------------------------------------
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma groups.
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Descriptor of a 128B-swizzled MN-major B operand at shared address
+// `addr` (1024-byte aligned): `lbo` bytes between 64-column tiles, 1024
+// between groups of 8 K rows.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(kAtomBytes >> 4) << 32) | (1ull << 62);
+}
+// The descriptor of the next k16 step: 16 K rows = two 1024-byte groups.
+__device__ __forceinline__ uint64_t desc_step(uint64_t desc, int kk) {
+  return desc + (uint64_t)((2 * kAtomBytes * kk) >> 4);
+}
+
+// d (64 x N, this thread's N/2 of it) += A (64 x 16, a[] this thread's
+// fragment) . B (16 x N at desc_b, MN-major, imm-trans-b = 1).
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4],
+                                       uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<128>(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<256>(float (&d)[128],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+}  // namespace
+
+// ---- host: the weights' TMA map ---------------------------------------------
+// cuTensorMapEncodeTiled, taken from the driver through the runtime (the
+// library links no libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// Whether TMA can read a bf16 tensor at x whose rows hold n elements:
+// 16-byte strides and a 16-byte-aligned base.
+inline bool tma_can_read(const void* x, int n) {
+  return n % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+         encode_tiled() != nullptr;
+}
+
+// The TMA map of a bf16 tensor of `rank` dimensions (innermost first, the
+// innermost contiguous) with the byte strides of the others, read in
+// boxes whose innermost side is 64 elements (one 128-byte row),
+// 128B-swizzled, zero outside the tensor.
+inline bool encode_map(CUtensorMap* map, const void* x, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                        const_cast<void*>(x), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The weights (gamma, K, N), N contiguous: boxes of 64 columns of N by
+// `rows` (64 or 32) rows of K of one tap.
+inline bool encode_weight_map(CUtensorMap* map, const void* w, int gamma,
+                              int k, int n, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)k,
+                              (cuuint64_t)gamma};
+  const cuuint64_t strides[2] = {(cuuint64_t)n * 2, (cuuint64_t)k * n * 2};
+  const cuuint32_t box[3] = {kBoxCols, (cuuint32_t)rows, 1};
+  return encode_map(map, w, 3, dims, strides, box);
+}
+
+}  // namespace wg

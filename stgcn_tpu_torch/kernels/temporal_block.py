@@ -10,11 +10,12 @@ It is the port of ``temporal_block_vm`` (``stgcn_tpu/kernels/block_fused.py``)
 and ``temporal_block_packed`` (``stgcn_tpu/kernels/block_packed.py``), both of
 which compute this function (the packed one for stride 1).  The op is a
 ``torch.autograd.Function`` whose forward and backward each run hand-written
-CUDA kernels (``csrc/temporal_block.cu``) for a CUDA tensor: bfloat16 on the
-tensor cores (:func:`plan_mma_forward`, :func:`plan_mma_backward`; the
-backward is a dx kernel, a dWt kernel and the passes that sum their partial
-slices), float32 on the scalar kernels (:func:`plan_forward`,
-:func:`plan_backward`).  For a CPU tensor it runs the plain PyTorch versions
+CUDA kernels (``csrc/temporal_block.cu``) for a CUDA tensor: bfloat16 on
+Hopper's warpgroup MMA (``wgmma``, :func:`plan_mma_forward`,
+:func:`plan_mma_backward`; the backward is a dx kernel, which also writes
+the post-activation ``zh`` into a scratch tensor, a dWt kernel that reads
+it, and the passes that sum their partial slices), float32 on the scalar
+kernels (:func:`plan_forward`, :func:`plan_backward`).  For a CPU tensor it runs the plain PyTorch versions
 :func:`temporal_block_forward_reference` and
 :func:`temporal_block_backward_reference`, which round at the same points.
 
@@ -29,16 +30,11 @@ import torch.nn.functional as F
 
 from stgcn_tpu_torch.kernels.block_eval import PAD, SMEM_LIMIT, pitch, t_out_of
 from stgcn_tpu_torch.kernels.spatial_block import (
-    MMA_KC,
-    MMA_KR,
     _acc,
     _check_cuda,
     _f32,
     _ptr,
     _raise_on,
-    _ring_bytes,
-    dw_splits,
-    dw_tile,
     partial_ctas,
 )
 
@@ -144,24 +140,34 @@ def plan_backward(v: int, c: int, gamma: int) -> tuple[int, int, int]:
     return _plan(v, c, lambda ft: 2 * ft + gamma - 1)
 
 
-# ---- bfloat16: the tensor-core kernels ---------------------------------
-# shared rows are ``pitch(c)`` elements wide (block_eval.pitch, tap_mma.cuh)
-# temporal_block.cu's mma_path::KC and KR equal spatial_block.cu's, so the
-# two share the ring's byte count and the dW split planner
-KC = MMA_KC    # weight rows per ring stage (mma_path::KC)
-KR = MMA_KR    # dWt: rows of the GEMM's K per chunk (mma_path::KR)
+# ---- bfloat16: the warpgroup kernels ------------------------------------
+# The constants of temporal_block.cu's mma_path; shared rows of staged
+# input frames are ``pitch(c)`` elements wide (block_eval.pitch, tap_mma.cuh)
+GEMM_ROWS = 128      # rows of a forward or dx tile: two warpgroups of 64 (BM)
+KC = 64              # input channels of a weight ring stage (KC), or
+KC_DEEP = 32         # half of it, where a ring of 64 would hold < 3 stages
+ATOM = 1024          # swizzle atom: stages start aligned to it (kAtomBytes)
+# (input channels, stages) of the weight ring, in order of preference (the
+# kernel takes 2-4 stages, kMaxStages)
+RINGS = ((KC, 4), (KC, 3), (KC_DEEP, 4), (KC_DEEP, 3), (KC, 2), (KC_DEEP, 2))
+N_TILES = (64, 128, 256)  # wgmma N of a tile: the whole C_out up to 256
+DW_KR = 128          # dWt: rows of g a chunk (DW_KR)
+DW_BM = 64           # dWt: input channels of a CTA (DW_BM)
+DW_BN = 64           # dWt: output channels of a CTA (DW_BN)
+DW_TAPS = 9          # dWt: taps of a CTA, three per consumer warpgroup
+DW_STAGES = (4, 3, 2)  # dWt: depths of the producer's ring, deepest first
+DW_GBYTES = DW_KR * 128  # dWt: g of a stage, swizzled 128-byte rows
 
 
-def gemm_tile(n_out: int) -> tuple[int, int, int]:
-    """``(WN, BM, BN)``: the 8 warps of a CTA are ``8/WN x WN`` tiles of
-    32 x 32, so a CTA owns BM rows and BN of the ``n_out`` columns; N tiles
-    of 128 above 64 columns, else of 64."""
-    wn = 4 if n_out > 64 else 2
-    return wn, 32 * (8 // wn), 32 * wn
+def gemm_tile(n_out: int) -> int:
+    """BN, the N tile of the forward or dx GEMM: the whole ``n_out`` up to
+    256, rounded up to a wgmma width of 64, 128 or 256 (wider outputs take
+    several N tiles of 256)."""
+    return next((bn for bn in N_TILES if n_out <= bn), N_TILES[-1])
 
 
 def staged_rows(bm: int, rows_per_line: int, walk: int, ntap: int) -> int:
-    """The most input rows a CTA of ``bm`` GEMM rows stages: each of the
+    """The most input rows a tile of ``bm`` GEMM rows stages: each of the
     lines its rows touch needs ``(rows - 1) * walk + ntap`` of them."""
     segments = min(bm, -(-(bm - 1) // rows_per_line) + 1)
     return walk * (bm - segments) + segments * ntap
@@ -180,46 +186,124 @@ def parity_taps(gamma: int, stride: int, parity: int
     return e0, taps, [e0 - i for i in range(len(taps))]
 
 
+def gemm_smem(bn: int, kc: int, stages: int, staged: int, k_in: int,
+              dx_aff: bool) -> int:
+    """Shared bytes of the forward or dx kernel (mma_path::gemm_smem): the
+    slack that aligns the ring to a swizzle atom, ``stages`` stages of
+    ``kc x bn`` weights with a full and an empty mbarrier each, the 128
+    row offsets, the eight warps' column sums (dx with the affine), the
+    epilogue's two float32 constants a column and the ``staged`` input
+    rows."""
+    return (ATOM + stages * (bn * kc * 2 + 16) + 4 * GEMM_ROWS
+            + (2 * 8 * bn * 4 if dx_aff else 0) + 2 * bn * 4
+            + staged * pitch(k_in) * 2)
+
+
+def plan_gemm(bn: int, staged: int, k_in: int, dx_aff: bool
+              ) -> tuple[int, int, int]:
+    """``(kc, stages, shared bytes)``: the first ring of RINGS that fits,
+    three or four stages of 64 input channels where they do, else of
+    32."""
+    for kc, stages in RINGS:
+        smem = gemm_smem(bn, kc, stages, staged, k_in, dx_aff)
+        if smem <= SMEM_LIMIT:
+            return kc, stages, smem
+    raise ValueError(f"no bf16 temporal tile of C_in={k_in}, N tile {bn} "
+                     f"fits in {SMEM_LIMIT} bytes of shared memory")
+
+
+def _atoms(nbytes: int) -> int:
+    return -(-nbytes // ATOM) * ATOM
+
+
+def dw_zh_bytes(zrows: int) -> int:
+    """A dWt stage's zh (mma_path::dw_zh_bytes): ``zrows`` 128-byte rows
+    of 64 channels, 128B-swizzled, in whole swizzle atoms."""
+    return _atoms(zrows * 128)
+
+
+def dw_stage_bytes(zrows: int) -> int:
+    """A dWt stage (mma_path::dw_stage_bytes): g's 128 rows x 64 columns,
+    then zh, both swizzled and atom-aligned, then the rows' offsets; whole
+    swizzle atoms."""
+    return _atoms(DW_GBYTES + dw_zh_bytes(zrows) + 4 * DW_KR)
+
+
+def dwt_smem(zrows: int, stages: int) -> int:
+    """Shared bytes of the dWt kernel (mma_path::dwt_smem): the stages,
+    their mbarriers and the producer's dbt sums."""
+    return ATOM + stages * (dw_stage_bytes(zrows) + 16) + 128 * 8 * 4
+
+
+def dwt_rows(t_out: int, stride: int, gamma: int) -> int:
+    """The most zh rows a dWt chunk stages (mma_path::dwt_rows): DW_KR rows
+    of g, their taps' frames (up to DW_TAPS of them) line by line, each
+    line's from a multiple of 8 rows (whole 8-row TMA boxes)."""
+    segments = min(DW_KR, -(-(DW_KR - 1) // t_out) + 1)
+    return staged_rows(DW_KR, t_out, stride, min(gamma, DW_TAPS)) + 7 * segments
+
+
+def dwt_splits(rows: int, gamma: int, c_in: int, c_out: int,
+               ctas: int) -> tuple[int, int]:
+    """``(splits, rows per split)`` of the dWt GEMM's K = ``rows``: enough
+    splits for about ``ctas`` CTAs over the (tap group, C_in tile, C_out
+    tile) CTAs of a split, each a whole number of DW_KR-row chunks."""
+    tiles = -(-gamma // DW_TAPS) * -(-c_in // DW_BM) * -(-c_out // DW_BN)
+    want = max(1, round(ctas / tiles))
+    split_rows = -(-(-(-rows // want)) // DW_KR) * DW_KR
+    return -(-rows // split_rows), split_rows
+
+
 def plan_mma_forward(t: int, c_in: int, c_out: int, stride: int,
-                     gamma: int) -> tuple[int, int]:
-    """``(WN, shared bytes)`` of the bf16 forward: the weight ring, the
-    row offsets and the staged input frames of one CTA."""
-    wn, bm, bn = gemm_tile(c_out)
+                     gamma: int) -> tuple[int, int, int, int]:
+    """``(BN, kc, stages, shared bytes)`` of the bf16 forward: the weight
+    ring, the row offsets and the staged input frames of one tile."""
+    bn = gemm_tile(c_out)
     t_out = t_out_of(t, stride, gamma)
-    rows = staged_rows(bm, t_out, stride, gamma)
-    smem = _ring_bytes(bn) + 4 * bm + 2 * rows * pitch(c_in)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"no bf16 temporal tile of C_in={c_in} fits in "
-                         f"{SMEM_LIMIT} bytes of shared memory")
-    return wn, smem
+    return (bn, *plan_gemm(bn, staged_rows(GEMM_ROWS, t_out, stride, gamma),
+                           c_in, False))
 
 
-def plan_mma_backward(lines: int, t: int, c_in: int, c_out: int,
-                      stride: int, gamma: int, aff: bool, ctas: int) -> dict:
-    """The bf16 backward's launch: the dx GEMM's ``wn_dx``, row tiles per
-    parity ``tiles_x`` and ``dx_smem``; the dWt GEMM's
-    ``nj_dw``, ``splits`` of ``split_rows`` rows (about ``ctas`` CTAs in
-    all) and ``dw_smem``."""
-    t_out = t_out_of(t, stride, gamma)
-    wn_dx, bm, bn = gemm_tile(c_in)
+def dx_staged_rows(t: int, stride: int, gamma: int) -> int:
+    """The most input rows a dx tile stages, over the input-frame
+    parities."""
     rows = 0
     for parity in range(stride):
         per_line = -(-(t - parity) // stride)
         if per_line > 0:
             ntap = len(parity_taps(gamma, stride, parity)[1])
-            rows = max(rows, staged_rows(bm, per_line, 1, ntap))
-    dx_smem = (_ring_bytes(bn) + 4 * bm + (2 * 4 * (8 // wn_dx) * bn
-                                           if aff else 0)
-               + 2 * rows * pitch(c_out))
-    nj_dw, bm_dw, bn_dw = dw_tile(c_out)
-    dw_smem = 2 * KR * ((bm_dw + PAD) + (bn_dw + PAD)) * 2
-    if max(dx_smem, dw_smem) > SMEM_LIMIT:
-        raise ValueError(f"no bf16 temporal tile of C_out={c_out} fits in "
+            rows = max(rows, staged_rows(GEMM_ROWS, per_line, 1, ntap))
+    return rows
+
+
+def plan_mma_backward(lines: int, t: int, c_in: int, c_out: int,
+                      stride: int, gamma: int, aff: bool, ctas: int) -> dict:
+    """The bf16 backward's launch: the dx GEMM's N tile ``bn_dx``, ring
+    (``kc_dx`` channels, ``stages_dx`` stages), row tiles per parity
+    ``tiles_x`` and ``dx_smem``; the
+    dWt GEMM's ``splits`` of ``split_rows`` rows (about ``ctas`` CTAs in
+    all), its ring of ``dw_stages`` and ``dw_smem``."""
+    t_out = t_out_of(t, stride, gamma)
+    bn = gemm_tile(c_in)
+    kc, stages, dx_smem = plan_gemm(bn, dx_staged_rows(t, stride, gamma),
+                                    c_out, aff)
+    zrows = dwt_rows(t_out, stride, gamma)
+    dw_stages = next((n for n in DW_STAGES
+                      if dwt_smem(zrows, n) <= SMEM_LIMIT), None)
+    if dw_stages is None:
+        raise ValueError(f"no bf16 dWt ring of T_out={t_out} fits in "
                          f"{SMEM_LIMIT} bytes of shared memory")
-    splits, split_rows = dw_splits(lines * t_out, gamma, c_in, c_out, ctas)
-    return dict(wn_dx=wn_dx, tiles_x=-(-lines * -(-t // stride) // bm),
-                dx_smem=dx_smem, nj_dw=nj_dw, splits=splits,
-                split_rows=split_rows, dw_smem=dw_smem)
+    splits, split_rows = dwt_splits(lines * t_out, gamma, c_in, c_out, ctas)
+    return dict(bn_dx=bn, kc_dx=kc, stages_dx=stages,
+                tiles_x=-(-lines * -(-t // stride) // GEMM_ROWS),
+                dx_smem=dx_smem, splits=splits, split_rows=split_rows,
+                dw_stages=dw_stages, dw_smem=dwt_smem(zrows, dw_stages))
+
+
+def sm_count(device: torch.device) -> int:
+    """The dWt kernel's CTAs to fill: one per SM (512 threads take an SM's
+    registers)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch_mma_forward(x, s2, t2, w, b, *, v, n, t, stride, relu2, aff,
@@ -230,7 +314,7 @@ def launch_mma_forward(x, s2, t2, w, b, *, v, n, t, stride, relu2, aff,
     from stgcn_tpu_torch.kernels._build import load_library
 
     gamma, c_in, c_out = w.shape
-    wn, smem = plan_mma_forward(t, c_in, c_out, stride, gamma)
+    bn, kc, stages, smem = plan_mma_forward(t, c_in, c_out, stride, gamma)
     args = [x.contiguous(), _f32(s2), _f32(t2), w.to(x.dtype).contiguous(),
             _f32(b)]
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
@@ -238,8 +322,9 @@ def launch_mma_forward(x, s2, t2, w, b, *, v, n, t, stride, relu2, aff,
     with torch.cuda.device(x.device):
         err = lib.temporal_mma_fwd_launch(
             *[_ptr(p) for p in args], out.data_ptr(), v, n, t, c_in,
-            c_out, gamma, stride, int(aff), int(relu2), int(vmajor), wn,
-            smem, torch.cuda.current_stream(x.device).cuda_stream)
+            c_out, gamma, stride, int(aff), int(relu2), int(vmajor), bn,
+            kc, stages, smem,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "temporal bf16 forward")
     return out
 
@@ -252,7 +337,7 @@ def launch_mma_backward(x, g, s2, t2, w, *, v, n, t, stride, relu2, aff,
 
     gamma, c_in, c_out = w.shape
     plan = plan_mma_backward(v * n, t, c_in, c_out, stride, gamma, aff,
-                             partial_ctas(x.device))
+                             sm_count(x.device))
     f32 = torch.float32
     args = [x.contiguous(), g.to(x.dtype).contiguous(), _f32(s2), _f32(t2),
             w.to(x.dtype).transpose(1, 2).contiguous()]  # (gamma, C_out, C_in)
@@ -262,17 +347,21 @@ def launch_mma_backward(x, g, s2, t2, w, *, v, n, t, stride, relu2, aff,
                              device=x.device)
     partial_dx = (torch.empty((stride * plan["tiles_x"], 2 * c_in),
                               dtype=f32, device=x.device) if aff else None)
+    # the dx kernel writes zh = round([relu](x * s2 + t2)) here for dWt
+    zh = torch.empty_like(args[0]) if aff else None
     grads = torch.empty(e_dw + (2 * c_in if aff else 0), dtype=f32,
                         device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.temporal_mma_bwd_launch(
             *[_ptr(p) for p in args], dx.data_ptr(), partial_dw.data_ptr(),
-            _ptr(partial_dx), grads.data_ptr(), v, n,
+            _ptr(partial_dx), _ptr(zh), grads.data_ptr(), v, n,
             t, c_in, c_out, gamma, stride, int(aff), int(relu2),
-            int(vmajor), plan["wn_dx"], plan["tiles_x"], plan["dx_smem"],
-            plan["nj_dw"], plan["splits"], plan["split_rows"],
-            plan["dw_smem"], torch.cuda.current_stream(x.device).cuda_stream)
+            int(vmajor), plan["bn_dx"], plan["kc_dx"], plan["stages_dx"],
+            plan["tiles_x"],
+            plan["dx_smem"], plan["splits"], plan["split_rows"],
+            plan["dw_stages"], plan["dw_smem"],
+            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "temporal bf16 backward")
     return dx, grads
 

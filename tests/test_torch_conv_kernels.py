@@ -505,19 +505,21 @@ class TestLaunch:
         (fwd,), (bwd,) = (fake_lib["temporal_mma_fwd_launch"],
                           fake_lib["temporal_mma_bwd_launch"])
         self.check_call(fwd, "temporal_mma_fwd_launch", null=(1, 2))
-        self.check_call(bwd, "temporal_mma_bwd_launch", null=(2, 3, 7))
+        self.check_call(bwd, "temporal_mma_bwd_launch", null=(2, 3, 7, 8))
         # V-major (R, T, C) runs as V = R joints of one sequence
         v, n = (V * N, 1) if vmajor else (V, N)
-        wn, fwd_smem = tb.plan_mma_forward(17, 8, 16, 2, GAMMA)
-        # ..., V, N, T, C_in, C_out, gamma, stride, aff, relu2, vmajor, wn,
-        # smem
-        assert fwd[6:18] == (v, n, 17, 8, 16, GAMMA, 2, 0, 0, int(vmajor),
-                             wn, fwd_smem)
-        plan = tb.plan_mma_backward(v * n, 17, 8, 16, 2, GAMMA, False, 264)
-        assert bwd[9:26] == (v, n, 17, 8, 16, GAMMA, 2, 0, 0, int(vmajor),
-                             plan["wn_dx"], plan["tiles_x"], plan["dx_smem"],
-                             plan["nj_dw"], plan["splits"],
-                             plan["split_rows"], plan["dw_smem"])
+        bn, kc, stages, fwd_smem = tb.plan_mma_forward(17, 8, 16, 2, GAMMA)
+        # ..., V, N, T, C_in, C_out, gamma, stride, aff, relu2, vmajor, bn,
+        # kc, stages, smem
+        assert fwd[6:20] == (v, n, 17, 8, 16, GAMMA, 2, 0, 0, int(vmajor),
+                             bn, kc, stages, fwd_smem)
+        # the dWt kernel fills one CTA an SM (132 on the fake card)
+        plan = tb.plan_mma_backward(v * n, 17, 8, 16, 2, GAMMA, False, 132)
+        assert bwd[10:29] == (v, n, 17, 8, 16, GAMMA, 2, 0, 0, int(vmajor),
+                             plan["bn_dx"], plan["kc_dx"], plan["stages_dx"],
+                             plan["tiles_x"], plan["dx_smem"],
+                             plan["splits"], plan["split_rows"],
+                             plan["dw_stages"], plan["dw_smem"])
 
     def test_rejects_other_dtypes_and_shapes_on_the_cuda_path(self, rng,
                                                              fake_lib):

@@ -1,22 +1,28 @@
-"""The bf16 tensor-core temporal kernels' decomposition, proven on the CPU.
+"""The bf16 warpgroup temporal kernels' decomposition, proven on the CPU.
 
 ``csrc/temporal_block.cu`` computes the bf16 temporal op (``temporal_block``
 and ``temporal_conv``) as implicit GEMMs whose index arithmetic a compiler
 here cannot check: the forward and dx GEMMs flatten the rows as (line,
-frame) and stage each CTA's input frames at per-row offsets; dx splits the
-input frames by parity, each parity taking only its taps over contiguous g
-rows; dWt splits its K = N*T_out*V rows across CTAs into partial slices
-summed in order.  Here that decomposition is rendered in plain PyTorch,
-with the kernels' tile geometry written out as the kernel computes it and
-the planners' own tiles, splits and parity tap sets, and held in float64
+frame) into tiles of 128 rows (two warpgroups of 64) and stage each tile's
+input frames at per-row offsets, the halo included; dx splits the input
+frames by parity, each parity taking only its taps over contiguous g rows;
+dWt stages each chunk of 128 g rows with the zh frames its taps read once
+and computes every tap of its tap group from that one staging, over the
+splits of its K = N*T_out*V rows, whose partial slices are summed in
+order.  Here that decomposition is rendered in plain PyTorch, with the
+kernels' tile geometry written out as the kernel computes it and the
+planners' own tiles, splits and parity tap sets, and held in float64
 against ``temporal_block_backward_reference`` (and the forward reference),
 which ``tests/test_torch_train_kernels.py`` holds against the Pallas
 kernels.  Tolerance: rtol 1e-10 of the largest magnitude (float64, sums
 in other orders).
 
-The planners are held to the card: every DEFAULT_PLAN shape and a 40
-channel tail fit in shared memory, the staged-row bound covers every tile
-the kernel can meet, and every ldmatrix row starts 16-byte aligned.
+The planners are held to the card: every DEFAULT_PLAN shape and the odd
+widths (C=40, and C=36, whose weights TMA cannot read) fit in 232,448
+bytes of shared memory with a weight ring of at least three stages, the
+staged-row bound covers every tile the kernels can meet, every ldmatrix
+row starts 16-byte aligned, every swizzled stage starts on a 1024-byte
+atom, and TMA's 16-byte strides hold exactly where C % 8 == 0.
 """
 
 import numpy as np
@@ -33,36 +39,45 @@ CTAS = 2 * 132       # partial_ctas on an H100 SXM
 F64 = torch.float64
 
 
-def tile(r0, bm, total, per_line, walk, ntap, off0):
-    """The kernel's geometry of the CTA whose rows start at ``r0``
-    (temporal_block.cu tap_gemm_kernel): its row count, each row's staged
-    row offset and the (line, frame) of each staged row."""
+def tile(r0, bm, total, per_line, walk, ntap, off0, pad8=False):
+    """The kernel's geometry of the tile whose rows start at ``r0``
+    (temporal_block.cu Tile): its row count, each row's staged row offset
+    and the (line, frame) of each staged row; with ``pad8`` (the dWt
+    kernel's staging) each line's frames start on a multiple of 8 rows and
+    the rows between hold no frame (frame None)."""
+    def padded(n):
+        return -(-n // 8) * 8 if pad8 else n
+
     rows = min(bm, total - r0)
     l0, ja0 = divmod(r0, per_line)
     first = min(per_line - ja0, rows)
     len_first = (first - 1) * walk + ntap
     len_full = (per_line - 1) * walk + ntap
+    lp_first, lp_full = padded(len_first), padded(len_full)
     rest = rows - first
-    staged = len_first + (rest // per_line) * len_full + (
+    staged = lp_first + (rest // per_line) * lp_full + padded(
         (rest % per_line - 1) * walk + ntap if rest % per_line else 0)
     rowoff = [r * walk if r < first else
-              len_first + ((r - first) // per_line) * len_full
+              lp_first + ((r - first) // per_line) * lp_full
               + ((r - first) % per_line) * walk for r in range(rows)]
     frames = []
     for sr in range(staged):
-        if sr < len_first:
-            frames.append((l0, ja0 * walk + off0 + sr))
+        if sr < lp_first:
+            frames.append((l0, ja0 * walk + off0 + sr
+                           if sr < len_first else None))
         else:
-            q = sr - len_first
-            frames.append((l0 + 1 + q // len_full, off0 + q % len_full))
+            q, pos = divmod(sr - lp_first, lp_full)
+            frames.append((l0 + 1 + q, off0 + pos if pos < len_full
+                           else None))
     return rows, rowoff, frames
 
 
 def gather(lines, frames):
-    """Staged rows of ``lines`` (L, T, C): zero outside [0, T)."""
+    """Staged rows of ``lines`` (L, T, C): zero outside [0, T) and on
+    padding rows."""
     t = lines.shape[1]
-    rows = [lines[l, f] if 0 <= f < t else lines.new_zeros(lines.shape[2])
-            for l, f in frames]
+    rows = [lines[l, f] if f is not None and 0 <= f < t
+            else lines.new_zeros(lines.shape[2]) for l, f in frames]
     return torch.stack(rows)
 
 
@@ -104,9 +119,9 @@ def render_forward(z, s2, t2, wt, bt, *, stride, relu2, aff, vmajor):
     if aff:
         zl = zl * s2 + t2
         zl = torch.relu(zl) if relu2 else zl
-    _, bm, _ = tb.gemm_tile(c_out)
     taps = list(range(gamma))
-    u = implicit_gemm(zl, wt, taps, taps, t_out, stride, -(gamma // 2), bm)
+    u = implicit_gemm(zl, wt, taps, taps, t_out, stride, -(gamma // 2),
+                      tb.GEMM_ROWS)
     shape = ((z.shape[0], z.shape[1], t_out, c_out) if vmajor
              else (z.shape[0], t_out, z.shape[2], c_out))
     return from_lines(u + bt, shape, vmajor)
@@ -115,7 +130,9 @@ def render_forward(z, s2, t2, wt, bt, *, stride, relu2, aff, vmajor):
 def render_backward(z, g, s2, t2, wt, *, stride, relu2, aff, vmajor):
     """dx by input-frame parity over the planner's row tiles, with the
     ds2/dt2 column sums taken per tile and summed in slice order; dWt and
-    dbt as split-K over the planner's splits, summed in slice order."""
+    dbt over the planner's splits, each split's chunks of DW_KR rows staged
+    once (g and the zh frames of a tap group's taps) and every tap of the
+    group computed from that staging, the slices summed in order."""
     gamma, c_in, c_out = wt.shape
     t = z.shape[2] if vmajor else z.shape[1]
     t_out = t_out_of(t, stride, gamma)
@@ -123,7 +140,7 @@ def render_backward(z, g, s2, t2, wt, *, stride, relu2, aff, vmajor):
     lines = zl.shape[0]
     plan = tb.plan_mma_backward(lines, t, c_in, c_out, stride, gamma, aff,
                                 CTAS)
-    _, bm, _ = tb.gemm_tile(c_in)
+    bm = tb.GEMM_ROWS
     wtt = wt.transpose(1, 2)
     dz = zl.new_zeros(zl.shape)
     slices = []
@@ -156,26 +173,35 @@ def render_backward(z, g, s2, t2, wt, *, stride, relu2, aff, vmajor):
     assert len(slices) == stride * plan["tiles_x"]
     ds = sum(slices[1:], slices[0]) if aff else None
 
-    # dWt: zh at frame t*s - pad + tap of each (line, t) row, split-K
+    # dWt: each chunk of DW_KR g rows stages, per tap group, the zh frames
+    # of its rows' taps (walk s, the group's taps as the halo, each line's
+    # frames from a multiple of 8 rows) once; every tap of the group reads
+    # them at the row's offset plus its place
     zh = zl * s2 + t2 if aff else zl
     zh = torch.relu(zh) if aff and relu2 else zh
     rows = lines * t_out
-    splits, split_rows = tb.dw_splits(rows, gamma, c_in, c_out, CTAS)
+    splits, split_rows = tb.dwt_splits(rows, gamma, c_in, c_out, CTAS)
     assert (splits, split_rows) == (plan["splits"], plan["split_rows"])
     assert (splits - 1) * split_rows < rows <= splits * split_rows
     g_rows = gl.reshape(rows, c_out)
-    r = torch.arange(rows)
-    l, tt = r // t_out, r % t_out
+    pad = gamma // 2
     parts = []
     for k in range(splits):
-        sel = slice(k * split_rows, min(rows, (k + 1) * split_rows))
-        dwt = []
-        for tap in range(gamma):
-            f = tt[sel] * stride - gamma // 2 + tap
-            ok = (f >= 0) & (f < t)
-            a = torch.where(ok[:, None], zh[l[sel], f.clamp(0, t - 1)], 0.0)
-            dwt.append(a.t() @ g_rows[sel])
-        parts.append((torch.stack(dwt), g_rows[sel].sum(0)))
+        end = min(rows, (k + 1) * split_rows)
+        dwt = zl.new_zeros(gamma, c_in, c_out)
+        for kb in range(k * split_rows, end, tb.DW_KR):
+            g_chunk = zl.new_zeros(tb.DW_KR, c_out)
+            g_chunk[:min(tb.DW_KR, end - kb)] = g_rows[kb:end][:tb.DW_KR]
+            for tap_lo in range(0, gamma, tb.DW_TAPS):
+                ntap = min(tb.DW_TAPS, gamma - tap_lo)
+                n, rowoff, frames = tile(kb, tb.DW_KR, end, t_out, stride,
+                                         ntap, tap_lo - pad, pad8=True)
+                assert len(frames) <= tb.dwt_rows(t_out, stride, gamma)
+                a = gather(zh, frames)
+                off = torch.tensor(rowoff + [0] * (tb.DW_KR - n))
+                for i in range(ntap):
+                    dwt[tap_lo + i] += a[off + i].t() @ g_chunk
+        parts.append((dwt, g_rows[k * split_rows:end].sum(0)))
     dwt = sum(p[0] for p in parts[1:]) + parts[0][0]
     dbt = sum(p[1] for p in parts[1:]) + parts[0][1]
     return from_lines(dz, z.shape, vmajor), ds, dwt, dbt
@@ -201,8 +227,9 @@ def close(got, want, what):
     assert err <= 1e-10 * scale, f"{what}: error {err}, largest {scale}"
 
 
-# (T, C): odd frame counts and channel counts that are not multiples of 16
-SIZES = [(37, 40), (19, 24)]
+# (T, C): odd frame counts and channel counts that are not multiples of 16,
+# and one (C=36) that is not a multiple of 8
+SIZES = [(37, 40), (19, 24), (29, 36)]
 
 
 class TestDecomposition:
@@ -277,9 +304,9 @@ class TestDecomposition:
 
 
 # DEFAULT_PLAN's blocks at B=64, T=304 as the temporal ops see them:
-# (C, stride, T_in), and the odd-width case of chip_smoke.py
+# (C, stride, T_in), and the odd widths of chip_smoke.py
 MAIN = [(64, 1, 304), (128, 2, 304), (128, 1, 152), (256, 2, 152),
-        (256, 1, 76), (40, 1, 37), (40, 2, 37)]
+        (256, 1, 76), (40, 1, 37), (40, 2, 37), (36, 1, 37), (36, 2, 37)]
 BLOCKS = [(2, 64, 1), (64, 64, 1), (64, 128, 2), (128, 128, 1),
           (128, 256, 2), (256, 256, 1), (40, 40, 1), (40, 40, 2)]
 
@@ -288,49 +315,117 @@ class TestPlans:
     @pytest.mark.parametrize("c,stride,t", MAIN)
     @pytest.mark.parametrize("lines", [V * 64, V])
     def test_temporal_plans_fit(self, c, stride, t, lines):
-        wn, smem = tb.plan_mma_forward(t, c, c, stride, 9)
-        assert smem <= SMEM_LIMIT and wn in (2, 4)
+        """Every tile fits with a ring of at least three stages, the N tile
+        covers C_out, the dx tiles cover every row and the dWt splits every
+        g row, in whole chunks."""
+        bn, kc, stages, smem = tb.plan_mma_forward(t, c, c, stride, 9)
+        assert smem <= SMEM_LIMIT and bn in tb.N_TILES and bn >= c
+        assert (kc, stages) in tb.RINGS and stages >= 3
         plan = tb.plan_mma_backward(lines, t, c, c, stride, 9, True, CTAS)
-        assert plan["dx_smem"] <= SMEM_LIMIT
-        assert plan["dw_smem"] <= SMEM_LIMIT
-        _, bm, _ = tb.gemm_tile(c)
-        assert plan["tiles_x"] * bm >= lines * -(-t // stride)
+        assert plan["dx_smem"] <= SMEM_LIMIT and plan["bn_dx"] >= c
+        assert (plan["kc_dx"], plan["stages_dx"]) in tb.RINGS
+        assert plan["stages_dx"] >= 3
+        assert plan["dw_smem"] <= SMEM_LIMIT and plan["dw_stages"] >= 3
+        assert plan["tiles_x"] * tb.GEMM_ROWS >= lines * -(-t // stride)
         t_out = t_out_of(t, stride, 9)
         assert plan["splits"] * plan["split_rows"] >= lines * t_out
-        assert plan["split_rows"] % tb.KR == 0
+        assert plan["split_rows"] % tb.DW_KR == 0
 
     @pytest.mark.parametrize("c_in,c_out,stride", BLOCKS)
     def test_block_eval_plan_fits(self, c_in, c_out, stride):
         tt, vg, smem = be.plan_tiles(V, c_in, c_out, stride, 9, 2)
         assert smem <= SMEM_LIMIT and vg == V and tt >= 2
 
-    @pytest.mark.parametrize("c", [2, 24, 40, 64, 128, 256])
+    @pytest.mark.parametrize("c", [2, 24, 36, 40, 64, 128, 256])
     def test_ldmatrix_rows_are_16_byte_aligned(self, c):
-        """Every shared row a kernel reads with ldmatrix: activations at
-        ``pitch`` elements, weight-ring and dWt rows at ``BN + PAD`` and
-        ``BM + PAD``; each region of the carve-up starts aligned."""
+        """Every shared row a kernel reads with ldmatrix: the staged input
+        frames at ``pitch`` elements, 16 bytes apart modulo 128 where a row
+        holds a multiple of 64 channels (ldmatrix's eight rows of one phase
+        in eight bank groups), and dWt's zh rows, 128 bytes of 64 channels
+        whose 16-byte chunks the swizzle spreads over eight bank groups
+        for any eight consecutive rows; the regions before the staged rows
+        keep them aligned."""
         assert (2 * be.pitch(c)) % 16 == 0
         assert be.pitch(c) >= c and be.pitch(c) % 16 == be.PAD
-        wn, bm, bn = tb.gemm_tile(c)
-        _, dw_bm, dw_bn = tb.dw_tile(c)
-        for width in (bm, bn, dw_bm, dw_bn, -(-c // 64) * 64):
-            assert (2 * (width + be.PAD)) % 16 == 0
-        assert (2 * 2 * tb.KC * (bn + be.PAD)) % 16 == 0    # the ring
-        assert (4 * bm) % 16 == 0                          # row offsets
-        assert (4 * 2 * (8 // wn) * bn) % 16 == 0          # column sums
-        # 16 bytes modulo 128 between rows: ldmatrix's eight rows of one
-        # phase fall in eight bank groups
         if c % 64 == 0:
             assert (2 * be.pitch(c)) % 128 == 16
+        assert 2 * tb.DW_BM == 128
+        for chunk in range(8):
+            for r0 in range(8):
+                assert len({chunk ^ ((r0 + r) & 7) for r in range(8)}) == 8
+        bn = tb.gemm_tile(c)
+        for kc, stages in tb.RINGS:
+            for dx_aff in (False, True):
+                # everything before the staged rows: slack, ring, barriers,
+                # row offsets, column sums
+                head = tb.gemm_smem(bn, kc, stages, 0, c, dx_aff) - tb.ATOM
+                assert head % 16 == 0
+        # dWt: g, then the row offsets, then the zh rows of a stage
+        assert (tb.DW_KR * 128 + 4 * tb.DW_KR) % 16 == 0
+
+    @pytest.mark.parametrize("c", [36, 40, 64, 128, 256])
+    def test_swizzled_stages_start_on_an_atom(self, c):
+        """Every 128B-swizzled tile starts 1024-byte aligned: the weight
+        stages (64-column tiles of 64 K rows) and the dWt stages (g first,
+        then whole atoms); one k16 step is two atoms."""
+        bn = tb.gemm_tile(c)
+        assert bn % 64 == 0
+        for kc in (tb.KC, tb.KC_DEEP):
+            assert kc % 16 == 0 and (kc * 128) % tb.ATOM == 0  # a tile
+            assert (bn * kc * 2) % tb.ATOM == 0                # a stage
+        assert (16 * 128) % tb.ATOM == 0             # a k16 step of B
+        for t_out, stride in ((304, 1), (152, 2), (76, 1), (37, 1), (19, 2)):
+            zrows = tb.dwt_rows(t_out, stride, 9)
+            assert tb.DW_GBYTES % tb.ATOM == 0                  # zh's start
+            assert tb.dw_zh_bytes(zrows) % tb.ATOM == 0
+            assert tb.dw_stage_bytes(zrows) % tb.ATOM == 0
+            assert tb.dwt_smem(zrows, 3) <= SMEM_LIMIT
+            assert tb.dw_stage_bytes(zrows) >= (tb.DW_GBYTES + zrows * 128
+                                                + 4 * tb.DW_KR)
+
+    @pytest.mark.parametrize("c", [36, 40, 64, 128, 256])
+    def test_tma_reads_weights_with_16_byte_strides(self, c):
+        """The weights' TMA map (wg::encode_weight_map) steps 2N bytes a K
+        row and 2KN a tap of bf16 (gamma, K, N), dWt's maps 2C a row and
+        2TC a frame: all multiples of 16, as TMA needs, exactly where the
+        row's width is a multiple of 8 (wg::tma_can_read), so C=36 takes
+        the plain-load producer and the cp.async staging."""
+        for k, n in ((c, c), (c, c - 4)):
+            strides = (2 * n, 2 * k * n, 2 * n * 19)
+            assert all(s % 16 == 0 for s in strides) == (n % 8 == 0)
+
+    @pytest.mark.parametrize("gamma", [1, 3, 9, 11, 19])
+    def test_dwt_tap_groups_cover_every_tap_once(self, gamma):
+        """dWt's CTAs take DW_TAPS taps a group, each of its three consumer
+        warpgroups the taps cw, cw + 3, cw + 6 of it: every tap once."""
+        seen = []
+        for tap_lo in range(0, gamma, tb.DW_TAPS):
+            ntap = min(tb.DW_TAPS, gamma - tap_lo)
+            for cw in range(3):
+                seen += [tap_lo + cw + 3 * i for i in range(3)
+                         if cw + 3 * i < ntap]
+        assert sorted(seen) == list(range(gamma))
 
     @pytest.mark.parametrize("per_line", [1, 2, 7, 19, 37, 64, 76, 152])
     @pytest.mark.parametrize("walk,ntap", [(1, 9), (2, 9), (1, 5), (1, 4),
                                            (1, 3)])
     def test_staged_rows_bound_every_tile(self, per_line, walk, ntap):
-        for bm in (64, 128):
-            bound = tb.staged_rows(bm, per_line, walk, ntap)
-            lines = bm + 3
-            total = lines * per_line
-            worst = max(len(tile(r0, bm, total, per_line, walk, ntap, 0)[2])
-                        for r0 in range(0, total, bm))
-            assert worst <= bound
+        """Over the GEMM tiles of 128 rows and the dWt chunks of 128 rows
+        (which may end early, at a split's end; their lines' frames padded
+        to 8 rows, a multiple of 8 in all)."""
+        lines = tb.GEMM_ROWS + 3
+        total = lines * per_line
+        tiles = {pad8: [tile(r0, tb.GEMM_ROWS, end, per_line, walk, ntap, 0,
+                             pad8)[2]
+                        for end in (total, total - 5)
+                        for r0 in range(0, end, tb.GEMM_ROWS)]
+                 for pad8 in (False, True)}
+        assert tb.GEMM_ROWS == tb.DW_KR
+        assert (max(map(len, tiles[False]))
+                <= tb.staged_rows(tb.GEMM_ROWS, per_line, walk, ntap))
+        if walk * (per_line - 1) + ntap >= ntap:   # dwt_rows's bound
+            segments = min(tb.DW_KR, -(-(tb.DW_KR - 1) // per_line) + 1)
+            bound = (tb.staged_rows(tb.DW_KR, per_line, walk, ntap)
+                     + 7 * segments)
+            assert max(map(len, tiles[True])) <= bound
+            assert all(len(f) % 8 == 0 for f in tiles[True])

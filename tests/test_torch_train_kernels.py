@@ -446,15 +446,18 @@ class TestLaunch:
                           fake_lib["temporal_mma_bwd_launch"])
         self.check_call(fwd, "temporal_mma_fwd_launch")
         self.check_call(bwd, "temporal_mma_bwd_launch")
-        wn, smem = tb.plan_mma_forward(T, 16, 16, 2, GAMMA)
-        # ..., V, N, T, C_in, C_out, gamma, stride, aff, relu2, vmajor, wn,
-        # smem
-        assert fwd[6:18] == (V, N, T, 16, 16, GAMMA, 2, 1, 1, 1, wn, smem)
-        plan = tb.plan_mma_backward(V * N, T, 16, 16, 2, GAMMA, True, 264)
-        assert bwd[9:26] == (V, N, T, 16, 16, GAMMA, 2, 1, 1, 1,
-                             plan["wn_dx"], plan["tiles_x"], plan["dx_smem"],
-                             plan["nj_dw"], plan["splits"],
-                             plan["split_rows"], plan["dw_smem"])
+        bn, kc, stages, smem = tb.plan_mma_forward(T, 16, 16, 2, GAMMA)
+        # ..., V, N, T, C_in, C_out, gamma, stride, aff, relu2, vmajor, bn,
+        # kc, stages, smem
+        assert fwd[6:20] == (V, N, T, 16, 16, GAMMA, 2, 1, 1, 1, bn, kc,
+                             stages, smem)
+        # the dWt kernel fills one CTA an SM (132 on the fake card)
+        plan = tb.plan_mma_backward(V * N, T, 16, 16, 2, GAMMA, True, 132)
+        assert bwd[10:29] == (V, N, T, 16, 16, GAMMA, 2, 1, 1, 1,
+                             plan["bn_dx"], plan["kc_dx"], plan["stages_dx"],
+                             plan["tiles_x"], plan["dx_smem"],
+                             plan["splits"], plan["split_rows"],
+                             plan["dw_stages"], plan["dw_smem"])
 
     def test_rejects_other_dtypes_on_the_cuda_path(self, rng, fake_lib):
         d = temporal_inputs(rng, 16)
