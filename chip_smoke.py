@@ -10,24 +10,31 @@ non-zero exit code:
 2. build        -- nvcc builds the kernel library from the port's ``csrc/``;
                    then ``sass``: ``cuobjdump -sass`` counts the tensor-core
                    instructions of every bf16 tensor-core kernel: HGMMA
-                   (wgmma) in the temporal taps' GEMM and dWt kernels, HMMA
-                   (mma.sync) in block_eval and the spatial forward, t, dx
-                   and dW kernels; the run fails if one has none of its
-                   kind; ``cuobjdump -res-usage`` gives each one's
-                   registers, stack and spill bytes beside it.
+                   (wgmma) in the temporal taps' GEMM and dWt kernels and
+                   in block_eval's spatial and taps kernels, HMMA
+                   (mma.sync) in the spatial forward, t, dx and dW kernels;
+                   the run fails if one has none of its kind;
+                   ``cuobjdump -res-usage`` gives each one's registers,
+                   stack and spill bytes beside it.
 3. kernel       -- ``block_eval`` against its plain PyTorch version on the
                    six block shapes of DEFAULT_PLAN at B=64, T=304 (float32
                    tightly, bfloat16 against a float32 oracle and, tightly,
-                   against the plain version on the same bf16 inputs),
-                   order "post", masked lengths and an odd width (C=40,
-                   T=37, strides 1 and 2).
+                   against the plain version on the same bf16 inputs, and
+                   each bf16 case launched twice on one input, bitwise
+                   equal), order "post", masked lengths, an odd width
+                   (C=40, T=37, strides 1 and 2) and C=36 (whose weights
+                   TMA cannot read: the plain-load producers).
 4. serve        -- a full-width ``Predictor`` (DEFAULT_PLAN, distance
                    partitioning, residual, bf16) answers three requests of
                    64-200 variable-length sequences through the kernel; the
                    launch count must be 10 per batch and the answers must
                    agree with the float32 op path.
 5. time         -- CUDA-event times of each block's kernel and plain
-                   version, of the eval forward, and serving throughput.
+                   version and of the port's split at the same shapes
+                   (``split_ms``: the spatial_block forward, then the
+                   temporal_block forward, V-major, without the shortcut),
+                   of the eval forward and the rest of it beside the
+                   kernels, and serving throughput.
 6. train_kernel -- the train path's ``spatial_block`` and ``temporal_block``
                    ops, forward and backward kernels, against their plain
                    versions at the shapes of DEFAULT_PLAN's blocks 0-6 at
@@ -120,7 +127,7 @@ non-zero exit code:
                    share is the epoch time no step covers, beside a step
                    of the CLI's own configuration timed in this phase.
 17. kernels     -- one line per kernel with its launches, error, times and
-                   bound.
+                   bound (block_eval's also with its ``split_ms``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -174,16 +181,17 @@ SPATIAL_TIGHT_SHARE = 1e-3
 # the odd width of the tensor-core checks: channel tails and the parity
 # split at both strides
 ODD_C, ODD_T = 40, 37
-# the temporal ops' second odd width: not a multiple of 8, so their
-# weights cannot go through TMA (16-byte strides) and take the plain-load
-# producer; drawn from a generator of its own
+# the wgmma kernels' second odd width (the temporal ops' and block_eval's):
+# not a multiple of 8, so their weights cannot go through TMA (16-byte
+# strides) and take the plain-load producer; drawn from a generator of its
+# own
 ODD_C8 = 36
 # the bf16 tensor-core kernels on mma.sync (HMMA), by their symbols' names
-MMA_KERNELS = ("block_eval_mma_kernel", "spatial_mma_fwd_kernel",
-               "spatial_mma_t_kernel", "spatial_mma_dx_kernel",
-               "spatial_mma_dw_kernel")
-# the bf16 temporal kernels on wgmma (HGMMA)
-WGMMA_KERNELS = ("tap_gemm_kernel", "tap_dwt_kernel")
+MMA_KERNELS = ("spatial_mma_fwd_kernel", "spatial_mma_t_kernel",
+               "spatial_mma_dx_kernel", "spatial_mma_dw_kernel")
+# the bf16 kernels on wgmma (HGMMA): the temporal ops' and block_eval's
+WGMMA_KERNELS = ("tap_gemm_kernel", "tap_dwt_kernel",
+                 "block_eval_spatial_kernel", "block_eval_taps_kernel")
 # f32 whole-network check and bf16 serving check
 FORWARD_REL = 1e-3
 ARGMAX_AGREEMENT = 0.99
@@ -448,23 +456,24 @@ def check_tight(name, direction, got, want, phase, share=0.0,
                              f"beyond {TIGHT_GRAD_REL}, {case}")
 
 
-def check_repeat(name, first, second, phase, **case) -> None:
-    """Two runs of one bf16 backward on the same inputs: every output
-    bitwise equal (the partial sums are added in a fixed order)."""
+def check_repeat(name, first, second, phase, direction="backward",
+                 **case) -> None:
+    """Two runs of one bf16 kernel on the same inputs: every output bitwise
+    equal (no atomics; partial sums are added in a fixed order)."""
     import torch
 
     same = all(torch.equal(a, b) for a, b in zip(first, second))
-    emit(phase, op=name, direction="backward", check="determinism", **case,
+    emit(phase, op=name, direction=direction, check="determinism", **case,
          bitwise_equal=same, ok=same)
     if not same:
-        raise AssertionError(f"{name}'s backward differs between two runs: "
-                             f"{case}")
+        raise AssertionError(f"{name}'s {direction} differs between two "
+                             f"runs: {case}")
 
 
 def sass_phase(lib_path) -> dict:
     """Tensor-core instructions in each bf16 tensor-core kernel of the built
     library, from ``cuobjdump -sass`` beside ``nvcc``: HGMMA (wgmma) in
-    every temporal kernel, HMMA (mma.sync) in block_eval's and the spatial
+    every temporal kernel and block_eval's, HMMA (mma.sync) in the spatial
     ones; fails if a kernel has none of its kind, or if a family is
     missing."""
     from stgcn_tpu_torch.kernels import _build
@@ -498,7 +507,7 @@ def sass_phase(lib_path) -> dict:
          resources=resource_usage(cuobjdump, lib_path, {**hmma, **hgmma}),
          ok=ok)
     if not ok:
-        raise AssertionError("a bf16 temporal kernel has no HGMMA "
+        raise AssertionError("a bf16 wgmma kernel has no HGMMA "
                              "instruction, another bf16 tensor-core kernel "
                              "no HMMA, or one is missing from the library")
     return {**hmma, **hgmma}
@@ -2208,8 +2217,11 @@ def main() -> int:
     from stgcn_tpu_torch.kernels.block_eval import (
         block_eval,
         block_eval_reference,
+        plan_mma,
         plan_tiles,
     )
+    from stgcn_tpu_torch.kernels.spatial_block import spatial_block_forward
+    from stgcn_tpu_torch.kernels.temporal_block import temporal_block_forward
     from stgcn_tpu_torch.models.fused import (
         fused_block_args,
         fused_eval_forward,
@@ -2260,11 +2272,14 @@ def main() -> int:
     masked_cases = [(128, 128, 1, "id", T // 2, "pre", torch.bfloat16),
                     (128, 256, 2, "proj", T // 2, "pre", torch.float32)]
     odd_cases = [(ODD_C, ODD_C, 1, "id", ODD_T, "pre", torch.bfloat16),
-                 (ODD_C, ODD_C, 2, "proj", ODD_T, "pre", torch.bfloat16)]
+                 (ODD_C, ODD_C, 2, "proj", ODD_T, "pre", torch.bfloat16),
+                 (ODD_C8, ODD_C8, 1, "id", ODD_T, "pre", torch.bfloat16),
+                 (ODD_C8, ODD_C8, 2, "proj", ODD_T, "pre", torch.bfloat16)]
+    odd8 = torch.Generator(device=dev).manual_seed(SEED + 11)
     for i, (ci, co, s, sc, t, order, dt) in enumerate(
             cases + masked_cases + odd_cases):
         masked = len(cases) <= i < len(cases) + len(masked_cases)
-        rng = odd_gen if t == ODD_T else gen
+        rng = odd8 if ci == ODD_C8 else odd_gen if t == ODD_T else gen
         kw = random_block_args(rng, ci, co, sc == "proj", dev)
         x = torch.randn(V, B, t, ci, generator=rng, device=dev).to(dt)
         lengths = torch.randint(1, t + 1, (B,), generator=rng, device=dev)
@@ -2281,21 +2296,24 @@ def main() -> int:
         else:
             ok = err <= BF16_REL * scale
             tol = f"max_abs_err <= {BF16_REL} * max|oracle|"
+        plan = (plan_mma(V, t, ci, co, 2, s, 9) if dt == torch.bfloat16
+                else dict(zip(("tt", "vg"), plan_tiles(V, ci, co, s, 9))))
         emit("kernel", c_in=ci, c_out=co, stride=s, t_in=t, shortcut=sc,
              order=order, dtype=str(dt).removeprefix("torch."),
-             masked=masked,
-             tiles=plan_tiles(V, ci, co, s, 9, x.element_size())[:2],
-             max_abs_err=err, max_abs_oracle=scale, tolerance=tol, ok=ok)
+             masked=masked, plan=plan, max_abs_err=err,
+             max_abs_oracle=scale, tolerance=tol, ok=ok)
         if not ok:
             raise AssertionError(f"block_eval disagrees with its plain "
                                  f"version: {ci}->{co} s{s} {sc} {dt}")
         if dt == torch.bfloat16:
             kernel_max_err = max(kernel_max_err, err)
+            case = dict(c_in=ci, c_out=co, stride=s, t_in=t, shortcut=sc,
+                        order=order, masked=masked)
             check_tight("block_eval", "forward", out,
                         block_eval_reference(x, **kw, **flags), "kernel",
-                        share=BLOCK_EVAL_TIGHT_SHARE, c_in=ci, c_out=co,
-                        stride=s, t_in=t, shortcut=sc, order=order,
-                        masked=masked)
+                        share=BLOCK_EVAL_TIGHT_SHARE, **case)
+            check_repeat("block_eval", (out,), (block_eval(x, **kw, **flags),),
+                         "kernel", direction="forward", **case)
 
     # ---- 4. serve: the port's main path ------------------------------------
     cfg = STGCNConfig(plan=DEFAULT_PLAN, strategy=Strategy.DISTANCE, d=1,
@@ -2372,7 +2390,8 @@ def main() -> int:
     # ---- 5. time ----------------------------------------------------------
     x = torch.randn(B, T, V, 2, generator=gen, device=dev).to(torch.bfloat16)
     h = x.permute(2, 0, 1, 3).contiguous()
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0, bytes=0)
+    totals = dict(ms=0.0, plain_ms=0.0, split_ms=0.0, bound_ms=0.0, ops=0,
+                  bytes=0)
     bound_by = {}
     c_prev = cfg.c_in
     with torch.inference_mode():
@@ -2383,18 +2402,32 @@ def main() -> int:
             c_out = cfg.plan[i][0]
             ms = cuda_time_ms(lambda: block_eval(h, **kw))
             plain_ms = cuda_time_ms(lambda: block_eval_reference(h, **kw))
+            # the port's two train kernels at the same shapes, without the
+            # shortcut: spatial_block, then temporal_block (its affine and
+            # ReLU are the pre order's)
+            sw = {k: kw[k].to(h.dtype) for k in ("w", "b", "a", "wt")}
+
+            def split():
+                z = spatial_block_forward(h, kw["s1"], kw["t1"], sw["w"],
+                                          sw["b"], sw["a"],
+                                          relu1=kw["relu1"])
+                return temporal_block_forward(z, kw["s2"], kw["t2"],
+                                              sw["wt"], kw["bt"],
+                                              stride=blk.stride, relu2=True)
+
+            split_ms = cuda_time_ms(split)
             ops, nbytes = block_cost(B, h.shape[2], c_prev, c_out, blk.stride)
             t_ops, t_bytes = ops / peak_flops * 1e3, nbytes / peak_bytes * 1e3
             bound = max(t_ops, t_bytes)
             by = "operations" if t_ops >= t_bytes else "bytes"
             bound_by[by] = bound_by.get(by, 0) + 1
             emit("time", block=i, c_in=c_prev, c_out=c_out, stride=blk.stride,
-                 t_in=h.shape[2], ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                 bound_by=by, gflop=ops / 1e9, mbytes=nbytes / 1e6,
-                 tflops=ops / ms / 1e9)
+                 t_in=h.shape[2], ms=ms, plain_ms=plain_ms, split_ms=split_ms,
+                 bound_ms=bound, bound_by=by, gflop=ops / 1e9,
+                 mbytes=nbytes / 1e6, tflops=ops / ms / 1e9)
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                             ("bound_ms", bound), ("ops", ops),
-                             ("bytes", nbytes)):
+                             ("split_ms", split_ms), ("bound_ms", bound),
+                             ("ops", ops), ("bytes", nbytes)):
                 totals[key] += val
             h = block_eval(h, **kw)
             c_prev = c_out
@@ -2414,7 +2447,11 @@ def main() -> int:
     pipelined = len(batches_np) * B / (time.perf_counter() - start)
     emit("time", eval_forward_ms=fwd_ms, op_path_forward_ms=ops_ms,
          kernel_ms_per_forward=totals["ms"],
+         rest_ms_per_forward=fwd_ms - totals["ms"],
          plain_ms_per_forward=totals["plain_ms"],
+         split_ms_per_forward=totals["split_ms"],
+         split=("spatial_block forward then temporal_block forward, "
+                "V-major, inference_mode, without the shortcut"),
          bound_ms_per_forward=totals["bound_ms"],
          gflop_per_forward=totals["ops"] / 1e9,
          gbytes_per_forward=totals["bytes"] / 1e9,
@@ -2459,6 +2496,7 @@ def main() -> int:
         "max_abs_err": kernel_max_err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
+        "split_ms": totals["split_ms"],
         "bound_ms": totals["bound_ms"],
         "bound_by": max(bound_by, key=bound_by.get),
         "library_ms": None,

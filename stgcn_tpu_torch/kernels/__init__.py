@@ -56,11 +56,17 @@ The bfloat16 kernels of every op run on Hopper's tensor cores:
   post-activation ``zh`` for dWt), dWt staging each chunk of rows once for
   all nine taps and splitting the rows into partial slices summed in
   order;
+* ``block_eval`` on ``wgmma`` too, two kernels a call (three with the
+  projection shortcut) and z through a scratch tensor: a persistent
+  spatial kernel (y_k for 5 whole frames a tile with W_k by TMA, resident
+  where it fits, h staged a tile ahead, the aggregation per frame on
+  ``mma.sync``), then the temporal forward's implicit GEMM with the
+  block's epilogue (the row staging of ``csrc/tile_rows.cuh``, shared
+  with ``temporal_block``);
 
 and on ``mma.sync`` (bf16 tiles over padded shared rows, weights through a
 ``cp.async`` ring, ``csrc/tap_mma.cuh``):
 
-* ``block_eval``: stage 1, the projection and the temporal taps;
 * ``spatial_block``, ``spatial_block_save`` and ``spatial_conv``:
   tiles of whole frames (5 of 25 joints in 128 rows), the expansion
   y_k = round(h . W_k + b_k) and the aggregation per frame with the joints

@@ -33,8 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_TIMEOUT_S = 300
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# block_eval_launch(14 pointers, 17 ints, stream) -> cudaError_t
-BLOCK_EVAL_ARGTYPES = [_P] * 14 + [_I] * 17 + [_P]
+# block_eval_launch(14 pointers, 16 ints, stream) -> cudaError_t, float32
+BLOCK_EVAL_ARGTYPES = [_P] * 14 + [_I] * 16 + [_P]
+# block_eval_mma_launch(15 pointers, 23 ints, stream), bf16
+BLOCK_EVAL_MMA_ARGTYPES = [_P] * 15 + [_I] * 23 + [_P]
 # spatial_block_fwd_launch(7 pointers, 9 ints, stream)
 SPATIAL_FWD_ARGTYPES = [_P] * 7 + [_I] * 9 + [_P]
 # spatial_block_bwd_launch(11 pointers, 11 ints, stream)
@@ -67,6 +69,7 @@ SPATIAL_MMA_BWD_ARGTYPES = [_P] * 15 + [_I] * 18 + [_P]
 # every C entry point and its argument kinds; each returns a cudaError_t
 ENTRY_POINTS = {
     "block_eval_launch": BLOCK_EVAL_ARGTYPES,
+    "block_eval_mma_launch": BLOCK_EVAL_MMA_ARGTYPES,
     "spatial_block_fwd_launch": SPATIAL_FWD_ARGTYPES,
     "spatial_block_bwd_launch": SPATIAL_BWD_ARGTYPES,
     "spatial_block_save_fwd_launch": SPATIAL_SAVE_FWD_ARGTYPES,

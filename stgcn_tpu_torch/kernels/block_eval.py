@@ -1,16 +1,20 @@
-"""Whole eval block as one kernel: wrapper, plain version and launch count.
+"""Whole eval block: wrapper, plain version, planners and launch count.
 
 :func:`block_eval` computes one ST-GCN eval block on V-major
 ``(V, N, T, C_in)`` activations, with its BatchNorms folded into affines.
 It is the port of ``fused_block_vm`` (``stgcn_tpu/kernels/block_fused.py``)
 and ``fused_block_packed_eval`` (``stgcn_tpu/kernels/block_packed.py``),
 without their TPU-layout arguments (``t_valid``, ``out_tp``, the packed
-layout).  For a CUDA tensor it launches the hand-written kernel in
-``csrc/block_eval.cu``, bfloat16 on the tensor cores and float32 on the
-scalar kernel; for a CPU tensor it runs the plain PyTorch version
+layout).  For a CUDA tensor it launches the hand-written kernels in
+``csrc/block_eval.cu``: bfloat16 on Hopper's warpgroup MMA, a spatial
+kernel that writes z to a scratch tensor and a taps kernel (after a
+projection pass with the projection shortcut), planned by
+:func:`plan_mma`; float32 on the scalar kernel, planned by
+:func:`plan_tiles`.  For a CPU tensor it runs the plain PyTorch version
 :func:`block_eval_reference`, which rounds at the same points.
 
-``block_eval.launches`` counts the kernel launches, and nothing else.
+``block_eval.launches`` counts the calls that launched kernels, one per
+call whatever the kernels it launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -18,13 +22,27 @@ from __future__ import annotations
 import torch
 
 SMEM_LIMIT = 232_448        # bytes of shared memory a CTA may use (sm_90)
-THREADS = 256               # threads per CTA, as in csrc/block_eval.cu
+THREADS = 256               # threads of a float32 CTA (csrc/block_eval.cu)
 MAX_ROWS = 32               # largest per-thread row count the kernel has
 TILE_FRAMES = (16, 8, 4, 2, 1)
 SHORTCUTS = {"none": 0, "id": 1, "proj": 2}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 PAD = 8                     # bf16 elements of shared-row padding (tap_mma.cuh)
-KC = 32                     # weight rows per ring stage (block_eval.cu)
+# ---- bfloat16: the constants of block_eval.cu's be_mma ----
+GEMM_ROWS = 128             # rows of a tile: two consumer warpgroups (BM)
+SLAB = 64                   # spatial: output channels of a slab (SN)
+VP = 32                     # joints, zero-padded, of A's products (VP)
+MAX_FRAMES = 6              # spatial: frames of a tile (MAX_FRAMES)
+YR = GEMM_ROWS + 16         # rows of a y buffer (YR)
+ATOM = 1024                 # swizzle atom: rings start aligned to it
+# shared bytes of a CTA that shares its SM with another: half of the SM's
+# 228 KB less the 1 KB each CTA's block reserves (kHalfSmBytes)
+HALF_SM = 233_472 // 2 - 1024
+# (rows or input channels, stages) of a weight ring, in order of preference
+# (2-4 stages of 64 or 32 rows)
+RINGS = ((64, 4), (64, 3), (32, 4), (32, 3), (64, 2), (32, 2))
+N_TILES = (64, 128, 256)    # wgmma N of the taps: the whole C_out
+MAX_RESIDENT = 8            # spatial: stages of a resident W (kMaxResident)
 
 
 def pitch(c: int) -> int:
@@ -125,16 +143,12 @@ def block_eval_reference(x, s1, t1, w, b, a, wt, bt, s2, t2, wr=None,
     return u.to(cd)
 
 
-def plan_tiles(v: int, c_in: int, c_out: int, stride: int, gamma: int,
-               itemsize: int) -> tuple[int, int, int]:
-    """``(TT, VG, shared-memory bytes)`` for one block's launch.
+def plan_tiles(v: int, c_in: int, c_out: int, stride: int, gamma: int
+               ) -> tuple[int, int, int]:
+    """float32: ``(TT, VG, shared-memory bytes)`` of the scalar kernel.
 
     A CTA holds z for ``(TT-1)*stride + gamma`` frames of ``VG`` joints,
-    plus one frame's ``h`` and one partition's ``y``.  float32 (itemsize 4,
-    the scalar kernel): all in float32, ``V*C_in`` and ``V*C_out``.  bf16
-    (itemsize 2, the tensor-core kernel): z and h on rows of
-    :func:`pitch` elements, h on 32 rows, y on ``V*C_out``, and the
-    two-stage weight ring of ``KC`` rows of ``round64(C_out) + PAD``.  The
+    plus one frame's ``h`` and one partition's ``y``, all in float32.  The
     largest frame tile that fits is taken, with all joints in one CTA
     where possible.
     """
@@ -146,16 +160,104 @@ def plan_tiles(v: int, c_in: int, c_out: int, stride: int, gamma: int,
         vg = -(-v // groups)
         for tt in TILE_FRAMES:
             tf = (tt - 1) * stride + gamma
-            if itemsize == 2:
-                ring = 2 * KC * (-(-c_out // 64) * 64 + PAD)
-                smem = 2 * (ring + tf * vg * pitch(c_out) + 32 * pitch(c_in)
-                            + v * c_out)
-            else:
-                smem = itemsize * (tf * vg * c_out + v * c_in + v * c_out)
+            smem = 4 * (tf * vg * c_out + v * c_in + v * c_out)
             if smem <= SMEM_LIMIT:
                 return tt, vg, smem
     raise ValueError(f"no tile of C_in={c_in}, C_out={c_out} fits in "
                      f"{SMEM_LIMIT} bytes of shared memory")
+
+
+def spatial_frames(v: int) -> int:
+    """F, the whole frames of a spatial tile: as many as fit in the 128
+    rows, at most MAX_FRAMES (each frame's 32-row aggregation window then
+    lies in the YR rows of a y buffer)."""
+    return min(MAX_FRAMES, GEMM_ROWS // v)
+
+
+def spatial_smem(c_in: int, c_out: int, k: int, kc: int, stages: int) -> int:
+    """Shared bytes of the spatial kernel (be_mma::spatial_smem): the slack
+    that aligns the ring to a swizzle atom, ``stages`` stages of ``kc``
+    weight rows by one 64-column slab with a full and an empty mbarrier
+    each, the two h buffers' full and empty mbarriers, b_k, s2 and t2 as
+    float32 per column (C_out rounded up to a slab), s1 and t1 per input
+    channel (C_in rounded up to 16), the K adjacencies padded to VP x VP at
+    pitch ``VP + PAD``, two buffers of h of a tile's 128 rows at
+    ``pitch(c_in)`` and a slab's y_k for each partition, YR rows at pitch
+    ``SLAB + PAD`` (y_0's also take the slab's z on its way out)."""
+    cp = -(-c_out // SLAB) * SLAB
+    return (ATOM + stages * (kc * 128 + 16) + 32 + 4 * (k + 2) * cp
+            + 8 * (-(-c_in // 16) * 16) + 2 * k * VP * (VP + PAD)
+            + 2 * 2 * GEMM_ROWS * pitch(c_in) + 2 * k * YR * (SLAB + PAD))
+
+
+def taps_smem(bn: int, kc: int, stages: int, staged: int, k_in: int) -> int:
+    """Shared bytes of the taps kernel (be_mma::taps_smem): the slack, the
+    ring (``stages`` stages of ``kc`` input channels by ``bn``) and its
+    barriers, the 128 row offsets, the epilogue's three float32 constants
+    a column (bias, s2, t2) and the ``staged`` input rows at
+    ``pitch(k_in)``."""
+    return (ATOM + stages * (bn * kc * 2 + 16) + 4 * GEMM_ROWS + 3 * bn * 4
+            + staged * pitch(k_in) * 2)
+
+
+def _ring(smem_of, what: str) -> tuple[int, int, int]:
+    """``(kc, stages, shared bytes)``: the first ring of RINGS that fits."""
+    for kc, stages in RINGS:
+        smem = smem_of(kc, stages)
+        if smem <= SMEM_LIMIT:
+            return kc, stages, smem
+    raise ValueError(f"no bf16 block_eval {what} tile fits in {SMEM_LIMIT} "
+                     f"bytes of shared memory")
+
+
+def plan_mma(v: int, t: int, c_in: int, c_out: int, k: int, stride: int,
+             gamma: int) -> dict:
+    """The bf16 launch.  The spatial kernel's ``frames`` a tile and ring
+    (``s_kc`` rows, ``s_stages``, ``s_smem``), in order of preference: two
+    CTAs an SM (HALF_SM each) with W resident (a stage for each of a
+    tile's 64-row chunks, up to MAX_RESIDENT, loaded once a CTA), two with
+    a ring of three stages or more, one with W resident, one with any
+    ring.  The taps kernel's N tile ``bn`` and ring (``t_kc``,
+    ``t_stages``, ``t_smem``: the first of RINGS that fits), its tiles
+    staging ``staged_rows(128, T_out, stride, gamma)`` rows of z; the
+    projection pass's ring (``p_kc``, ``p_stages``, ``p_smem``), one tap
+    over x."""
+    from stgcn_tpu_torch.kernels.temporal_block import staged_rows
+
+    if not 1 <= c_out <= N_TILES[-1]:
+        raise ValueError(f"block_eval takes C_out <= {N_TILES[-1]}, got "
+                         f"{c_out}")
+    if not 1 <= v <= VP:
+        raise ValueError(f"the bf16 block_eval takes V <= {VP}, got {v}")
+    t_out = t_out_of(t, stride, gamma)
+    bn = next(n for n in N_TILES if c_out <= n)
+    chunks = -(-c_out // SLAB) * k * -(-c_in // 64)   # a tile's, kc = 64
+    resident = [(64, chunks)] if 2 <= chunks <= MAX_RESIDENT else []
+    for limit, min_stages in ((HALF_SM, 3), (SMEM_LIMIT, 2)):
+        rings = [ring for ring in RINGS if ring[1] >= min_stages]
+        fits = [(kc, st) for kc, st in resident + rings
+                if spatial_smem(c_in, c_out, k, kc, st) <= limit]
+        if fits:
+            s_kc, s_stages = fits[0]
+            break
+    else:
+        raise ValueError(f"no bf16 block_eval spatial tile of C_in={c_in} "
+                         f"fits in {SMEM_LIMIT} bytes of shared memory")
+    s_smem = spatial_smem(c_in, c_out, k, s_kc, s_stages)
+    taps_rows = staged_rows(GEMM_ROWS, t_out, stride, gamma)
+    t_kc, t_stages, t_smem = _ring(
+        lambda kc, st: taps_smem(bn, kc, st, taps_rows, c_out), "taps")
+    proj_rows = staged_rows(GEMM_ROWS, t_out, stride, 1)
+    p_kc, p_stages, p_smem = _ring(
+        lambda kc, st: taps_smem(bn, kc, st, proj_rows, c_in), "projection")
+    return dict(frames=spatial_frames(v), s_kc=s_kc, s_stages=s_stages,
+                s_smem=s_smem, bn=bn, t_kc=t_kc, t_stages=t_stages,
+                t_smem=t_smem, p_kc=p_kc, p_stages=p_stages, p_smem=p_smem)
+
+
+# the order of plan_mma's values in block_eval_mma_launch's arguments
+MMA_PLAN_KEYS = ("frames", "s_kc", "s_stages", "s_smem", "bn", "t_kc",
+                 "t_stages", "t_smem", "p_kc", "p_stages", "p_smem")
 
 
 def block_eval(x, s1, t1, w, b, a, wt, bt, s2, t2, wr=None, br=None, *,
@@ -215,7 +317,6 @@ def _launch(x, s1, t1, w, b, a, wt, bt, s2, t2, wr, br, *, stride, order,
     gamma, _, c_out = wt.shape
     k = a.shape[0]
     t_out = t_out_of(t, stride, gamma)
-    tt, vg, smem = plan_tiles(v, c_in, c_out, stride, gamma, x.element_size())
 
     def f32(p):
         return p.to(torch.float32).contiguous()
@@ -229,15 +330,25 @@ def _launch(x, s1, t1, w, b, a, wt, bt, s2, t2, wr, br, *, stride, order,
             f32(br) if shortcut == "proj" else None,
             (lengths.to(torch.int32).contiguous()
              if lengths is not None else None)]
+    ptrs = [p.data_ptr() if p is not None else None for p in args]
+    flags = (int(order == "pre"), SHORTCUTS[shortcut], int(relu1),
+             int(final_relu))
     out = torch.empty((v, n, t_out, c_out), dtype=cd, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
-        err = lib.block_eval_launch(
-            *[p.data_ptr() if p is not None else None for p in args],
-            out.data_ptr(), v, n, t, c_in, c_out, k, gamma, stride, t_out,
-            tt, vg, int(order == "pre"), SHORTCUTS[shortcut], int(relu1),
-            int(final_relu), int(cd == torch.bfloat16), smem,
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if cd == torch.bfloat16:
+            plan = plan_mma(v, t, c_in, c_out, k, stride, gamma)
+            z = torch.empty((v, n, t, c_out), dtype=cd, device=dev)
+            err = lib.block_eval_mma_launch(
+                *ptrs, out.data_ptr(), z.data_ptr(), v, n, t, c_in, c_out,
+                k, gamma, stride, *flags,
+                *(plan[key] for key in MMA_PLAN_KEYS), stream)
+        else:
+            tt, vg, smem = plan_tiles(v, c_in, c_out, stride, gamma)
+            err = lib.block_eval_launch(
+                *ptrs, out.data_ptr(), v, n, t, c_in, c_out, k, gamma,
+                stride, t_out, tt, vg, *flags, smem, stream)
     if err != 0:
         msg = lib.block_eval_error_string(err).decode()
         raise RuntimeError(f"block_eval launch failed: CUDA error {err} "

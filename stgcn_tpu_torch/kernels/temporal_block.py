@@ -168,8 +168,13 @@ def gemm_tile(n_out: int) -> int:
 
 def staged_rows(bm: int, rows_per_line: int, walk: int, ntap: int) -> int:
     """The most input rows a tile of ``bm`` GEMM rows stages: each of the
-    lines its rows touch needs ``(rows - 1) * walk + ntap`` of them."""
+    lines its rows touch needs ``(rows - 1) * walk + ntap`` of them, so
+    rows over ``s`` lines need ``walk * (bm - s) + s * ntap``: most with
+    the most lines where ``ntap >= walk``, with the fewest where
+    ``ntap < walk`` (one tap at stride 2)."""
     segments = min(bm, -(-(bm - 1) // rows_per_line) + 1)
+    if ntap < walk:
+        segments = -(-bm // rows_per_line)
     return walk * (bm - segments) + segments * ntap
 
 

@@ -169,45 +169,72 @@ class TestKernelLaunchPlan:
     @pytest.mark.parametrize("itemsize", [2, 4])
     @pytest.mark.parametrize("c_in,c_out,stride", SHAPES)
     def test_tiles_fit_shared_memory(self, c_in, c_out, stride, itemsize):
-        tt, vg, smem = be.plan_tiles(V, c_in, c_out, stride, GAMMA, itemsize)
-        tf = (tt - 1) * stride + GAMMA
+        t = 304 if c_out == 64 or (c_out == 128 and stride == 2) else 76
         if itemsize == 2:
-            # the tensor-core kernel: z and h on padded rows, h on 32 rows,
-            # y, and the two-stage weight ring
-            ring = 2 * be.KC * (-(-c_out // 64) * 64 + be.PAD)
-            assert smem == 2 * (ring + tf * vg * be.pitch(c_out)
-                                + 32 * be.pitch(c_in) + V * c_out)
-            assert vg == V and tt >= 2   # bf16: every joint in one CTA
+            # the warpgroup kernels: the spatial kernel (ring, constants,
+            # adjacencies, h, y_k of a slab per partition), the taps and the
+            # projection pass (ring, row offsets, constants, staged rows)
+            plan = be.plan_mma(V, t, c_in, c_out, K, stride, GAMMA)
+            assert plan["s_smem"] == be.spatial_smem(
+                c_in, c_out, K, plan["s_kc"], plan["s_stages"])
+            assert plan["frames"] * V <= be.GEMM_ROWS
+            assert plan["bn"] >= c_out and plan["bn"] in be.N_TILES
+            for key in ("s", "t", "p"):
+                assert plan[f"{key}_smem"] <= be.SMEM_LIMIT
+            for key in ("t", "p"):
+                assert (plan[f"{key}_kc"], plan[f"{key}_stages"]) in be.RINGS
+            # the spatial ring: W resident (a stage a chunk) or of RINGS
+            assert (plan["s_kc"] == 64
+                    and plan["s_stages"] <= be.MAX_RESIDENT) or (
+                plan["s_kc"], plan["s_stages"]) in be.RINGS
         else:
+            tt, vg, smem = be.plan_tiles(V, c_in, c_out, stride, GAMMA)
+            tf = (tt - 1) * stride + GAMMA
             assert smem == itemsize * (tf * vg * c_out + V * c_in
                                        + V * c_out)
-        assert smem <= be.SMEM_LIMIT
-        rg = be.THREADS // c_out
-        assert -(-V // rg) <= be.MAX_ROWS
+            assert smem <= be.SMEM_LIMIT
+            rg = be.THREADS // c_out
+            assert -(-V // rg) <= be.MAX_ROWS
 
     def test_rejects_too_wide(self):
         with pytest.raises(ValueError, match="C_out"):
-            be.plan_tiles(V, 256, 512, 1, GAMMA, 2)
+            be.plan_tiles(V, 256, 512, 1, GAMMA)
+        with pytest.raises(ValueError, match="C_out"):
+            be.plan_mma(V, 20, 256, 512, K, 1, GAMMA)
 
     def test_c_signature_matches_argtypes(self):
-        """No compiler runs here, so hold the ctypes declaration against
-        the launcher's C signature by reading the source."""
+        """No compiler runs here, so hold the ctypes declarations against
+        the launchers' C signatures (float32 and bf16) by reading the
+        source."""
         src = (_build.CSRC / "block_eval.cu").read_text()
-        sig = re.search(r'extern "C" int block_eval_launch\((.*?)\)\s*\{',
-                        src, re.S).group(1)
-        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
-                 for p in sig.split(",")]
-        assert kinds == _build.BLOCK_EVAL_ARGTYPES
+        for name, argtypes in (("block_eval_launch",
+                                _build.BLOCK_EVAL_ARGTYPES),
+                               ("block_eval_mma_launch",
+                                _build.BLOCK_EVAL_MMA_ARGTYPES)):
+            sig = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', src,
+                            re.S).group(1)
+            kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                     for p in sig.split(",")]
+            assert kinds == argtypes
+            assert _build.ENTRY_POINTS[name] is argtypes
 
-    def test_launch_passes_declared_arguments(self, rng, monkeypatch):
+    @pytest.mark.parametrize("dtype,entry", [
+        (torch.float32, "block_eval_launch"),
+        (torch.bfloat16, "block_eval_mma_launch")])
+    def test_launch_passes_declared_arguments(self, rng, monkeypatch, dtype,
+                                              entry):
         """The CUDA launch path, with the library and stream faked: the
-        wrapper passes one value per declared argument, of its kind, and
-        counts the launch."""
+        wrapper passes one value per declared argument, of its kind, to
+        the dtype's launcher, and counts the launch."""
         calls = []
 
         class FakeLib:
             def block_eval_launch(self, *args):
-                calls.append(args)
+                calls.append(("block_eval_launch", args))
+                return 0
+
+            def block_eval_mma_launch(self, *args):
+                calls.append(("block_eval_mma_launch", args))
                 return 0
 
         monkeypatch.setattr(_build, "load_library", lambda: FakeLib())
@@ -220,16 +247,18 @@ class TestKernelLaunchPlan:
         monkeypatch.setattr(torch.cuda, "device",
                             lambda dev: contextlib.nullcontext())
         kw = to_torch(kernel_args(rng, 8, 16, True))
-        x = torch.zeros(V, 2, 20, 8)
+        x = torch.zeros(V, 2, 20, 8, dtype=dtype)
         before = be.block_eval.launches
         out = be._launch(x, **kw, stride=2, order="pre", shortcut="proj",
                          relu1=True, final_relu=True,
                          lengths=torch.tensor([20, 7]))
         assert be.block_eval.launches == before + 1
-        assert tuple(out.shape) == (V, 2, 10, 16)
-        (args,) = calls
-        assert len(args) == len(_build.BLOCK_EVAL_ARGTYPES)
-        for value, kind in zip(args, _build.BLOCK_EVAL_ARGTYPES):
+        assert tuple(out.shape) == (V, 2, 10, 16) and out.dtype == dtype
+        ((name, args),) = calls
+        assert name == entry
+        argtypes = _build.ENTRY_POINTS[entry]
+        assert len(args) == len(argtypes)
+        for value, kind in zip(args, argtypes):
             if kind is ctypes.c_void_p:
                 assert value is None or (isinstance(value, int) and value)
             else:

@@ -333,8 +333,23 @@ class TestPlans:
 
     @pytest.mark.parametrize("c_in,c_out,stride", BLOCKS)
     def test_block_eval_plan_fits(self, c_in, c_out, stride):
-        tt, vg, smem = be.plan_tiles(V, c_in, c_out, stride, 9, 2)
-        assert smem <= SMEM_LIMIT and vg == V and tt >= 2
+        """block_eval's bf16 kernels at the frames each block takes on the
+        main path (T=37 for the odd widths): the spatial kernel, the taps
+        and the projection pass each fit, the taps and the projection with
+        a ring of three stages or more and the spatial kernel with its W
+        resident or such a ring, the taps' N tile covers C_out and a
+        spatial tile holds whole frames."""
+        t = {64: 304, 128: 304 if stride == 2 else 152,
+             256: 152 if stride == 2 else 76}.get(c_out, 37)
+        plan = be.plan_mma(V, t, c_in, c_out, 2, stride, 9)
+        for key in ("s", "t", "p"):
+            assert plan[f"{key}_smem"] <= SMEM_LIMIT
+        chunks = -(-c_out // 64) * 2 * -(-c_in // 64)
+        for key in ("t", "p"):
+            assert plan[f"{key}_stages"] >= 3
+        assert plan["s_stages"] >= 3 or plan["s_stages"] == chunks
+        assert plan["bn"] in tb.N_TILES and plan["bn"] >= c_out
+        assert plan["frames"] * V <= tb.GEMM_ROWS
 
     @pytest.mark.parametrize("c", [2, 24, 36, 40, 64, 128, 256])
     def test_ldmatrix_rows_are_16_byte_aligned(self, c):
@@ -408,7 +423,7 @@ class TestPlans:
 
     @pytest.mark.parametrize("per_line", [1, 2, 7, 19, 37, 64, 76, 152])
     @pytest.mark.parametrize("walk,ntap", [(1, 9), (2, 9), (1, 5), (1, 4),
-                                           (1, 3)])
+                                           (1, 3), (2, 1)])
     def test_staged_rows_bound_every_tile(self, per_line, walk, ntap):
         """Over the GEMM tiles of 128 rows and the dWt chunks of 128 rows
         (which may end early, at a split's end; their lines' frames padded
