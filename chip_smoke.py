@@ -10,10 +10,13 @@ non-zero exit code:
 2. build        -- nvcc builds the kernel library from the port's ``csrc/``;
                    then ``sass``: ``cuobjdump -sass`` counts the tensor-core
                    instructions of every bf16 tensor-core kernel: HGMMA
-                   (wgmma) in the temporal taps' GEMM and dWt kernels and
-                   in block_eval's spatial and taps kernels, HMMA
-                   (mma.sync) in the spatial forward, t, dx and dW kernels;
-                   the run fails if one has none of its kind;
+                   (wgmma) in the temporal taps' GEMM and dWt kernels, in
+                   block_eval's spatial and taps kernels and in the spatial
+                   ops' forward, dx and dW kernels and their t kernel where
+                   it recomputes y_k (every instantiation but the save
+                   op's), HMMA (mma.sync) in the spatial forward and t
+                   kernels (the aggregation, t_k and dA); the run fails if
+                   one has none of its kind;
                    ``cuobjdump -res-usage`` gives each one's registers,
                    stack and spill bytes beside it.
 3. kernel       -- ``block_eval`` against its plain PyTorch version on the
@@ -44,7 +47,8 @@ non-zero exit code:
                    tightly against the plain version on the same bf16
                    inputs, their backwards twice (bitwise equal), and at
                    an odd width (C=40, T=37; the temporal op at strides 1
-                   and 2, and at C=36, whose weights TMA cannot read).
+                   and 2, and at C=36, whose weights TMA cannot read;
+                   the spatial op at C=36 too, whose rows take plain loads).
 7. train        -- ``bench.py``'s train step through ``make_train_step``:
                    full-width DEFAULT_PLAN, bf16, dropout 0.5, the hybrid
                    with blocks 0-6 fused, Adam 1e-3, B=64, T=304; 28 op
@@ -66,7 +70,7 @@ non-zero exit code:
                    float32 oracle), plus a fixed graph; both ops' bf16
                    tensor-core kernels also tightly, their backwards twice,
                    and at an odd width (C=40, T=37, both layouts; the
-                   temporal op at strides 1 and 2, and at C=36).
+                   temporal op at strides 1 and 2; both ops at C=36).
 10. route_train -- the train step of route A (``layout="vntc"``) and of
                    route B (``spatial_impl``/``temporal_impl="pallas"``):
                    bench.py's configuration on the op chain; 10 launches of
@@ -80,14 +84,16 @@ non-zero exit code:
                    path's, and of each conv op per block shape, direction
                    and layout beside its plain version, its bound,
                    cuDNN's conv (the temporal op) and the op path's own
-                   graph conv (``op_ms``, the spatial op).
+                   graph conv (``op_ms``, the spatial op); the spatial
+                   backward's device ms by kernel (t, dx, dW, the
+                   reductions; ``torch.profiler``).
 12. save_kernel -- ``spatial_block_save``'s forward and backward kernels
                    against their plain versions at blocks 8-9's shape
                    (float32 tightly, bfloat16 against a float32 oracle and
                    tightly against the plain version, the backward twice),
-                   relu1 on and off, and at the odd width; its six
-                   gradients bitwise against ``spatial_block``'s (the
-                   recompute kernel).
+                   relu1 on and off, and at the odd widths (C=40 and 36);
+                   its six gradients bitwise against ``spatial_block``'s
+                   (the recompute kernel).
 13. fused_train -- bench.py's step with every block fused
                    (``block_impl="fused"``): 8 launches of ``spatial_block``,
                    2 of ``spatial_block_save`` and 10 of ``temporal_block``
@@ -105,7 +111,8 @@ non-zero exit code:
 15. fused_time  -- CUDA-event times of the fused step beside the op path,
                    the hybrid and routes A and B, of the save op at blocks
                    8-9 beside its plain version, the recompute op and its
-                   bound, of the fused step's kernels with cuDNN's conv
+                   bound (their backwards' device ms by kernel too), of the
+                   fused step's kernels with cuDNN's conv
                    beside temporal_block, and of the fused eval step.
 16. cli_train   -- the training entry point end to end:
                    ``stgcn_tpu_torch.cli.train.main`` in this process on a
@@ -186,12 +193,21 @@ ODD_C, ODD_T = 40, 37
 # strides) and take the plain-load producer; drawn from a generator of its
 # own
 ODD_C8 = 36
-# the bf16 tensor-core kernels on mma.sync (HMMA), by their symbols' names
-MMA_KERNELS = ("spatial_mma_fwd_kernel", "spatial_mma_t_kernel",
-               "spatial_mma_dx_kernel", "spatial_mma_dw_kernel")
-# the bf16 kernels on wgmma (HGMMA): the temporal ops' and block_eval's
+# the bf16 kernels with mma.sync (HMMA), by patterns of their symbols'
+# names: the spatial ops' forward (the aggregation) and t kernel (t_k and
+# dA), which also run wgmma
+MMA_KERNELS = ("spatial_wg_fwd_kernel", "spatial_wg_t_kernel")
+# the bf16 kernels on wgmma (HGMMA): the temporal ops', block_eval's and
+# the spatial ops'; the t kernel only where it recomputes y_k (SAVE false,
+# the second template argument, mangled or not), the save op's reads it
 WGMMA_KERNELS = ("tap_gemm_kernel", "tap_dwt_kernel",
-                 "block_eval_spatial_kernel", "block_eval_taps_kernel")
+                 "block_eval_spatial_kernel", "block_eval_taps_kernel",
+                 "spatial_wg_fwd_kernel", "spatial_wg_dx_kernel",
+                 "spatial_wg_dw_kernel",
+                 r"spatial_wg_t_kernel(ILb[01]ELb0E|<(true|false), false)")
+# the spatial backward's kernels by the pieces the time phases report
+SPATIAL_PARTS = {"t": "_t_kernel", "dx": "_dx_kernel", "dw": "_dw_kernel",
+                 "reduce": "reduce"}
 # f32 whole-network check and bf16 serving check
 FORWARD_REL = 1e-3
 ARGMAX_AGREEMENT = 0.99
@@ -473,9 +489,8 @@ def check_repeat(name, first, second, phase, direction="backward",
 def sass_phase(lib_path) -> dict:
     """Tensor-core instructions in each bf16 tensor-core kernel of the built
     library, from ``cuobjdump -sass`` beside ``nvcc``: HGMMA (wgmma) in
-    every temporal kernel and block_eval's, HMMA (mma.sync) in the spatial
-    ones; fails if a kernel has none of its kind, or if a family is
-    missing."""
+    every WGMMA_KERNELS kernel, HMMA (mma.sync) in every MMA_KERNELS one;
+    fails if a kernel has none of its kind, or if a family is missing."""
     from stgcn_tpu_torch.kernels import _build
 
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -495,11 +510,12 @@ def sass_phase(lib_path) -> dict:
 
     def family(names, op):
         return {k: v[op] for k, v in counts.items()
-                if any(name in k for name in names)}
+                if any(re.search(name, k) for name in names)}
 
     hmma, hgmma = family(MMA_KERNELS, "HMMA"), family(WGMMA_KERNELS, "HGMMA")
     ok = all(all(found.values())
-             and all(any(name in k for k in found) for name in names)
+             and all(any(re.search(name, k) for k in found)
+                     for name in names)
              for found, names in ((hmma, MMA_KERNELS),
                                   (hgmma, WGMMA_KERNELS)))
     emit("sass", cuobjdump=str(cuobjdump), kernels=len(hmma) + len(hgmma),
@@ -508,9 +524,45 @@ def sass_phase(lib_path) -> dict:
          ok=ok)
     if not ok:
         raise AssertionError("a bf16 wgmma kernel has no HGMMA "
-                             "instruction, another bf16 tensor-core kernel "
-                             "no HMMA, or one is missing from the library")
+                             "instruction, a bf16 mma.sync kernel no HMMA, "
+                             "or one is missing from the library")
     return {**hmma, **hgmma}
+
+
+def kernel_ms_by_name(fn, reps: int = 3) -> dict:
+    """Device ms a call of each CUDA kernel ``fn`` launches, by a short
+    name (the kernel's own, with its template arguments), from one
+    ``torch.profiler`` window over ``reps`` calls after one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for ev in prof.key_averages():
+        total = (getattr(ev, "device_time_total", None)
+                 or getattr(ev, "cuda_time_total", 0))
+        if total:
+            m = re.search(r"(\w+_kernel(<[^()]*>)?|\w*reduce\w*)", ev.key)
+            name = m.group(1) if m else ev.key[:60]
+            out[name] = out.get(name, 0.0) + total / reps / 1e3
+    return out
+
+
+def spatial_parts_ms(kernels: dict) -> dict:
+    """A spatial backward's device ms by piece: t (t_k and dA), dx, dw,
+    reduce (the ordered sums of the slices) and other (the wrapper's casts
+    and copies)."""
+    out = dict.fromkeys((*SPATIAL_PARTS, "other"), 0.0)
+    for name, ms in kernels.items():
+        part = next((p for p, key in SPATIAL_PARTS.items() if key in name),
+                    "other")
+        out[part] += ms
+    return out
 
 
 def resource_usage(cuobjdump, lib_path, kernels) -> dict:
@@ -633,6 +685,10 @@ def train_kernel_phase(dev, gen, odd_gen) -> dict:
     odd8 = torch.Generator(device=dev).manual_seed(SEED + 6)
     for stride in (1, 2):
         temporal_case(ODD_C8, stride, ODD_T, torch.bfloat16, rng=odd8)
+    # the spatial op at C=36 (rows without 16-byte strides: plain loads),
+    # from a generator of its own
+    spatial_odd8 = torch.Generator(device=dev).manual_seed(SEED + 12)
+    spatial_case(ODD_C8, ODD_C8, ODD_T, torch.bfloat16, rng=spatial_odd8)
     return worst
 
 
@@ -1088,6 +1144,12 @@ def conv_kernel_phase(dev, gen, odd_gen) -> dict:
         for stride in (1, 2):
             run("temporal_conv", ODD_C8, ODD_C8, stride, ODD_T, True,
                 torch.bfloat16, layout, vmajor, odd8)
+    # the spatial conv at C=36 (rows without 16-byte strides), from a
+    # generator of its own
+    spatial_odd8 = torch.Generator(device=dev).manual_seed(SEED + 13)
+    for layout, vmajor in LAYOUTS.items():
+        run("spatial_conv", ODD_C8, ODD_C8, 1, ODD_T, True, torch.bfloat16,
+            layout, vmajor, spatial_odd8)
     return worst
 
 
@@ -1311,7 +1373,9 @@ def route_time_phase(dev, gen, peak_flops, peak_bytes) -> dict:
     of each conv op's kernel, plain version and library call (cuDNN, the
     temporal op only) per block shape, direction and layout, beside its
     bound, and of the op path's own graph conv beside the spatial op
-    (``op_ms``).  Returns the per-step sums per (op, layout, direction)."""
+    (``op_ms``); the spatial backward's device ms by kernel
+    (``kernels_ms``: t, dx, dw, reduce, other).  Returns the per-step sums
+    per (op, layout, direction)."""
     import torch
 
     from stgcn_tpu_torch.models.stgcn import STGCN
@@ -1331,6 +1395,7 @@ def route_time_phase(dev, gen, peak_flops, peak_bytes) -> dict:
         del ts
     shapes = plan_block_shapes()
     totals: dict = {}
+    parts: dict = {}   # layout -> the spatial backward's ms a step by kernel
     # the op path's graph conv draws from a generator of its own, so the
     # kernels' inputs stay those of earlier runs
     op_gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -1359,6 +1424,13 @@ def route_time_phase(dev, gen, peak_flops, peak_bytes) -> dict:
                         op_ms=(op_ms[direction] if op == "spatial_conv"
                                else None),
                         **bound_ms(cost[i], peak_flops, peak_bytes))
+                    if op == "spatial_conv" and direction == "backward":
+                        entry["kernels_ms"] = spatial_parts_ms(
+                            kernel_ms_by_name(lambda: kernel(args, g)))
+                        lay = parts.setdefault(layout, dict.fromkeys(
+                            entry["kernels_ms"], 0.0))
+                        for key, ms in entry["kernels_ms"].items():
+                            lay[key] += blocks * ms
                     row[f"{op}.{layout}.{direction}"] = entry
                     tot = totals.setdefault((op, layout, direction), dict(
                         ms=0.0, plain_ms=0.0, library_ms=0.0, op_ms=0.0,
@@ -1379,6 +1451,7 @@ def route_time_phase(dev, gen, peak_flops, peak_bytes) -> dict:
                          if k[0] == "spatial_conv"},
          bound_ms_per_step={".".join(k): v["bound_ms"]
                             for k, v in totals.items()},
+         spatial_backward_kernels_ms_per_step=parts,
          batch=B, frames=T, dtype="bfloat16")
     return totals
 
@@ -1475,8 +1548,9 @@ def save_kernel_phase(dev, gen) -> dict:
     plain versions at blocks 8-9's shape, relu1 on and off, float32
     tightly and bfloat16 against a float32 oracle (and, bf16, tightly
     against the plain version on the same inputs, the backward twice),
-    plus the odd width in bf16; its six gradients held bitwise against
-    ``spatial_block``'s (the recompute kernel) on the same inputs.
+    plus the odd widths (C=40 and 36) in bf16; its six gradients held
+    bitwise against ``spatial_block``'s (the recompute kernel) on the same
+    inputs.
     Returns the largest bf16 errors per direction."""
     import torch
 
@@ -1537,6 +1611,9 @@ def save_kernel_phase(dev, gen) -> dict:
     # keep their inputs
     spatial_odd = torch.Generator(device=dev).manual_seed(SEED + 4)
     run(ODD_C, ODD_C, ODD_T, torch.bfloat16, True, spatial_odd)
+    # C=36 (rows without 16-byte strides), from a generator of its own
+    spatial_odd8 = torch.Generator(device=dev).manual_seed(SEED + 14)
+    run(ODD_C8, ODD_C8, ODD_T, torch.bfloat16, True, spatial_odd8)
     return worst
 
 
@@ -1838,7 +1915,8 @@ def fused_time_phase(dev, gen, peak_flops, peak_bytes, hybrid_totals,
                      hybrid_conv_library) -> dict:
     """CUDA-event ms of the fused step beside the op path, the hybrid and
     routes A and B; of the save op per direction at blocks 8-9 beside its
-    plain version, the recompute op and its bound; of the fused step's
+    plain version, the recompute op and its bound (each backward's device
+    ms by kernel beside it); of the fused step's
     kernels (``hybrid_totals``, train_time's sums over blocks 0-6, plus
     blocks 7-9 timed here) with cuDNN's conv beside temporal_block
     (``hybrid_conv_library`` for blocks 0-6); and of the fused eval forward
@@ -1898,6 +1976,10 @@ def fused_time_phase(dev, gen, peak_flops, peak_bytes, hybrid_totals,
                      recompute_ms=cuda_time_ms(recompute),
                      **bound_ms(costs[i], peak_flops, peak_bytes))
         entry["bound_by"] = bound_kind(entry["ops_ms"], entry["bytes_ms"])
+        if direction == "backward":   # device ms by kernel, both ops
+            entry["kernels_ms"] = spatial_parts_ms(kernel_ms_by_name(kernel))
+            entry["recompute_kernels_ms"] = spatial_parts_ms(
+                kernel_ms_by_name(recompute))
         row[direction] = entry
         totals[("spatial_block_save", direction)] = {
             k: blocks * entry[k] for k in ("ms", "plain_ms", "recompute_ms",

@@ -63,16 +63,18 @@ The bfloat16 kernels of every op run on Hopper's tensor cores:
   ``mma.sync``), then the temporal forward's implicit GEMM with the
   block's epilogue (the row staging of ``csrc/tile_rows.cuh``, shared
   with ``temporal_block``);
-
-and on ``mma.sync`` (bf16 tiles over padded shared rows, weights through a
-``cp.async`` ring, ``csrc/tap_mma.cuh``):
-
-* ``spatial_block``, ``spatial_block_save`` and ``spatial_conv``:
-  tiles of whole frames (5 of 25 joints in 128 rows), the expansion
-  y_k = round(h . W_k + b_k) and the aggregation per frame with the joints
-  padded to 32; the backward a row kernel (t_k = round(A_k^T . g), kept in
-  a bf16 scratch, and dA), a dx GEMM and a dW GEMM split over the rows,
-  their partial slices summed in order.
+* ``spatial_block``, ``spatial_block_save`` and ``spatial_conv`` on
+  ``wgmma`` too (``csrc/spatial_block.cu``, the weights padded to 16-byte
+  rows so TMA reads every one): a persistent forward (y_k for 5 whole
+  frames a tile with W_k by TMA, resident where it fits, h a tile ahead,
+  the aggregation per frame on ``mma.sync`` with the joints padded to 32,
+  as ``block_eval``'s spatial kernel does), and a backward of three
+  kernels: a persistent row kernel (t_k = round(A_k^T . g) on
+  ``mma.sync`` into a bf16 scratch in x's row order, and dA with y_k
+  recomputed by the forward's own ``y_slab``, or read from the saved
+  tensor), a dx GEMM over x's rows with depth K * C_out (t and W^T by TMA;
+  its epilogue also writes h for the next kernel) and a dW GEMM split over
+  the rows (h and t by TMA), their partial slices summed in order.
 
 Their bounds and what each design does about them are in the notes at the
 head of each source.  The float32 kernels stay on the CUDA cores (float32

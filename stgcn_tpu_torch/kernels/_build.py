@@ -37,22 +37,22 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 BLOCK_EVAL_ARGTYPES = [_P] * 14 + [_I] * 16 + [_P]
 # block_eval_mma_launch(15 pointers, 23 ints, stream), bf16
 BLOCK_EVAL_MMA_ARGTYPES = [_P] * 15 + [_I] * 23 + [_P]
-# spatial_block_fwd_launch(7 pointers, 9 ints, stream)
-SPATIAL_FWD_ARGTYPES = [_P] * 7 + [_I] * 9 + [_P]
-# spatial_block_bwd_launch(11 pointers, 11 ints, stream)
-SPATIAL_BWD_ARGTYPES = [_P] * 11 + [_I] * 11 + [_P]
-# spatial_block_save_fwd_launch(8 pointers, 9 ints, stream)
-SPATIAL_SAVE_FWD_ARGTYPES = [_P] * 8 + [_I] * 9 + [_P]
-# spatial_block_save_bwd_launch(11 pointers, 10 ints, stream)
-SPATIAL_SAVE_BWD_ARGTYPES = [_P] * 11 + [_I] * 10 + [_P]
+# spatial_block_fwd_launch(7 pointers, 8 ints, stream), float32
+SPATIAL_FWD_ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
+# spatial_block_bwd_launch(11 pointers, 10 ints, stream), float32
+SPATIAL_BWD_ARGTYPES = [_P] * 11 + [_I] * 10 + [_P]
+# spatial_block_save_fwd_launch(8 pointers, 8 ints, stream), float32
+SPATIAL_SAVE_FWD_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
+# spatial_block_save_bwd_launch(11 pointers, 9 ints, stream), float32
+SPATIAL_SAVE_BWD_ARGTYPES = [_P] * 11 + [_I] * 9 + [_P]
 # temporal_block_fwd_launch(6 pointers, 11 ints, stream), float32
 TEMPORAL_FWD_ARGTYPES = [_P] * 6 + [_I] * 11 + [_P]
 # temporal_block_bwd_launch(8 pointers, 12 ints, stream), float32
 TEMPORAL_BWD_ARGTYPES = [_P] * 8 + [_I] * 12 + [_P]
-# spatial_conv_fwd_launch(5 pointers, 9 ints, stream)
-SPATIAL_CONV_FWD_ARGTYPES = [_P] * 5 + [_I] * 9 + [_P]
-# spatial_conv_bwd_launch(9 pointers, 11 ints, stream)
-SPATIAL_CONV_BWD_ARGTYPES = [_P] * 9 + [_I] * 11 + [_P]
+# spatial_conv_fwd_launch(5 pointers, 8 ints, stream), float32
+SPATIAL_CONV_FWD_ARGTYPES = [_P] * 5 + [_I] * 8 + [_P]
+# spatial_conv_bwd_launch(9 pointers, 10 ints, stream), float32
+SPATIAL_CONV_BWD_ARGTYPES = [_P] * 9 + [_I] * 10 + [_P]
 # temporal_conv_fwd_launch(4 pointers, 12 ints, stream), float32
 TEMPORAL_CONV_FWD_ARGTYPES = [_P] * 4 + [_I] * 12 + [_P]
 # temporal_conv_bwd_launch(6 pointers, 13 ints, stream), float32
@@ -61,11 +61,11 @@ TEMPORAL_CONV_BWD_ARGTYPES = [_P] * 6 + [_I] * 13 + [_P]
 TEMPORAL_MMA_FWD_ARGTYPES = [_P] * 6 + [_I] * 14 + [_P]
 # temporal_mma_bwd_launch(10 pointers, 19 ints, stream), bf16, both ops
 TEMPORAL_MMA_BWD_ARGTYPES = [_P] * 10 + [_I] * 19 + [_P]
-# spatial_mma_fwd_launch(8 pointers, 11 ints, stream), bf16, every op of
+# spatial_mma_fwd_launch(8 pointers, 13 ints, stream), bf16, every op of
 # spatial_block.cu
-SPATIAL_MMA_FWD_ARGTYPES = [_P] * 8 + [_I] * 11 + [_P]
-# spatial_mma_bwd_launch(15 pointers, 18 ints, stream), bf16
-SPATIAL_MMA_BWD_ARGTYPES = [_P] * 15 + [_I] * 18 + [_P]
+SPATIAL_MMA_FWD_ARGTYPES = [_P] * 8 + [_I] * 13 + [_P]
+# spatial_mma_bwd_launch(16 pointers, 25 ints, stream), bf16
+SPATIAL_MMA_BWD_ARGTYPES = [_P] * 16 + [_I] * 25 + [_P]
 # every C entry point and its argument kinds; each returns a cudaError_t
 ENTRY_POINTS = {
     "block_eval_launch": BLOCK_EVAL_ARGTYPES,

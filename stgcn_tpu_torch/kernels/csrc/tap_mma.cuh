@@ -1,29 +1,22 @@
-// A warp-level bf16 tap product on Hopper's tensor cores, shared by the
-// bf16 kernels of temporal_block.cu, block_eval.cu and spatial_block.cu.
+// A warp-level bf16 product on Hopper's tensor cores (mma.sync), shared by
+// the bf16 kernels of temporal_block.cu, block_eval.cu and spatial_block.cu.
 //
-// Each of them computes
-//   out[r, o] = sum_tap sum_c A(row_addr(r, tap))[c] . B_tap[c, o]
-// with A rows in shared memory at a per-row offset (a strided frame walk,
-// a joint group and a halo are just offsets) and B_tap chunks staged from
-// device memory.  The pieces:
+// The pieces:
 //   * ldmatrix reads the bf16 operands from shared memory: A row-major
-//     (x4), or A stored K-major (x4.trans, the dWt product); B stored
-//     K-major, [k][n], with x4.trans.
+//     (x4), or A stored K-major (x4.trans, as the dWt and dW kernels read
+//     their A); B stored K-major, [k][n], with x4.trans, or N-major with a
+//     plain x4 (mma_k16_nk).
 //   * mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 multiplies, with
-//     float32 accumulators in registers.  A warp owns a 16*MI x 8*NJ tile.
+//     float32 accumulators in registers.  A warp owns a 16*MI x 8*NJ tile:
+//     the per-frame aggregations of block_eval.cu and spatial_block.cu
+//     (the 32 x 32 adjacency times 16 columns), the spatial backward's t_k
+//     and dA.
 //   * Shared rows have a padded pitch of round16(C) + 8 bf16: consecutive
 //     rows start 16 bytes apart modulo 128, so the eight row addresses of
 //     one ldmatrix phase fall in eight different bank groups, and every row
 //     starts 16-byte aligned.
-//   * stage_tile() copies a [rows][cols] tile of B (or of activations) with
-//     cp.async (16 bytes a thread, zero-filled past the valid rows and
-//     columns) into one stage of a two-stage ring, so that the next chunk
-//     loads while the tensor cores work on the current one.  A tile whose
-//     rows are not 16-byte aligned in device memory (a channel count that
-//     is not a multiple of 8) goes through plain loads into the same
-//     layout instead.
-//   * Channel tails are zero in shared memory: K is padded to a multiple
-//     of 16 and N to the tile with zeros, so any channel count runs here.
+//   * cp.async copies 16 bytes a thread (zero-filled past the valid bytes)
+//     for the kernels' own row staging.
 //   * stage8() stages activation rows [through an affine and ReLU, rounded
 //     to bf16 on the way].
 
@@ -38,7 +31,6 @@ namespace {  // each translation unit keeps its own copy
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // 8 warps a CTA
 constexpr int kPad = 8;        // bf16 elements of padding on each shared row
 
 __host__ __device__ constexpr int round16(int c) { return (c + 15) / 16 * 16; }
@@ -104,40 +96,11 @@ __device__ __forceinline__ int at_lane_col(int lane) {
   return ((lane >> 3) & 1) * 8;
 }
 
-// acc[MI][NJ] += A (16*MI x 16) . B (16 x 8*NJ), one k16 step.
-//   a_addr[i]: shared address of this lane's A row of m16 block i at the
-//     step's first column plus lane_col8(lane) (A_TRANS: of its k row at
-//     the block's first m column plus at_lane_col(lane));
-//   b_addr: shared address of B row (step's k + (lane & 15)) at the warp
-//     tile's first column plus lane_col8(lane).
-template <int MI, int NJ, bool A_TRANS = false>
-__device__ __forceinline__ void mma_k16(float (&acc)[MI][NJ][4],
-                                        const uint32_t (&a_addr)[MI],
-                                        uint32_t b_addr) {
-  static_assert(NJ % 2 == 0, "B is read 16 columns at a time");
-  uint32_t a[MI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    if constexpr (A_TRANS) {
-      ldsm_x4_t(a[i], a_addr[i]);
-    } else {
-      ldsm_x4(a[i], a_addr[i]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NJ / 2; ++j) {
-    uint32_t b[4];
-    ldsm_x4_t(b, b_addr + j * 16 * (uint32_t)sizeof(bf16));
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      mma_bf16(acc[i][2 * j], a[i], b[0], b[1]);
-      mma_bf16(acc[i][2 * j + 1], a[i], b[2], b[3]);
-    }
-  }
-}
-
-// mma_k16 with the A fragments already in registers (loaded once with
-// ldsm_x4 and reused across column tiles, as the 32 x 32 adjacency is).
+// acc[MI][NJ] += A (16*MI x 16) . B (16 x 8*NJ), one k16 step, with the A
+// fragments already in registers (loaded once with ldsm_x4 and reused
+// across column tiles, as the 32 x 32 adjacency is); b_addr: shared
+// address of B row (step's k + (lane & 15)) at the warp tile's first
+// column plus lane_col8(lane).
 template <int MI, int NJ>
 __device__ __forceinline__ void mma_k16_frag(float (&acc)[MI][NJ][4],
                                              const uint32_t (&a)[MI][4],
@@ -157,9 +120,10 @@ __device__ __forceinline__ void mma_k16_frag(float (&acc)[MI][NJ][4],
 
 // acc[2] (two n8 blocks) += A (16 x 16) . B (16 x 16) with B stored
 // N-major, [n][k] (the transpose of the usual [k][n]), read by a plain
-// ldmatrix.x4: a_addr as for mma_k16; b_addr the shared address of B row
-// n = at_lane_row(lane) (n rows 0-15 of the tile) at k column
-// at_lane_col(lane).  Matrices 0-3 are (n 0-7, k 0-7), (n 0-7, k 8-15),
+// ldmatrix.x4: a_addr the shared address of this lane's A row
+// (a_lane_row) at the step's first column plus lane_col8(lane); b_addr
+// the shared address of B row n = at_lane_row(lane) (n rows 0-15 of the
+// tile) at k column at_lane_col(lane).  Matrices 0-3 are (n 0-7, k 0-7), (n 0-7, k 8-15),
 // (n 8-15, k 0-7), (n 8-15, k 8-15): b0, b1 of each n8 block.
 __device__ __forceinline__ void mma_k16_nk(float (&acc)[2][4],
                                            uint32_t a_addr, uint32_t b_addr) {
@@ -224,57 +188,6 @@ __device__ __forceinline__ void stage8(bf16* dst, const bf16* row, int c,
     }
   }
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
-}
-
-// Copy the tile src[r * src_pitch + c] (r < rows, c < cols, cols a
-// multiple of 8) into shared dst[r * dst_pitch + c] by every thread of the
-// CTA: the rows r < rows_valid and columns c < cols_valid from src, zero
-// elsewhere.  With cp.async when each row of src starts 16-byte aligned
-// (the caller commits and waits), else with plain loads.
-__device__ __forceinline__ void stage_tile(bf16* dst, int dst_pitch,
-                                           const bf16* src, long long src_pitch,
-                                           int rows, int rows_valid, int cols,
-                                           int cols_valid) {
-  const int pieces = cols / 8;
-  const bool aligned =
-      (src_pitch % 8 == 0) && ((reinterpret_cast<uintptr_t>(src) & 15) == 0);
-  for (int e = threadIdx.x; e < rows * pieces; e += blockDim.x) {
-    const int r = e / pieces;
-    const int c = (e - r * pieces) * 8;
-    bf16* d = dst + (size_t)r * dst_pitch + c;
-    const int valid = (r < rows_valid) ? min(8, max(0, cols_valid - c)) : 0;
-    if (aligned) {
-      const bf16* s = valid > 0 ? src + (long long)r * src_pitch + c : src;
-      cp_async16(smem_u32(d), s, valid * (int)sizeof(bf16));
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        d[k] = k < valid ? src[(long long)r * src_pitch + c + k]
-                         : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// The two-stage ring: issue(ch) stages chunk ch into stage ch & 1 (and
-// commits it); compute(ch) reads it once every thread's copies of it have
-// landed.  Chunk ch + 1 loads while chunk ch is computed.  Every thread of
-// the CTA calls this; it ends with a barrier, so the ring is free again.
-template <typename Issue, typename Compute>
-__device__ __forceinline__ void ring_loop(int nchunks, Issue&& issue,
-                                          Compute&& compute) {
-  if (nchunks <= 0) return;
-  issue(0);
-  for (int ch = 0; ch < nchunks; ++ch) {
-    if (ch + 1 < nchunks) {
-      issue(ch + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    compute(ch);
-    __syncthreads();
-  }
 }
 
 }  // namespace

@@ -491,21 +491,6 @@ inline int dwt_smem(int zrows, int stages) {  // temporal_block.py dwt_smem
   return wg::kAtomBytes + stages * (dw_stage_bytes(zrows) + 16) + 128 * 8 * 4;
 }
 
-// One halving exchange of a warp's column sums across lane bit BIT: the
-// lanes with the bit set keep part[HALF .. 2 HALF), the others part[0 ..
-// HALF), each adding its partner's copy of what it keeps into part[0 ..
-// HALF).
-template <int HALF, int BIT>
-__device__ __forceinline__ void halve(float (&part)[32], int lane) {
-  const bool upper = (lane >> BIT) & 1;
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float keep = upper ? part[HALF + i] : part[i];
-    const float give = upper ? part[i] : part[HALF + i];
-    part[i] = keep + __shfl_xor_sync(0xffffffffu, give, 1 << BIT);
-  }
-}
-
 struct GemmArgs {
   CUtensorMap wmap;   // the weights' TMA map, when tma
   const bf16* x;      // the GEMM's input rows: z (forward) or g (dx)

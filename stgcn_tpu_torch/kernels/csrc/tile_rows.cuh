@@ -6,7 +6,9 @@
 // halo are offsets).  Here are the tile's geometry (Tile), the walk over
 // its staged rows, their staging from device memory (cp.async where rows
 // are 16-byte aligned, else plain loads; zero outside the frames [0, TT)
-// and past the channels) and the paired bf16 store of an epilogue.
+// and past the channels), and two pieces of an epilogue, which
+// spatial_block.cu's dx kernel shares: a warp's column sums by halving
+// exchanges and the paired bf16 store.
 
 #pragma once
 
@@ -314,6 +316,21 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int P, const Tile& tl,
   } else {
     load_rows<AFF, VM>(dst, P, tl, x, TT, C, c0, cols, s2, t2, relu2, V, i,
                        n);
+  }
+}
+
+// One halving exchange of a warp's column sums across lane bit BIT: the
+// lanes with the bit set keep part[HALF .. 2 HALF), the others part[0 ..
+// HALF), each adding its partner's copy of what it keeps into part[0 ..
+// HALF).
+template <int HALF, int BIT>
+__device__ __forceinline__ void halve(float (&part)[32], int lane) {
+  const bool upper = (lane >> BIT) & 1;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float keep = upper ? part[HALF + i] : part[i];
+    const float give = upper ? part[i] : part[HALF + i];
+    part[i] = keep + __shfl_xor_sync(0xffffffffu, give, 1 << BIT);
   }
 }
 

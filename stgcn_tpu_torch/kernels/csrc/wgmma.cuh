@@ -1,6 +1,7 @@
-// Hopper's asynchronous tensor-core path for the bf16 temporal kernels of
-// temporal_block.cu: warpgroup MMA (wgmma) with A in registers and B in
-// 128B-swizzled shared memory, mbarrier rings, and TMA tile loads.
+// Hopper's asynchronous tensor-core path for the bf16 kernels of
+// temporal_block.cu, block_eval.cu and spatial_block.cu: warpgroup MMA
+// (wgmma) with A in registers and B in 128B-swizzled shared memory,
+// mbarrier rings, and TMA tile loads.
 //
 //   * mma_rs<N>() issues wgmma.mma_async m64nNk16 (N = 64, 128 or 256),
 //     bf16 inputs, float32 accumulators: a warpgroup (four warps) owns 64

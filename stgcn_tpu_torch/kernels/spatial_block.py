@@ -10,11 +10,12 @@ and ``spatial_block_packed`` (``stgcn_tpu/kernels/block_packed.py``), both of
 which compute this function; the port keeps no channel padding, so ``z`` has
 exactly ``C_out`` channels.  The op is a ``torch.autograd.Function`` whose
 forward and backward run hand-written CUDA kernels
-(``csrc/spatial_block.cu``) for a CUDA tensor: bfloat16 on the tensor
-cores (:func:`plan_spatial_mma_forward`, :func:`plan_spatial_mma_backward`;
-the backward is a row kernel for t_k and dA, a dx kernel, a dW kernel and
-the passes that sum their partial slices), float32 on the scalar kernels
-(:func:`plan_frames`).  For a CPU tensor it runs the plain PyTorch versions
+(``csrc/spatial_block.cu``) for a CUDA tensor: bfloat16 on Hopper's
+warpgroup MMA (:func:`plan_spatial_mma_forward`,
+:func:`plan_spatial_mma_backward`; the backward is a row kernel for t_k
+and dA, a dx GEMM, a dW GEMM and the passes that sum their partial
+slices), float32 on the scalar kernels (:func:`plan_frames`).  For a CPU
+tensor it runs the plain PyTorch versions
 :func:`spatial_block_forward_reference` and
 :func:`spatial_block_backward_reference`, which round at the same points.
 
@@ -42,8 +43,13 @@ from __future__ import annotations
 import torch
 
 from stgcn_tpu_torch.kernels.block_eval import (
+    ATOM,
+    HALF_SM,
     KERNEL_DTYPES,
+    MAX_RESIDENT,
+    N_TILES,
     PAD,
+    RINGS,
     SMEM_LIMIT,
     pitch,
 )
@@ -172,23 +178,32 @@ def plan_frames(v: int, c_in: int, c_out: int) -> tuple[int, int, int]:
                      f"not fit in {SMEM_LIMIT} bytes of shared memory")
 
 
-# ---- bfloat16: the tensor-core kernels ---------------------------------
-# csrc/spatial_block.cu spatial_mma's tiles; shared rows are ``pitch(c)``
-# elements wide (block_eval.pitch, tap_mma.cuh)
-MMA_ROWS = 128     # rows (frame, joint) of a tile (spatial_mma::BM)
-MMA_BN = 64        # columns of a y or dh column block (spatial_mma::BN)
-MMA_KC = 32        # weight columns per ring stage (spatial_mma::KC)
-MMA_KR = 64        # dW: rows of the GEMM's K per chunk (spatial_mma::KR)
-VP = 32            # joints, zero-padded, of A's products (spatial_mma::VP)
-MAX_FRAMES = 6     # frames of a tile (spatial_mma::MAX_FRAMES)
-YR = MMA_ROWS + 16  # staged rows of g and y (spatial_mma::YR)
+# ---- bfloat16: the warpgroup kernels -------------------------------------
+# csrc/spatial_block.cu spatial_wg's tiles and shared layouts; shared rows of
+# h are ``pitch(c)`` elements wide (block_eval.pitch, tap_mma.cuh)
+MMA_ROWS = 128     # rows (frame, joint) of a tile (spatial_wg::BM)
+SLAB = 64          # output channels of a slab (spatial_wg::SN)
+VP = 32            # joints, zero-padded, of A's products (spatial_wg::VP)
+MAX_FRAMES = 6     # frames of a tile (spatial_wg::MAX_FRAMES)
+YR = MMA_ROWS + 16  # rows of a slab buffer (spatial_wg::YR)
+SLAB_BYTES = YR * (SLAB + PAD) * 2
+DX_TILE = MMA_ROWS * 128   # dx: a stage's t box, 128 rows of 64 channels
+DW_KR = 128        # dW: rows of a chunk (spatial_wg::DW_KR)
+DW_BOX = DW_KR * 128       # dW: a box of 64 channels of a chunk
+MAX_K = 4          # partitions the kernels take (spatial_wg::kMaxK)
+GEMM_STAGES = (4, 3, 2)    # ring depths of the dx and dW kernels, preferred
+ALIGN = 8          # elements of a 16-byte row stride: TMA's
+
+
+def round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
 def mma_frames(v: int) -> int:
     """F, the frames of a bf16 tile: as many whole frames of ``v`` joints
-    as fill the 128 rows of the ``mma`` tile (5 of 25 joints: 125 rows),
-    at most MAX_FRAMES; each frame's VP-row window of the aggregation lies
-    inside the YR staged rows."""
+    as fill the 128 rows of two consumer warpgroups (5 of 25 joints: 125
+    rows), at most MAX_FRAMES; each frame's VP-row window of the
+    aggregation lies inside the YR rows of a slab buffer."""
     if not 1 <= v <= VP:
         raise ValueError(f"the bf16 spatial kernels take 1..{VP} joints, "
                          f"got V={v}")
@@ -197,73 +212,183 @@ def mma_frames(v: int) -> int:
     return frames
 
 
-def _ring_bytes(bn: int) -> int:
-    return 2 * MMA_KC * (bn + PAD) * 2
+def fwd_smem(c_in: int, c_out: int, k: int, kc: int, stages: int) -> int:
+    """Shared bytes of the forward (spatial_wg::fwd_smem_bytes): the slack
+    that aligns the ring to a swizzle atom, ``stages`` stages of ``kc`` W
+    rows by one slab with a full and an empty mbarrier each, the two h
+    buffers' mbarriers, b_k as float32 per column (C_out rounded up to a
+    slab), s1 and t1 per input channel, the K padded adjacencies, two
+    buffers of h of a tile's rows at ``pitch(c_in)``, a slab's y_k for each
+    partition."""
+    return (ATOM + stages * (kc * 128 + 16) + 32 + 4 * k * round_up(c_out,
+                                                                    SLAB)
+            + 8 * round_up(c_in, 16) + 2 * k * VP * (VP + PAD)
+            + 2 * 2 * MMA_ROWS * pitch(c_in) + k * SLAB_BYTES)
 
 
-def _mma_common(c_in: int, k: int) -> int:
-    """Bytes of the ring, the padded adjacency and the staged h."""
-    return (_ring_bytes(MMA_BN) + k * VP * (VP + PAD) * 2
-            + MMA_ROWS * pitch(c_in) * 2)
+def t_smem(c_in: int, c_out: int, k: int, kc: int, stages: int, hbufs: int,
+           gslots: int, save: bool) -> int:
+    """Shared bytes of the backward's t kernel (spatial_wg::t_smem_bytes):
+    the slack, the W ring and its mbarriers (``stages`` = 0 where y_k is
+    not recomputed), the h and g buffers' mbarriers, b_k, s1 and t1, the dA
+    sums ``[K][2][VP][VP]`` in float32, the K padded A_k^T, ``hbufs``
+    buffers of h (0 where y_k is not recomputed), ``gslots`` g slab buffers
+    (with ``save`` each also holds the K saved y_k slabs), and where y_k is
+    recomputed (``hbufs`` > 0) its slab."""
+    return (ATOM + stages * (kc * 128 + 16) + 64
+            + 4 * k * round_up(c_out, SLAB) + 8 * round_up(c_in, 16)
+            + 4 * k * 2 * VP * VP + 2 * k * VP * (VP + PAD)
+            + hbufs * MMA_ROWS * pitch(c_in) * 2
+            + gslots * (1 + (k if save else 0)) * SLAB_BYTES
+            + (SLAB_BYTES if hbufs else 0))
 
 
-def plan_spatial_mma_forward(v: int, c_in: int, c_out: int, k: int
-                             ) -> tuple[int, int]:
-    """``(F, shared bytes)`` of the bf16 forward: the weight ring, the K
-    padded adjacencies, h of the tile's 128 rows and one partition's y of
-    one column block."""
+def dx_smem(bn: int, stages: int, c_in: int, xtile: bool) -> int:
+    """Shared bytes of the dx kernel (spatial_wg::dx_smem_bytes): the
+    slack, the ring (a stage: a t box of 128 rows by 64 channels and
+    ``bn`` / 64 boxes of W^T's 64 rows) and its mbarriers, the x tile's
+    mbarrier, the column sums ``[2][8][bn]`` and s1, t1 ``[2][bn]`` in
+    float32, and with ``xtile`` the tile's x rows at ``pitch(c_in)``."""
+    return (ATOM + stages * (DX_TILE + bn * 128 + 16) + 16 + 2 * 8 * bn * 4
+            + 2 * bn * 4 + (MMA_ROWS * pitch(c_in) * 2 if xtile else 0))
+
+
+def dw_smem(k: int, stages: int) -> int:
+    """Shared bytes of the dW kernel (spatial_wg::dw_smem_bytes): the
+    slack, the ring (a stage: h's box and a t box for each partition, DW_KR
+    rows by 64 channels each) and its mbarriers, db's column sums
+    ``[64][8]`` in float32."""
+    return ATOM + stages * ((1 + k) * DW_BOX + 16) + 64 * 8 * 4
+
+
+def _check_k(k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the bf16 spatial kernels take 1..{MAX_K} "
+                         f"partitions, got K={k}")
+
+
+def _w_ring(smem_of, c_in: int, c_out: int, k: int, what: str,
+            bufs=((0, 0),)) -> tuple:
+    """``(*buffers, kc, stages, shared bytes)`` of a W ring and the
+    kernel's buffers (``bufs``, in order of preference), in order of
+    preference: two CTAs an SM (HALF_SM each) with W resident (a stage for
+    each of a tile's 64-row chunks, up to MAX_RESIDENT, loaded once a CTA)
+    or a ring of three stages or more, the most buffers first; then one
+    CTA with W resident or the deepest ring, then the most buffers."""
+    chunks = -(-c_out // SLAB) * k * -(-c_in // 64)   # a tile's, kc = 64
+    resident = [(64, max(2, chunks))] if chunks <= MAX_RESIDENT else []
+    two = [ring for ring in RINGS if ring[1] >= 3]
+    candidates = ([(HALF_SM, buf, ring) for buf in bufs
+                   for ring in resident + two]
+                  + [(SMEM_LIMIT, buf, ring) for ring in resident + list(RINGS)
+                     for buf in bufs])
+    for limit, buf, (kc, stages) in candidates:
+        smem = smem_of(*buf, kc, stages)
+        if smem <= limit:
+            return (*buf, kc, stages, smem)
+    raise ValueError(f"no bf16 spatial {what} tile of C_in={c_in}, "
+                     f"C_out={c_out}, K={k} fits in {SMEM_LIMIT} bytes of "
+                     f"shared memory")
+
+
+def plan_spatial_mma_forward(v: int, c_in: int, c_out: int, k: int) -> dict:
+    """The bf16 forward's launch: ``frames`` a tile and the W ring
+    (``kc`` rows a stage, ``stages``) with its shared bytes ``smem``; two
+    persistent CTAs an SM where ``smem`` <= HALF_SM, else one."""
+    _check_k(k)
     frames = mma_frames(v)
-    smem = _mma_common(c_in, k) + YR * (MMA_BN + PAD) * 2
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"no bf16 spatial tile of C_in={c_in}, K={k} fits "
-                         f"in {SMEM_LIMIT} bytes of shared memory")
-    return frames, smem
-
-
-def dw_tile(c_out: int) -> tuple[int, int, int]:
-    """``(NJ, BM, BN)`` of a weight-gradient GEMM (this source's dW and
-    temporal_block.cu's dWt): 64 input channels by 64 output channels up to
-    64 of them, else by 128 (warps of 32 x 8*NJ)."""
-    nj = 4 if c_out > 64 else 2
-    return nj, 64, 32 * nj
-
-
-def dw_splits(rows: int, mats: int, c_in: int, c_out: int,
-              ctas: int) -> tuple[int, int]:
-    """``(splits, rows per split)`` of a weight-gradient GEMM's K =
-    ``rows`` for ``mats`` weight matrices (K partitions, or gamma taps):
-    enough splits for about ``ctas`` CTAs over the matrix x channel tiles,
-    each a whole number of MMA_KR-row chunks."""
-    _, bm, bn = dw_tile(c_out)
-    tiles = mats * -(-c_in // bm) * -(-c_out // bn)
-    want = max(1, round(ctas / tiles))
-    split_rows = -(-(-(-rows // want)) // MMA_KR) * MMA_KR
-    return -(-rows // split_rows), split_rows
+    _, _, kc, stages, smem = _w_ring(
+        lambda _h, _g, kc, st: fwd_smem(c_in, c_out, k, kc, st), c_in, c_out,
+        k, "forward")
+    return dict(frames=frames, kc=kc, stages=stages, smem=smem)
 
 
 def plan_spatial_mma_backward(v: int, m: int, c_in: int, c_out: int, k: int,
-                              ctas: int) -> dict:
-    """The bf16 backward's launch: F ``frames``; the t kernel's ``ctas``
-    (at most one per tile) and ``t_smem``; the dx GEMM's ``tiles_x`` row
-    tiles and ``dx_smem``; the dW GEMM's ``nj_dw``, ``splits`` of
-    ``split_rows`` rows and ``dw_smem``."""
+                              sms: int, *, save: bool = False,
+                              need_da: bool = True,
+                              reads_x: bool = True) -> dict:
+    """The bf16 backward's launch.  The t kernel: ``t_ctas`` persistent
+    CTAs (two an SM, at most one a tile, whatever the shared bytes: a
+    second wave where only one fits, so the save op's tiles fall to the
+    CTAs the recompute's do and its dA sums in the same order), its
+    W ring (``t_kc``, ``t_stages``) and ``t_hbufs`` h buffers where y_k is
+    recomputed (need_da without save; else none, ``t_stages`` = 0),
+    ``t_gslots`` g slab buffers, ``t_smem``: two CTAs an SM with the most
+    buffers that allow it, else one with the most that fit.  The dx GEMM:
+    ``tiles_x`` row tiles of 128, the N tile ``dx_bn`` (the whole C_in),
+    ``dx_stages``, ``dx_smem``; it stages its tile's x rows (``dx_xtile``)
+    where its epilogue ``reads_x`` (the affine, or an h scratch for the dW
+    kernel), N <= 128 and a ring of three stages or more still fits (two
+    CTAs an SM at N = 64).  The dW GEMM: ``dw_splits`` slices of
+    ``dw_split_rows`` rows (whole chunks of DW_KR), about one CTA an SM
+    over the channel tiles, ``dw_stages``, ``dw_smem``.  ``tp`` and ``hp`` are the row
+    pitches of the t and h scratch tensors (16-byte strides)."""
+    _check_k(k)
+    if c_in > N_TILES[-1]:
+        raise ValueError(f"the bf16 spatial backward takes C_in <= "
+                         f"{N_TILES[-1]}, got {c_in}")
     frames = mma_frames(v)
-    t_smem = (_mma_common(c_in, k) + YR * pitch(c_out) * 2
-              + YR * (MMA_BN + PAD) * 2 + k * 2 * VP * VP * 4)
-    dx_smem = (2 * MMA_ROWS * (MMA_KC + PAD) * 2 + _ring_bytes(MMA_BN)
-               + 2 * 4 * MMA_BN * 4)
-    nj_dw, bm_dw, bn_dw = dw_tile(c_out)
-    dw_smem = 2 * MMA_KR * ((bm_dw + PAD) + (bn_dw + PAD)) * 2
-    if max(t_smem, dx_smem, dw_smem) > SMEM_LIMIT:
-        raise ValueError(f"no bf16 spatial tile of C_in={c_in}, "
-                         f"C_out={c_out}, K={k} fits in {SMEM_LIMIT} bytes "
-                         f"of shared memory")
+    tiles = -(-m // frames)
+    if need_da and not save:
+        # a second h or g buffer, or both: two CTAs an SM with one of each
+        # ran slower than one CTA with two of each (C = 128, H100)
+        t_hbufs, t_gslots, t_kc, t_stages, smem = _w_ring(
+            lambda hb, gs, kc, st: t_smem(c_in, c_out, k, kc, st, hb, gs,
+                                          False), c_in, c_out, k, "t",
+            bufs=((2, 2), (1, 2), (2, 1)))
+    else:
+        t_hbufs, t_kc, t_stages = 0, 64, 0
+        fits = [(gs, t_smem(c_in, c_out, k, t_kc, 0, 0, gs, save))
+                for gs in (2, 1)]
+        t_gslots, smem = next(
+            (f for limit in (HALF_SM, SMEM_LIMIT) for f in fits
+             if f[1] <= limit), (0, None))
+        if smem is None:
+            raise ValueError(f"no bf16 spatial t tile of C_out={c_out}, "
+                             f"K={k} fits in {SMEM_LIMIT} bytes")
+    dx_bn = next(n for n in N_TILES if c_in <= n)
+    limits = (HALF_SM, SMEM_LIMIT) if dx_bn == N_TILES[0] else (SMEM_LIMIT,)
+    dx_xtile, dx_stages = next(
+        (xt, st) for xt in ((True, False) if reads_x and dx_bn <= 128
+                            else (False,))
+        for limit in limits for st in (GEMM_STAGES[:2] if xt else GEMM_STAGES)
+        if dx_smem(dx_bn, st, c_in, xt) <= limit)
+    dw_stages = next((st for st in GEMM_STAGES
+                      if dw_smem(k, st) <= SMEM_LIMIT), None)
+    if dw_stages is None:
+        raise ValueError(f"no bf16 spatial dW stage of K={k} fits in "
+                         f"{SMEM_LIMIT} bytes of shared memory")
     rows = m * v
-    splits, split_rows = dw_splits(rows, k, c_in, c_out, ctas)
-    return dict(frames=frames, ctas=min(ctas, -(-m // frames)),
-                t_smem=t_smem, tiles_x=-(-rows // MMA_ROWS), dx_smem=dx_smem,
-                nj_dw=nj_dw, splits=splits, split_rows=split_rows,
-                dw_smem=dw_smem)
+    channel_tiles = -(-c_in // 64) * -(-c_out // SLAB)
+    want = max(1, round(sms / channel_tiles))
+    split_rows = round_up(-(-rows // want), DW_KR)
+    return dict(frames=frames, t_ctas=min(tiles, 2 * sms), t_kc=t_kc,
+                t_stages=t_stages, t_hbufs=t_hbufs, t_gslots=t_gslots,
+                t_smem=smem,
+                tiles_x=-(-rows // MMA_ROWS), dx_bn=dx_bn,
+                dx_stages=dx_stages, dx_xtile=int(dx_xtile),
+                dx_smem=dx_smem(dx_bn, dx_stages, c_in, dx_xtile),
+                dw_stages=dw_stages, dw_splits=-(-rows // split_rows),
+                dw_split_rows=split_rows, dw_smem=dw_smem(k, dw_stages),
+                tp=round_up(c_out, ALIGN), hp=round_up(c_in, ALIGN))
+
+
+# the order of plan_spatial_mma_backward's values in spatial_mma_bwd_launch's
+# arguments
+BWD_PLAN_KEYS = ("t_ctas", "t_kc", "t_stages", "t_hbufs", "t_gslots",
+                 "t_smem", "dx_bn", "dx_stages", "dx_xtile", "dx_smem",
+                 "dw_stages", "dw_splits", "dw_split_rows", "dw_smem")
+
+
+def x_rows_readable(x: torch.Tensor, aff: bool) -> bool:
+    """Whether the dW kernel reads x itself (TMA: 16-byte row strides and a
+    16-byte-aligned base, no affine); else the dx kernel writes h, or x,
+    to a scratch at a padded pitch for it."""
+    return not aff and x.shape[-1] % ALIGN == 0 and x.data_ptr() % 16 == 0
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _f32(p):
@@ -272,6 +397,15 @@ def _f32(p):
 
 def _ptr(p):
     return None if p is None else p.data_ptr()
+
+
+def _padded_rows(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype`` with its last axis zero-padded to a multiple of
+    ALIGN (16-byte rows, which TMA reads), contiguous."""
+    c = t.shape[-1]
+    out = t.new_zeros((*t.shape[:-1], round_up(c, ALIGN)), dtype=dtype)
+    out[..., :c] = t
+    return out
 
 
 def launch_mma_forward(x, s1, t1, w, b, a, *, v, m, relu1, aff, save,
@@ -283,10 +417,10 @@ def launch_mma_forward(x, s1, t1, w, b, a, *, v, m, relu1, aff, save,
     from stgcn_tpu_torch.kernels._build import load_library
 
     c_in, k, c_out = w.shape
-    frames, smem = plan_spatial_mma_forward(v, c_in, c_out, k)
+    plan = plan_spatial_mma_forward(v, c_in, c_out, k)
     cd = x.dtype
     args = [x.contiguous(), _f32(s1), _f32(t1),
-            w.to(cd).permute(1, 0, 2).contiguous(), b.to(cd).contiguous(),
+            _padded_rows(w.permute(1, 0, 2), cd), b.to(cd).contiguous(),
             a.to(cd).contiguous()]
     out = torch.empty(out_shape, dtype=cd, device=x.device)
     y = (torch.empty((k, *out_shape), dtype=cd, device=x.device) if save
@@ -295,8 +429,9 @@ def launch_mma_forward(x, s1, t1, w, b, a, *, v, m, relu1, aff, save,
     with torch.cuda.device(x.device):
         err = lib.spatial_mma_fwd_launch(
             *[_ptr(p) for p in args], out.data_ptr(), _ptr(y), v, m, c_in,
-            c_out, k, frames, int(aff), int(save), int(relu1), int(vmajor),
-            smem, torch.cuda.current_stream(x.device).cuda_stream)
+            c_out, k, plan["frames"], int(aff), int(save), int(relu1),
+            int(vmajor), plan["kc"], plan["stages"], plan["smem"],
+            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "spatial bf16 forward")
     return out, y
 
@@ -310,35 +445,41 @@ def launch_mma_backward(x, g, s1, t1, w, b, a, y, *, v, m, relu1, aff,
     from stgcn_tpu_torch.kernels._build import load_library
 
     c_in, k, c_out = w.shape
+    save = y is not None
+    x = x.contiguous()
+    reads_x = not x_rows_readable(x, aff)   # the affine, or an h scratch
     plan = plan_spatial_mma_backward(v, m, c_in, c_out, k,
-                                     partial_ctas(x.device))
+                                     sm_count(x.device), save=save,
+                                     need_da=need_da, reads_x=reads_x)
     cd, f32 = x.dtype, torch.float32
     wk = w.to(cd).permute(1, 0, 2)                        # (K, C_in, C_out)
-    args = [x.contiguous(), g.to(cd).contiguous(), _f32(s1), _f32(t1),
-            wk.contiguous(), wk.transpose(1, 2).contiguous(),
+    args = [x, g.to(cd).contiguous(), _f32(s1), _f32(t1),
+            _padded_rows(wk, cd), _padded_rows(wk.transpose(1, 2), cd),
             None if b is None else b.to(cd).contiguous(),
             a.to(cd).contiguous(),
             None if y is None else y.to(cd).contiguous()]
-    dx = torch.empty_like(args[0])
-    t = torch.empty((k, m * v, c_out), dtype=cd, device=x.device)
+    dx = torch.empty_like(x)
+    rows = m * v
+    t = torch.empty((k, rows, plan["tp"]), dtype=cd, device=x.device)
+    h = (torch.empty((rows, plan["hp"]), dtype=cd, device=x.device)
+         if reads_x else None)
     e_dw = k * c_in * c_out + k * c_out
-    partial_da = torch.empty((plan["ctas"], k * v * v), dtype=f32,
+    partial_da = torch.empty((plan["t_ctas"], k * v * v), dtype=f32,
                              device=x.device)
     partial_dx = (torch.empty((plan["tiles_x"], 2 * c_in), dtype=f32,
                               device=x.device) if aff else None)
-    partial_dw = torch.empty((plan["splits"], e_dw), dtype=f32,
+    partial_dw = torch.empty((plan["dw_splits"], e_dw), dtype=f32,
                              device=x.device)
     grads = torch.empty(e_dw + k * v * v + (2 * c_in if aff else 0),
                         dtype=f32, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.spatial_mma_bwd_launch(
-            *[_ptr(p) for p in args], dx.data_ptr(), t.data_ptr(),
+            *[_ptr(p) for p in args], dx.data_ptr(), t.data_ptr(), _ptr(h),
             partial_da.data_ptr(), _ptr(partial_dx), partial_dw.data_ptr(),
             grads.data_ptr(), v, m, c_in, c_out, k, plan["frames"], int(aff),
-            int(y is not None), int(relu1), int(vmajor), int(need_da),
-            plan["ctas"], plan["t_smem"], plan["dx_smem"], plan["nj_dw"],
-            plan["splits"], plan["split_rows"], plan["dw_smem"],
+            int(save), int(relu1), int(vmajor), int(need_da),
+            *[plan[key] for key in BWD_PLAN_KEYS],
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "spatial bf16 backward")
     return dx, grads
@@ -392,7 +533,7 @@ def _launch_forward(x, s1, t1, w, b, a, *, relu1):
     with torch.cuda.device(x.device):
         err = lib.spatial_block_fwd_launch(
             *[p.data_ptr() for p in args], out.data_ptr(), v, n * t, c_in,
-            c_out, k, frames, int(relu1), 0, smem,
+            c_out, k, frames, int(relu1), smem,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "spatial_block forward")
     spatial_block_forward.launches += 1
@@ -448,7 +589,7 @@ def _launch_backward(x, g, s1, t1, w, b, a, *, relu1, need_da):
             err = lib.spatial_block_bwd_launch(
                 *[p.data_ptr() for p in args], dx.data_ptr(),
                 partial.data_ptr(), grads.data_ptr(), v, m, c_in, c_out, k,
-                frames, ctas, int(relu1), int(need_da), 0, smem,
+                frames, ctas, int(relu1), int(need_da), smem,
                 torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(lib, err, "spatial_block backward")
     spatial_block_backward.launches += 1
@@ -555,7 +696,7 @@ def _launch_save_forward(x, s1, t1, w, b, a, *, relu1):
     with torch.cuda.device(x.device):
         err = lib.spatial_block_save_fwd_launch(
             *[p.data_ptr() for p in args], out.data_ptr(), y.data_ptr(), v,
-            n * t, c_in, c_out, k, frames, int(relu1), 0, smem,
+            n * t, c_in, c_out, k, frames, int(relu1), smem,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "spatial_block_save forward")
     spatial_block_save_forward.launches += 1
@@ -610,7 +751,7 @@ def _launch_save_backward(x, g, y, s1, t1, w, a, *, relu1):
             err = lib.spatial_block_save_bwd_launch(
                 *[p.data_ptr() for p in args], dx.data_ptr(),
                 partial.data_ptr(), grads.data_ptr(), v, m, c_in, c_out, k,
-                frames, ctas, int(relu1), 0, smem,
+                frames, ctas, int(relu1), smem,
                 torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(lib, err, "spatial_block_save backward")
     spatial_block_save_backward.launches += 1

@@ -143,7 +143,7 @@ def _launch_forward(x, w, b, a, *, vmajor):
     with torch.cuda.device(x.device):
         err = lib.spatial_conv_fwd_launch(
             *[p.data_ptr() for p in args], out.data_ptr(), v, m, c_in, c_out,
-            k, frames, int(vmajor), 0, smem,
+            k, frames, int(vmajor), smem,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "spatial_conv forward")
     spatial_conv_forward.launches += 1
@@ -197,7 +197,7 @@ def _launch_backward(x, g, w, b, a, *, vmajor, need_da):
             err = lib.spatial_conv_bwd_launch(
                 *[p.data_ptr() for p in args], dx.data_ptr(),
                 partial.data_ptr(), grads.data_ptr(), v, m, c_in, c_out, k,
-                frames, ctas, int(vmajor), int(need_da), 0, smem,
+                frames, ctas, int(vmajor), int(need_da), smem,
                 torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(lib, err, "spatial_conv backward")
     spatial_conv_backward.launches += 1

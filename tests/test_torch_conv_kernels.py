@@ -436,19 +436,19 @@ class TestLaunch:
         self.check_call(fwd, "spatial_conv_fwd_launch")
         self.check_call(bwd, "spatial_conv_bwd_launch")
         frames, fwd_smem, smem = sc.plan_frames(V, 2, 64)
-        # ..., V, M, C_in, C_out, K, frames, vmajor, bf16, smem
-        assert fwd[5:14] == (V, N * T, 2, 64, K, frames, int(vmajor), 0,
+        # ..., V, M, C_in, C_out, K, frames, vmajor, smem
+        assert fwd[5:13] == (V, N * T, 2, 64, K, frames, int(vmajor),
                              fwd_smem)
-        # ..., V, M, C_in, C_out, K, frames, ctas, vmajor, need_da, bf16,
-        # smem
-        assert bwd[9:20] == (V, N * T, 2, 64, K, frames,
+        # ..., V, M, C_in, C_out, K, frames, ctas, vmajor, need_da, smem
+        assert bwd[9:19] == (V, N * T, 2, 64, K, frames,
                              min(2 * 132, -(-N * T // frames)), int(vmajor),
-                             0, 0, smem)
+                             0, smem)
 
     @pytest.mark.parametrize("layout", LAYOUTS)
     def test_spatial_bf16_launches(self, rng, adjacency, fake_lib, layout):
-        """bf16 runs the tensor-core launchers without the affine, in
-        either layout; one count per op call."""
+        """bf16 runs the warpgroup launchers without the affine, in
+        either layout; one count per op call; the plans' values reach the
+        launchers in order."""
         vmajor = layout == "vntc"
         d = spatial_inputs(rng, layout, 40, 24, adjacency)
         ins = [tensor(d[k], torch.bfloat16) for k in SPATIAL_ARGS]
@@ -469,19 +469,22 @@ class TestLaunch:
         assert "spatial_conv_bwd_launch" not in fake_lib
         (fwd,), (bwd,) = (fake_lib["spatial_mma_fwd_launch"],
                           fake_lib["spatial_mma_bwd_launch"])
-        # no affine (s1, t1), no saved y; no ds1/dt1 slices
+        # no affine (s1, t1), no saved y; no h scratch (x's 40-channel rows
+        # have 16-byte strides, so the dW kernel reads x); no ds1/dt1 slices
         self.check_call(fwd, "spatial_mma_fwd_launch", null=(1, 2, 7))
-        self.check_call(bwd, "spatial_mma_bwd_launch", null=(2, 3, 8, 12))
-        frames, smem = sb.plan_spatial_mma_forward(V, 40, 24, K)
-        # ..., V, M, C_in, C_out, K, frames, aff, save, relu1, vmajor, smem
-        assert fwd[8:19] == (V, N * T, 40, 24, K, frames, 0, 0, 0,
-                             int(vmajor), smem)
-        plan = sb.plan_spatial_mma_backward(V, N * T, 40, 24, K, 264)
-        assert bwd[15:33] == (V, N * T, 40, 24, K, frames, 0, 0, 0,
-                              int(vmajor), 1, plan["ctas"], plan["t_smem"],
-                              plan["dx_smem"], plan["nj_dw"],
-                              plan["splits"], plan["split_rows"],
-                              plan["dw_smem"])
+        self.check_call(bwd, "spatial_mma_bwd_launch",
+                        null=(2, 3, 8, 11, 13))
+        plan = sb.plan_spatial_mma_forward(V, 40, 24, K)
+        # ..., V, M, C_in, C_out, K, frames, aff, save, relu1, vmajor, kc,
+        # stages, smem
+        assert fwd[8:21] == (V, N * T, 40, 24, K, plan["frames"], 0, 0, 0,
+                             int(vmajor), plan["kc"], plan["stages"],
+                             plan["smem"])
+        plan = sb.plan_spatial_mma_backward(V, N * T, 40, 24, K, 132,
+                                            reads_x=False)
+        assert bwd[16:41] == (V, N * T, 40, 24, K, plan["frames"], 0, 0, 0,
+                              int(vmajor), 1,
+                              *[plan[k] for k in sb.BWD_PLAN_KEYS])
 
     @pytest.mark.parametrize("layout", LAYOUTS)
     def test_temporal_launches(self, rng, fake_lib, layout):

@@ -197,8 +197,8 @@ class TestLaunch:
             declared = _build.ENTRY_POINTS[name]
             assert len(args) == len(declared) and args[-1] == 4321
         frames, fsmem, bsmem = sb.plan_frames(V, 256, 256)
-        # fwd: ..., V, M, C_in, C_out, K, frames, relu1, bf16, smem
-        assert fwd[8:17] == (V, N * 4, 256, 256, K, frames, 1, 0, fsmem)
-        # bwd: ..., V, M, C_in, C_out, K, frames, ctas, relu1, bf16, smem
-        assert bwd[11:21] == (V, N * 4, 256, 256, K, frames,
-                              min(2 * 132, -(-N * 4 // frames)), 0, 0, bsmem)
+        # fwd: ..., V, M, C_in, C_out, K, frames, relu1, smem
+        assert fwd[8:16] == (V, N * 4, 256, 256, K, frames, 1, fsmem)
+        # bwd: ..., V, M, C_in, C_out, K, frames, ctas, relu1, smem
+        assert bwd[11:20] == (V, N * 4, 256, 256, K, frames,
+                              min(2 * 132, -(-N * 4 // frames)), 0, bsmem)

@@ -346,16 +346,16 @@ class TestLaunch:
         self.check_call(fwd, "spatial_block_fwd_launch")
         self.check_call(bwd, "spatial_block_bwd_launch")
         frames, _, smem = sb.plan_frames(V, 2, 64)
-        # ..., V, M, C_in, C_out, K, frames, ctas, relu1, need_da, bf16, smem
-        assert bwd[11:22] == (V, N * T, 2, 64, K, frames,
+        # ..., V, M, C_in, C_out, K, frames, ctas, relu1, need_da, smem
+        assert bwd[11:21] == (V, N * T, 2, 64, K, frames,
                               min(2 * 132, -(-N * T // frames)), 1,
-                              0, 0, smem)
+                              0, smem)
 
     @pytest.mark.parametrize("save", [False, True])
     def test_spatial_bf16_launches(self, rng, adjacency, fake_lib, save):
-        """bf16 goes to the tensor-core launchers (the save op's too), one
+        """bf16 goes to the warpgroup launchers (the save op's too), one
         count per op call whatever the number of kernels the backward
-        launches."""
+        launches; the plans' values reach the launchers in order."""
         d = spatial_inputs(rng, 2, 64, adjacency)
         ins = [torch.from_numpy(d[k]).to(torch.bfloat16)
                if k in ("x", "w", "b", "a") else t32(d[k])
@@ -386,23 +386,25 @@ class TestLaunch:
             assert scalar not in fake_lib
         (fwd,), (bwd,) = (fake_lib["spatial_mma_fwd_launch"],
                           fake_lib["spatial_mma_bwd_launch"])
-        # the save op writes y and its backward reads it in place of b
+        # the save op writes y and its backward reads it in place of b;
+        # with the affine the dx kernel always writes h for the dW kernel
         self.check_call(fwd, "spatial_mma_fwd_launch",
                         null=() if save else (7,))
         self.check_call(bwd, "spatial_mma_bwd_launch",
                         null=(6,) if save else (8,))
-        frames, smem = sb.plan_spatial_mma_forward(V, 2, 64, K)
-        # ..., V, M, C_in, C_out, K, frames, aff, save, relu1, vmajor, smem
-        assert fwd[8:19] == (V, N * T, 2, 64, K, frames, 1, int(save), 1, 1,
-                             smem)
-        plan = sb.plan_spatial_mma_backward(V, N * T, 2, 64, K, 264)
+        plan = sb.plan_spatial_mma_forward(V, 2, 64, K)
+        # ..., V, M, C_in, C_out, K, frames, aff, save, relu1, vmajor, kc,
+        # stages, smem
+        assert fwd[8:21] == (V, N * T, 2, 64, K, plan["frames"], 1,
+                             int(save), 1, 1, plan["kc"], plan["stages"],
+                             plan["smem"])
+        plan = sb.plan_spatial_mma_backward(V, N * T, 2, 64, K, 132,
+                                            save=save, need_da=save)
         # ..., V, M, C_in, C_out, K, frames, aff, save, relu1, vmajor,
-        # need_da, ctas, t_smem, dx_smem, nj_dw, splits, split_rows, dw_smem
-        assert bwd[15:33] == (V, N * T, 2, 64, K, frames, 1, int(save), 1, 1,
-                              0 if not save else 1, plan["ctas"],
-                              plan["t_smem"], plan["dx_smem"], plan["nj_dw"],
-                              plan["splits"], plan["split_rows"],
-                              plan["dw_smem"])
+        # need_da, then the plan's BWD_PLAN_KEYS
+        assert bwd[16:41] == (V, N * T, 2, 64, K, plan["frames"], 1,
+                              int(save), 1, 1, 0 if not save else 1,
+                              *[plan[k] for k in sb.BWD_PLAN_KEYS])
 
     def test_temporal_launches(self, rng, fake_lib):
         d = temporal_inputs(rng, 16)
