@@ -133,10 +133,48 @@ non-zero exit code:
                    B x T) and by CUDA events around each step; its host
                    share is the epoch time no step covers, beside a step
                    of the CLI's own configuration timed in this phase.
-17. kernels     -- one line per kernel with its launches, error, times and
+17. tools       -- the user tools on cli_train's dataset, checkpoints
+                   and logs: the C++ batch loader built by g++ in the run
+                   from ``native/npy_loader.cc``, its fixed and bucket
+                   batches over the train split bitwise the numpy ones,
+                   and a fused CLI run on it (two epochs: the native line,
+                   its launches, Trainer ms per step of work and host share
+                   beside the numpy run's); ``cli.evaluate`` on the fused
+                   checkpoint with ``--model.block_impl`` fused (10
+                   ``block_eval`` launches a batch) and ops (none), rc 0,
+                   confusion matrices within 1% of the sequences, each
+                   saved as ``.npy``; ``cli.export``: the ``pt`` file's
+                   ``Predictor.from_state_dict`` against
+                   ``Predictor.from_checkpoint`` (float32, 1e-6), the
+                   dynamic-batch ``pt2`` program on the card at B=64 and
+                   17, T=304, argmax against the fused ``Predictor``
+                   (>= 99%), its forward ms beside the eval forward's;
+                   ``cli.preprocess`` openpose, distances, check and
+                   reprocess on a JSON keypoint tree made from the seed
+                   (six actions, person-less frames), the files equal to
+                   the tree's keypoints; ``report.read_metric_csv`` on
+                   cli_train's CSV logs (no plot: matplotlib is absent).
+18. route_options -- at bench.py's width (B=64, T=304, bf16, dropout 0.5),
+                   from a generator of its own: route A with ``remat=True``
+                   and route B with ``remat="selective"`` each against the
+                   same step without remat (same weights, batch and dropout
+                   generator): gradients bitwise equal (or within 1e-6 of
+                   the largest), 20 forward and 10 backward launches of
+                   each conv op (10 and 10 without), step ms and peak
+                   memory; the fused step with ``dropout_impl="bits8"``
+                   (8/2/10 launches each way, finite, the loss falling over
+                   10 steps, step ms beside exact dropout); the op path
+                   with ``temporal_impl`` conv_vt, shift_sum and block, one
+                   step each in float32 and bf16 without dropout: float32
+                   gradients within 1e-2 of the largest of the float32
+                   conv oracle's, bf16 ones no further from it than 3x the
+                   bf16 conv path's (their share of the largest beside
+                   2%), step ms.
+19. kernels     -- one line per kernel with its launches, error, times and
                    bound (block_eval's also with its ``split_ms``).
 
-The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+``{"phase": "run"}`` gives the whole run's seconds.  The last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -148,6 +186,7 @@ import re
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2116,7 +2155,10 @@ def run_cli(argv: list[str]) -> tuple[dict, dict, dict]:
                        text)
     test = re.search(r"\[test\] loss=(\S+) acc=(\S+) n=(\d+)", text)
     resumed = re.search(r"\[ckpt\] resumed from epoch (\d+)", text)
+    loader = re.search(r"^\[data\] (using native C\+\+ batch loader|"
+                       r"numpy batches.*)$", text, re.MULTILINE)
     printed = {
+        "loader": loader.group(1) if loader else None,
         "rc": rc,
         "splits": [int(v) for v in splits.groups()] if splits else None,
         "epochs": [ast.literal_eval(line[len("[epoch] "):])
@@ -2149,17 +2191,18 @@ def epoch_work(batches, epoch_s) -> dict:
                 host_share=1 - device_ms / (epoch_s * 1e3))
 
 
-def cli_train_phase(smi: str, dev) -> None:
+def cli_train_phase(smi: str, dev, tmp: str) -> dict:
     """The training CLI end to end (module docstring, phase 16); fails on a
     non-zero return, a non-finite loss, a launch count off its expected
     value per step and batch, a missing checkpoint or one without the JAX
     metadata, or a resume that does not continue the step count.  Each
     epoch's steps are measured by their work (``epoch_work``), beside a
     step of the CLI's own configuration (K=3, a trained graph, fused)
-    timed here at B=64, T=304 after its first run."""
+    timed here at B=64, T=304 after its first run.  The dataset, the
+    checkpoints and the logs go under ``tmp``; returns the paths and each
+    run's figures, for the tools phase."""
     import math
     import os
-    import tempfile
 
     import torch
 
@@ -2167,112 +2210,111 @@ def cli_train_phase(smi: str, dev) -> None:
     from stgcn_tpu_torch.training.checkpoint import checkpoint_metadata
 
     blocks, saves = 10, 2
-    with tempfile.TemporaryDirectory() as tmp:
-        data_dir = os.path.join(tmp, "data")
+    data_dir = os.path.join(tmp, "data")
+    start = time.perf_counter()
+    meta = generate_dataset(data_dir)
+    generate_s = time.perf_counter() - start
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    common = ["--data.metadata_file", meta, "--data.dataset_dir",
+              data_dir, "--train.checkpoint_dir", ckpt_dir,
+              "--train.log_dir", os.path.join(tmp, "logs")]
+    runs = {
+        "fused": CLI_FLAGS + common + ["--train.epochs",
+                                       str(CLI_EPOCHS)],
+        "fused_resumed": CLI_FLAGS + common + [
+            "--train.epochs", str(CLI_EPOCHS + 1), "--train.resume",
+            "true"],
+        "hybrid_bucket": CLI_FLAGS + CLI_HYBRID + [
+            "--data.metadata_file", meta, "--data.dataset_dir",
+            data_dir, "--train.epochs", str(CLI_HYBRID_EPOCHS)],
+    }
+    results, cli_step_ms = {}, None
+    for name, argv in runs.items():
         start = time.perf_counter()
-        meta = generate_dataset(data_dir)
-        generate_s = time.perf_counter() - start
-        ckpt_dir = os.path.join(tmp, "ckpt")
-        common = ["--data.metadata_file", meta, "--data.dataset_dir",
-                  data_dir, "--train.checkpoint_dir", ckpt_dir,
-                  "--train.log_dir", os.path.join(tmp, "logs")]
-        runs = {
-            "fused": CLI_FLAGS + common + ["--train.epochs",
-                                           str(CLI_EPOCHS)],
-            "fused_resumed": CLI_FLAGS + common + [
-                "--train.epochs", str(CLI_EPOCHS + 1), "--train.resume",
-                "true"],
-            "hybrid_bucket": CLI_FLAGS + CLI_HYBRID + [
-                "--data.metadata_file", meta, "--data.dataset_dir",
-                data_dir, "--train.epochs", str(CLI_HYBRID_EPOCHS)],
-        }
-        results, cli_step_ms = {}, None
-        for name, argv in runs.items():
-            start = time.perf_counter()
-            launches, printed, steps = run_cli(argv)
-            seconds = time.perf_counter() - start
-            n_train, n_val, n_test = printed["splits"] or (0, 0, 0)
-            batches_per_epoch = math.ceil(n_train / B)
-            eval_batches = math.ceil(n_val / B)
-            epochs = printed["epochs"]
-            hybrid = name == "hybrid_bucket"
-            fused = len(FUSED_BLOCKS) if hybrid else blocks
-            per_step = ({"spatial_block": fused, "spatial_block_save": 0,
-                         "temporal_block": fused} if hybrid else
-                        {"spatial_block": blocks - saves,
-                         "spatial_block_save": saves,
-                         "temporal_block": blocks})
-            want = {f"{op}.{d}": n * batches_per_epoch * len(epochs)
-                    for op, n in per_step.items()
-                    for d in ("forward", "backward")}
-            want["block_eval"] = fused * (
-                eval_batches * len(epochs) + math.ceil(n_test / B))
-            losses = [[e["train_loss"], e.get("val_loss")] for e in epochs]
-            finite = bool(epochs) and all(
-                v is not None and math.isfinite(v) for pair in losses
-                for v in pair)
-            ckpts = sorted(int(f[5:-4]) for f in os.listdir(ckpt_dir)
-                           if f.endswith(".npz"))
-            metas = {s: checkpoint_metadata(os.path.join(ckpt_dir,
-                                                         f"ckpt_{s}"))
-                     for s in ckpts}
-            if name == "fused":
-                ckpt_ok = metas == {
-                    batches_per_epoch * e: {
-                        "epoch": e, "step": batches_per_epoch * e,
-                        "final": e == CLI_EPOCHS}
-                    for e in range(1, CLI_EPOCHS + 1)}
-                epochs_ok = [e["epoch"] for e in epochs] == list(
-                    range(CLI_EPOCHS))
-            elif name == "fused_resumed":
-                last = batches_per_epoch * (CLI_EPOCHS + 1)
-                ckpt_ok = metas.get(last) == {
-                    "epoch": CLI_EPOCHS + 1, "step": last, "final": True}
-                epochs_ok = (printed["resumed_from"] == CLI_EPOCHS
-                             and [e["epoch"] for e in epochs] == [
-                                 CLI_EPOCHS])
-            else:
-                ckpt_ok = True      # no checkpoint directory
-                epochs_ok = [e["epoch"] for e in epochs] == list(
-                    range(CLI_HYBRID_EPOCHS))
-            batches = steps["batches"]
-            split_ok = bool(epochs) and len(batches) == (
-                batches_per_epoch * len(epochs))
-            per_epoch = ([epoch_work(batches[i * batches_per_epoch:
-                                             (i + 1) * batches_per_epoch],
-                                     e["epoch_time_s"])
-                          for i, e in enumerate(epochs)] if split_ok else [])
-            if name == "fused" and split_ok:
-                # a step of the CLI's own configuration at B x T, on the
-                # state the run trained, from a generator of its own
-                cli_gen = torch.Generator(device=dev).manual_seed(SEED + 10)
-                x = torch.randn(B, T, V, 2, generator=cli_gen, device=dev)
-                y = torch.randint(0, 6, (B,), generator=cli_gen, device=dev)
-                cli_step_ms = cuda_time_ms(
-                    lambda: steps["step"](steps["ts"], x, y), reps=5)
-            for e in per_epoch:     # the fused runs share its config
-                e["host_share_vs_cli_step"] = (
-                    1 - e["work_steps"] * cli_step_ms / (e["epoch_s"] * 1e3)
-                    if cli_step_ms and not hybrid else None)
-            ok = (printed["rc"] == 0 and finite and ckpt_ok and epochs_ok
-                  and split_ok and launches == want
-                  and printed["test"] is not None
-                  and math.isfinite(printed["test"][0]))
-            results[name] = dict(
-                seconds=seconds, splits=printed["splits"],
-                batches_per_epoch=batches_per_epoch,
-                epochs=[e["epoch"] for e in epochs], losses=losses,
-                per_epoch=per_epoch, test=printed["test"],
-                launches=launches, expected_launches=want,
-                checkpoints={str(k): v for k, v in metas.items()}, ok=ok)
-            emit("cli_train", run=name, argv=argv, **results[name])
-            del steps
-            if not ok:
-                raise AssertionError(
-                    f"the training CLI's {name} run failed: rc "
-                    f"{printed['rc']}, finite {finite}, checkpoints "
-                    f"{ckpt_ok}, epochs {epochs_ok}, steps {split_ok}, "
-                    f"launches {launches} against {want}")
+        launches, printed, steps = run_cli(argv)
+        seconds = time.perf_counter() - start
+        n_train, n_val, n_test = printed["splits"] or (0, 0, 0)
+        batches_per_epoch = math.ceil(n_train / B)
+        eval_batches = math.ceil(n_val / B)
+        epochs = printed["epochs"]
+        hybrid = name == "hybrid_bucket"
+        fused = len(FUSED_BLOCKS) if hybrid else blocks
+        per_step = ({"spatial_block": fused, "spatial_block_save": 0,
+                     "temporal_block": fused} if hybrid else
+                    {"spatial_block": blocks - saves,
+                     "spatial_block_save": saves,
+                     "temporal_block": blocks})
+        want = {f"{op}.{d}": n * batches_per_epoch * len(epochs)
+                for op, n in per_step.items()
+                for d in ("forward", "backward")}
+        want["block_eval"] = fused * (
+            eval_batches * len(epochs) + math.ceil(n_test / B))
+        losses = [[e["train_loss"], e.get("val_loss")] for e in epochs]
+        finite = bool(epochs) and all(
+            v is not None and math.isfinite(v) for pair in losses
+            for v in pair)
+        ckpts = sorted(int(f[5:-4]) for f in os.listdir(ckpt_dir)
+                       if f.endswith(".npz"))
+        metas = {s: checkpoint_metadata(os.path.join(ckpt_dir,
+                                                     f"ckpt_{s}"))
+                 for s in ckpts}
+        if name == "fused":
+            ckpt_ok = metas == {
+                batches_per_epoch * e: {
+                    "epoch": e, "step": batches_per_epoch * e,
+                    "final": e == CLI_EPOCHS}
+                for e in range(1, CLI_EPOCHS + 1)}
+            epochs_ok = [e["epoch"] for e in epochs] == list(
+                range(CLI_EPOCHS))
+        elif name == "fused_resumed":
+            last = batches_per_epoch * (CLI_EPOCHS + 1)
+            ckpt_ok = metas.get(last) == {
+                "epoch": CLI_EPOCHS + 1, "step": last, "final": True}
+            epochs_ok = (printed["resumed_from"] == CLI_EPOCHS
+                         and [e["epoch"] for e in epochs] == [
+                             CLI_EPOCHS])
+        else:
+            ckpt_ok = True      # no checkpoint directory
+            epochs_ok = [e["epoch"] for e in epochs] == list(
+                range(CLI_HYBRID_EPOCHS))
+        batches = steps["batches"]
+        split_ok = bool(epochs) and len(batches) == (
+            batches_per_epoch * len(epochs))
+        per_epoch = ([epoch_work(batches[i * batches_per_epoch:
+                                         (i + 1) * batches_per_epoch],
+                                 e["epoch_time_s"])
+                      for i, e in enumerate(epochs)] if split_ok else [])
+        if name == "fused" and split_ok:
+            # a step of the CLI's own configuration at B x T, on the
+            # state the run trained, from a generator of its own
+            cli_gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+            x = torch.randn(B, T, V, 2, generator=cli_gen, device=dev)
+            y = torch.randint(0, 6, (B,), generator=cli_gen, device=dev)
+            cli_step_ms = cuda_time_ms(
+                lambda: steps["step"](steps["ts"], x, y), reps=5)
+        for e in per_epoch:     # the fused runs share its config
+            e["host_share_vs_cli_step"] = (
+                1 - e["work_steps"] * cli_step_ms / (e["epoch_s"] * 1e3)
+                if cli_step_ms and not hybrid else None)
+        ok = (printed["rc"] == 0 and finite and ckpt_ok and epochs_ok
+              and split_ok and launches == want
+              and printed["test"] is not None
+              and math.isfinite(printed["test"][0]))
+        results[name] = dict(
+            seconds=seconds, splits=printed["splits"],
+            batches_per_epoch=batches_per_epoch,
+            epochs=[e["epoch"] for e in epochs], losses=losses,
+            per_epoch=per_epoch, test=printed["test"],
+            launches=launches, expected_launches=want,
+            checkpoints={str(k): v for k, v in metas.items()}, ok=ok)
+        emit("cli_train", run=name, argv=argv, **results[name])
+        del steps
+        if not ok:
+            raise AssertionError(
+                f"the training CLI's {name} run failed: rc "
+                f"{printed['rc']}, finite {finite}, checkpoints "
+                f"{ckpt_ok}, epochs {epochs_ok}, steps {split_ok}, "
+                f"launches {launches} against {want}")
 
     def column(run, key):
         return [e[key] for e in results[run]["per_epoch"]]
@@ -2283,7 +2325,502 @@ def cli_train_phase(smi: str, dev) -> None:
                         "device_ms_per_work_step", "host_share",
                         "host_share_vs_cli_step")},
          nvidia_smi=smi, batch=B, frames=T, dtype="bfloat16")
+    return dict(meta=meta, data_dir=data_dir, ckpt_dir=ckpt_dir,
+                log_dir=os.path.join(tmp, "logs"), results=results,
+                cli_step_ms=cli_step_ms)
 
+
+# ---- the user tools ---------------------------------------------------------
+PREPROCESS_VIDEOS = 2    # videos an action in the JSON keypoint tree
+PREPROCESS_FRAMES = 40   # frames a video, about one in eight person-less
+NATIVE_EPOCHS = 2        # epochs of the CLI run on the native loader
+CM_SHARE = 0.01          # fused and op-path confusion matrices: at most 1%
+                         # of the sequences classified apart
+PT_TOL = 1e-6            # the pt file's probabilities against the
+                         # checkpoint's, float32, same weights
+PT2_BATCHES = (B, 17)    # batch sizes of the dynamic-batch pt2 program
+
+
+def cli_want(printed: dict, fused: int, saves: int) -> dict:
+    """Launch counts a CLI run with ``fused`` fused blocks, ``saves`` of
+    them on the save op, should read: each way per train step, and one
+    ``block_eval`` per fused block per validation or test batch."""
+    import math
+
+    n_train, n_val, n_test = printed["splits"] or (0, 0, 0)
+    steps = math.ceil(n_train / B) * len(printed["epochs"])
+    per_step = {"spatial_block": fused - saves, "spatial_block_save": saves,
+                "temporal_block": fused}
+    want = {f"{op}.{d}": n * steps for op, n in per_step.items()
+            for d in ("forward", "backward")}
+    want["block_eval"] = fused * (math.ceil(n_val / B) * len(
+        printed["epochs"]) + math.ceil(n_test / B))
+    return want
+
+
+def run_main(fn, argv: list[str]) -> tuple[int, str]:
+    """``fn(argv)`` in this process; returns its code and what it
+    printed."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = fn(argv)
+    except BaseException:
+        print(out.getvalue()[-6000:], file=sys.stderr)
+        raise
+    return rc, out.getvalue()
+
+
+def keypoint_tree(root: str, rng) -> dict:
+    """An OpenPose JSON tree under ``root/keypoints`` (and empty ``.avi``
+    files under ``root/videos``): every action, PREPROCESS_VIDEOS videos of
+    PREPROCESS_FRAMES frames, about one frame in eight without a person.
+    Returns each video's stem -> (action, kept frames, skipped indices)."""
+    import json
+    import os
+
+    from stgcn_tpu_torch.data.openpose import ACTIONS
+
+    expected = {}
+    for action in ACTIONS:
+        kdir = os.path.join(root, "keypoints", action)
+        vdir = os.path.join(root, "videos", action)
+        os.makedirs(kdir)
+        os.makedirs(vdir)
+        for v in range(PREPROCESS_VIDEOS):
+            stem = f"person{v + 1:02d}_{action}_d{v + 1}_uncomp"
+            open(os.path.join(vdir, stem + ".avi"), "wb").close()
+            kept, skipped = [], []
+            for f in range(PREPROCESS_FRAMES):
+                people = []
+                if rng.random() < 0.125:
+                    skipped.append(f)
+                else:
+                    kp = rng.uniform(0, 640, (25, 3)).astype(np.float32)
+                    kept.append(kp)
+                    people = [{"pose_keypoints_2d": kp.ravel().tolist()}]
+                with open(os.path.join(kdir, f"{stem}_{f:012d}_keypoints"
+                                             ".json"), "w") as fh:
+                    json.dump({"version": 1.3, "people": people}, fh)
+            expected[stem] = (action, np.stack(kept), skipped)
+    return expected
+
+
+def tools_phase(smi: str, dev, tmp: str, cli: dict, eval_forward_ms: float
+                ) -> None:
+    """The user tools on the training CLI's dataset, checkpoints and logs
+    (module docstring, phase 17); fails on any check."""
+    import contextlib
+    import io
+    import math
+    import os
+
+    import torch
+
+    from stgcn_tpu_torch.cli import evaluate, export, preprocess, report
+    from stgcn_tpu_torch.cli.train import build_datasets, resolve_distances
+    from stgcn_tpu_torch.data import batches, native_batches, native_loader
+    from stgcn_tpu_torch.data.datasets import read_metadata
+    from stgcn_tpu_torch.kernels.block_eval import block_eval
+    from stgcn_tpu_torch.serving import Predictor
+    from stgcn_tpu_torch.training.checkpoint import latest_checkpoint
+    from stgcn_tpu_torch.training.config import (
+        model_config_from,
+        parse_config,
+    )
+
+    data_flags = ["--data.metadata_file", cli["meta"],
+                  "--data.dataset_dir", cli["data_dir"]]
+    flags = CLI_FLAGS + data_flags
+    cfg = parse_config(flags)
+
+    # ---- the native loader: built here, bitwise the numpy batches --------
+    lib = native_loader.library_path()
+    lib.unlink(missing_ok=True)
+    start = time.perf_counter()
+    native_loader.build()
+    build_s = time.perf_counter() - start
+    train_ds = build_datasets(cfg)[0]
+    equal, seconds = {}, {}
+    for mode in ("fixed", "bucket"):
+        kw = dict(shuffle=True, seed=SEED, sort_by_length=True, mode=mode,
+                  fixed_len=T)
+        start = time.perf_counter()
+        ref = list(batches(train_ds, B, **kw))
+        numpy_s = time.perf_counter() - start
+        start = time.perf_counter()
+        got = list(native_batches(train_ds, B, **kw))
+        native_s = time.perf_counter() - start
+        equal[mode] = len(ref) == len(got) and all(
+            a.shape == b.shape and a.dtype == b.dtype
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8))
+            for ra, rb in zip(ref, got) for a, b in zip(ra, rb))
+        seconds[mode] = {"numpy_s": numpy_s, "native_s": native_s}
+    launches, printed, steps = run_cli(
+        flags + ["--data.use_native_loader", "true", "--train.epochs",
+                 str(NATIVE_EPOCHS)])
+    want = cli_want(printed, 10, 2)
+    per_epoch_steps = math.ceil(printed["splits"][0] / B)
+    batches_run = steps["batches"]
+    per_epoch = [epoch_work(batches_run[i * per_epoch_steps:
+                                        (i + 1) * per_epoch_steps],
+                            e["epoch_time_s"])
+                 for i, e in enumerate(printed["epochs"])]
+    numpy_epochs = cli["results"]["fused"]["per_epoch"]
+    ok = (all(equal.values()) and lib.exists() and printed["rc"] == 0
+          and printed["loader"] == "using native C++ batch loader"
+          and launches == want
+          and len(batches_run) == per_epoch_steps * NATIVE_EPOCHS
+          and all(math.isfinite(e["train_loss"]) for e in printed["epochs"]))
+    emit("tools", tool="native_loader",
+         library=str(lib.relative_to(native_loader.REPO_ROOT)),
+         build_seconds=build_s, bitwise_equal_to_numpy=equal,
+         train_split=len(train_ds), pass_seconds=seconds,
+         cli_loader_line=printed["loader"], launches=launches,
+         expected_launches=want,
+         trainer_ms_per_work_step=[e["trainer_ms_per_work_step"]
+                                   for e in per_epoch],
+         host_share=[e["host_share"] for e in per_epoch],
+         numpy_trainer_ms_per_work_step=[e["trainer_ms_per_work_step"]
+                                         for e in numpy_epochs],
+         numpy_host_share=[e["host_share"] for e in numpy_epochs],
+         nvidia_smi=smi, ok=ok)
+    if not ok:
+        raise AssertionError("the native loader did not build, did not "
+                             "match the numpy batches or did not run the "
+                             "CLI's epochs")
+    del steps
+
+    # ---- cli.evaluate on the fused checkpoint: fused and op path ---------
+    ckpt = latest_checkpoint(cli["ckpt_dir"])
+    evals = {}
+    for impl in ("fused", "ops"):
+        cm_path = os.path.join(tmp, f"confusion_{impl}.npy")
+        block_eval.launches = 0
+        rc, text = run_main(evaluate.main, flags + [
+            "--checkpoint", ckpt, "--model.block_impl", impl,
+            "--save-confusion", cm_path])
+        line = re.search(r"\[eval\] split=test loss=(\S+) acc=(\S+) "
+                         r"n=(\d+)", text)
+        evals[impl] = dict(
+            rc=rc, launches=block_eval.launches,
+            loss=float(line.group(1)) if line else None,
+            acc=float(line.group(2)) if line else None,
+            n=int(line.group(3)) if line else 0,
+            confusion=(np.load(cm_path).tolist()
+                       if os.path.exists(cm_path) else None))
+    n = evals["fused"]["n"]
+    cms = [np.asarray(evals[k]["confusion"]) for k in ("fused", "ops")]
+    apart = (int(np.abs(cms[0] - cms[1]).sum()) // 2
+             if all(c.shape == (6, 6) for c in cms) else None)
+    ok = (all(e["rc"] == 0 and e["loss"] is not None
+              and math.isfinite(e["loss"]) for e in evals.values())
+          and n > 0 and evals["ops"]["n"] == n
+          and evals["fused"]["launches"] == 10 * math.ceil(n / B)
+          and evals["ops"]["launches"] == 0
+          and apart is not None and apart <= CM_SHARE * n
+          and all(int(c.sum()) == n for c in cms))
+    emit("tools", tool="evaluate", checkpoint=os.path.basename(ckpt),
+         runs=evals, confusion_entries_apart=apart,
+         tolerance=f"fused vs ops confusion: |diff|/2 <= {CM_SHARE} * n",
+         ok=ok)
+    if not ok:
+        raise AssertionError("cli.evaluate failed, missed its block_eval "
+                             "launches, or the fused confusion matrix "
+                             "disagrees with the op path's")
+
+    # ---- cli.export: pt against the checkpoint, pt2 against block_eval ---
+    with contextlib.redirect_stdout(io.StringIO()):    # its [data] line
+        distances = resolve_distances(cfg)
+    cfg32 = model_config_from(parse_config(flags + ["--parallel.precision",
+                                                    "default"]))
+    test_ds = build_datasets(cfg)[2]
+    xs = [x for x, _, _ in batches(test_ds, B, mode="fixed", fixed_len=T)]
+    x64, x17 = xs[0], xs[1][:PT2_BATCHES[1]]
+    pt_path = os.path.join(tmp, "model.pt")
+    rc_pt, _ = run_main(export.main, flags + ["--checkpoint", ckpt, "--out",
+                                              pt_path])
+    p_file = Predictor.from_state_dict(torch.load(pt_path), cfg32,
+                                       distances=distances, max_batch=B)
+    p_ckpt = Predictor.from_checkpoint(ckpt, cfg32, distances=distances,
+                                       max_batch=B)
+    pt_err = float(np.abs(p_file.predict_batch(x64)
+                          - p_ckpt.predict_batch(x64)).max())
+    del p_file, p_ckpt
+    pt2_path = os.path.join(tmp, "model.pt2")
+    rc_pt2, text = run_main(export.main, flags + [
+        "--checkpoint", ckpt, "--out", pt2_path, "--format", "pt2",
+        "--dynamic-batch", "--seq-len", str(T)])
+    program = torch.export.load(pt2_path).module()
+    fused = Predictor.from_checkpoint(ckpt, model_config_from(cfg),
+                                      distances=distances, max_batch=B)
+    agree = total = 0
+    with torch.no_grad():
+        for xb in (x64, x17):
+            probs = program(torch.from_numpy(xb).to(dev))
+            if probs.shape != (len(xb), 6) or not bool(
+                    torch.isfinite(probs).all()):
+                raise AssertionError("the pt2 program's output has the "
+                                     "wrong shape or is not finite")
+            ref = fused.predict_batch(xb).argmax(-1)
+            agree += int((probs.argmax(-1).cpu().numpy() == ref).sum())
+            total += len(xb)
+        x_dev = torch.from_numpy(x64).to(dev)
+        pt2_ms = cuda_time_ms(lambda: program(x_dev), reps=5)
+    agreement = agree / total
+    ok = (rc_pt == 0 and rc_pt2 == 0 and pt_err <= PT_TOL
+          and agreement >= ARGMAX_AGREEMENT)
+    emit("tools", tool="export", pt_vs_checkpoint_max_abs_prob_diff=pt_err,
+         pt2_batches=list(PT2_BATCHES), pt2_bytes=os.path.getsize(pt2_path),
+         pt2_argmax_agreement_vs_fused=agreement, pt2_sequences=total,
+         pt2_forward_ms=pt2_ms, eval_forward_ms=eval_forward_ms,
+         pt2_line=text.strip().splitlines()[-1], batch=B, frames=T,
+         dtype="bfloat16", nvidia_smi=smi,
+         tolerance=(f"pt: max |prob diff| <= {PT_TOL} (float32); pt2: "
+                    f"argmax agreement >= {ARGMAX_AGREEMENT}"), ok=ok)
+    if not ok:
+        raise AssertionError("cli.export's pt or pt2 file does not answer "
+                             "as the checkpoint does")
+    del program, fused
+
+    # ---- cli.preprocess on a JSON keypoint tree; report's CSV reader -----
+    tree = os.path.join(tmp, "openpose")
+    expected = keypoint_tree(tree, np.random.default_rng(SEED))
+    kp_dir = os.path.join(tree, "keypoints")
+    out_dir = os.path.join(tree, "npy")
+    dist_path = os.path.join(tree, "distances.npy")
+    codes = {}
+    for cmd, argv in (
+            ("openpose", ["--keypoints", kp_dir, "--out", out_dir]),
+            ("distances", ["--data", out_dir, "--out", dist_path]),
+            ("check", ["--videos", os.path.join(tree, "videos"),
+                       "--keypoints", kp_dir]),
+            ("reprocess", ["--keypoints", kp_dir, "--max-missing", "2"])):
+        codes[cmd], text = run_main(preprocess.main, [cmd, *argv])
+        if cmd == "reprocess":
+            redo = sorted(text.split())
+    meta = read_metadata(os.path.join(out_dir, "metadata.csv"))
+    rows_ok = len(meta["filename"]) == len(expected)
+    for stem, (action, frames, _) in expected.items():
+        subject, _, scenario, _ = stem.split("_")
+        name = f"{subject}_{action}_{scenario}.npy"
+        rows_ok &= name in meta["filename"] and np.array_equal(
+            np.load(os.path.join(out_dir, name)), frames)
+
+    def longest_run(skipped):
+        best = run = 0
+        for i, f in enumerate(skipped):
+            run = run + 1 if i and skipped[i - 1] == f - 1 else 1
+            best = max(best, run)
+        return best
+
+    want_redo = sorted(stem for stem, (_, _, sk) in expected.items()
+                       if longest_run(sk) >= 2)
+    dist = np.load(dist_path)
+    curves = {}
+    for tag in ("train_loss", "val_loss", "step_loss"):
+        steps_, values = report.read_metric_csv(
+            os.path.join(cli["log_dir"], f"{tag}.csv"))
+        curves[tag] = dict(rows=len(steps_),
+                           finite=bool(np.isfinite(values).all()),
+                           smoothed_rows=len(report.moving_average(values)))
+    epochs_logged = CLI_EPOCHS + 1      # two epochs, then the resumed third
+    ok = (all(rc == 0 for rc in codes.values()) and rows_ok
+          and dist.shape == (V,) and bool(np.isfinite(dist).all())
+          and (redo == want_redo or (not want_redo
+                                     and redo == "nothing to reprocess"
+                                     .split()))
+          and curves["train_loss"]["rows"] == epochs_logged
+          and curves["val_loss"]["rows"] == epochs_logged
+          and all(c["finite"] and c["rows"] == c["smoothed_rows"] > 0
+                  for c in curves.values()))
+    emit("tools", tool="preprocess_report", videos=len(expected),
+         frames_per_video=PREPROCESS_FRAMES, codes=codes,
+         metadata_rows=len(meta["filename"]), npy_equal=rows_ok,
+         mean_distance=float(dist.mean()), reprocess=redo,
+         expected_reprocess=want_redo, report_curves=curves, ok=ok)
+    if not ok:
+        raise AssertionError("cli.preprocess or report's CSV reader gave "
+                             "other files or values than the inputs")
+
+
+# ---- the model routes off the main path -------------------------------------
+# (name, config over bench.py's, the config it is held against)
+REMAT_CASES = (("route_A_remat", dict(layout="vntc", remat=True),
+                dict(layout="vntc")),
+               ("route_B_selective", dict(spatial_impl="pallas",
+                                          temporal_impl="pallas",
+                                          remat="selective"),
+                dict(spatial_impl="pallas", temporal_impl="pallas")))
+TEMPORAL_OPTIONS = ("conv_vt", "shift_sum", "block")
+REMAT_GRAD_REL = 1e-6    # remat against none where not bitwise (reason)
+IMPL_GRAD_REL = 2e-2     # a bf16 temporal impl's gradient against the f32
+                         # conv oracle's, of the largest: reported only,
+                         # since the bf16 conv path itself lies 5.0% of the
+                         # largest from it at this width (H100 80GB HBM3,
+                         # 700.00 W); each bf16 impl is held to GRAD_VS_F64
+                         # times the bf16 conv path's distance instead
+
+
+def route_options_phase(smi: str, dev) -> None:
+    """remat, bits8 dropout and the temporal impls at full width (module
+    docstring, phase 18), from a generator of their own; fails on any
+    check."""
+    import math
+
+    import torch
+
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.training.loop import forward_backward, make_train_step
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import create_train_state
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    x = torch.randn(B, T, V, 2, generator=gen, device=dev)
+    y = torch.randint(0, 6, (B,), generator=gen, device=dev)
+    conv = conv_counters()
+    fused = fused_counters()
+
+    def one_step(cfg, counters):
+        """One step's gradients, launch counts and the peak memory it
+        allocated above what it started with, from the weights and dropout
+        generator of seed SEED; ``run`` takes a step of the same state."""
+        model = STGCN(cfg, seed=SEED)
+        ts = create_train_state(model, adam(1e-3), seed=SEED)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, _ = forward_backward(model, ts, x, y)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = {k: fn.launches for k, fn in counters.items()}
+        grads = [p.grad.detach().clone() for p in ts.leaves()]
+        step = make_train_step(model)
+        return dict(loss=loss.item(), grads=grads, launches=counts,
+                    peak_mib=peak / 2 ** 20, run=lambda: step(ts, x, y))
+
+    def in_turns(*cases):
+        """Each case's step ms, timed in turns (in order, then reversed)
+        after a warm step of each: the card's clocks after the host-bound
+        tools phase and its allocator favour no case.  Drops the states."""
+        for case in cases:
+            case["run"]()
+        for case in cases:
+            case["step_ms"] = 0.0
+        for case in cases + cases[::-1]:
+            case["step_ms"] += cuda_time_ms(case["run"], reps=3,
+                                            warmup=0) / 2
+        for case in cases:
+            del case["run"]
+
+    def grad_diff(a, b):
+        return max((p.double() - q.double()).abs().max().item()
+                   for p, q in zip(a, b))
+
+    for name, kw, base_kw in REMAT_CASES:
+        got = one_step(bench_config(**kw), conv)
+        ref = one_step(bench_config(**base_kw), conv)
+        in_turns(ref, got)
+        bitwise = all(torch.equal(p, q)
+                      for p, q in zip(got["grads"], ref["grads"]))
+        scale = max(g.abs().max().item() for g in ref["grads"])
+        err = grad_diff(got["grads"], ref["grads"])
+        n = len(bench_config().plan)
+        want = {"spatial_conv.forward": 2 * n, "temporal_conv.forward": 2 * n,
+                "spatial_conv.backward": n, "temporal_conv.backward": n}
+        ok = ((bitwise or err <= REMAT_GRAD_REL * scale)
+              and got["launches"] == want
+              and ref["launches"] == {k: n for k in want}
+              and math.isfinite(got["loss"]) and got["loss"] == ref["loss"])
+        emit("route_options", case=name, config=kw, loss=got["loss"],
+             grads_bitwise_equal=bitwise, grad_max_abs_err=err,
+             grad_max_abs=scale, launches=got["launches"],
+             launches_without=ref["launches"], step_ms=got["step_ms"],
+             step_ms_without=ref["step_ms"], peak_mib=got["peak_mib"],
+             peak_mib_without=ref["peak_mib"], batch=B, frames=T,
+             dtype="bfloat16", nvidia_smi=smi,
+             tolerance=(f"grads bitwise, else max_abs_err <= "
+                        f"{REMAT_GRAD_REL} * max|grad|"), ok=ok)
+        if not ok:
+            raise AssertionError(f"{name}: the gradients, the loss or the "
+                                 "launch counts differ from the step "
+                                 "without remat")
+
+    # ---- bits8 dropout on the fused step ----------------------------------
+    cfg = bench_config(block_impl="fused", dropout_impl="bits8")
+    got = one_step(cfg, fused)
+    exact = one_step(bench_config(block_impl="fused"), fused)
+    in_turns(exact, got)
+    exact_ms = exact["step_ms"]
+    model = STGCN(cfg, seed=SEED)
+    ts = create_train_state(model, adam(1e-3), seed=SEED)
+    step = make_train_step(model)
+    fall = [float(step(ts, x, y)["loss"]) for _ in range(FALL_STEPS)]
+    n, saves = len(cfg.plan), len(SAVE_BLOCKS)
+    want = {f"{op}.{d}": k for op, k in (
+        ("spatial_block", n - saves), ("spatial_block_save", saves),
+        ("temporal_block", n)) for d in ("forward", "backward")}
+    finite = math.isfinite(got["loss"]) and all(
+        bool(torch.isfinite(p).all()) for p in ts.leaves())
+    ok = finite and got["launches"] == want and fall[-1] < fall[0]
+    emit("route_options", case="fused_bits8", launches=got["launches"],
+         expected_launches=want, finite=finite, repeated_batch_losses=fall,
+         step_ms=got["step_ms"], step_ms_exact_dropout=exact_ms,
+         peak_mib=got["peak_mib"], batch=B, frames=T, dtype="bfloat16",
+         nvidia_smi=smi, ok=ok)
+    if not ok:
+        raise AssertionError("the bits8 fused step missed its launches, "
+                             "gave non-finite values or its loss did not "
+                             "fall")
+    del ts, model
+
+    # ---- the op path's temporal impls against the f32 conv oracle ---------
+    # without dropout, so that the paths' gradients compare; float32 holds
+    # each impl's math (GRAD_REL, as the routes' float32 gradients), bf16
+    # is the step users run, no further from the float32 oracle than
+    # GRAD_VS_F64 times the bf16 conv path is
+    def plain(impl, dt):
+        return bench_config(temporal_impl=impl, dropout_rate=0.0,
+                            compute_dtype=dt)
+
+    oracle = one_step(plain("conv", None), {})
+    scale = max(g.abs().max().item() for g in oracle["grads"])
+    yardstick = one_step(plain("conv", torch.bfloat16), {})
+    conv_bf16_err = grad_diff(yardstick["grads"], oracle["grads"])
+    runs = {impl: (one_step(plain(impl, None), {}),
+                   one_step(plain(impl, torch.bfloat16), {}))
+            for impl in TEMPORAL_OPTIONS}
+    in_turns(oracle, yardstick, *(c for pair in runs.values() for c in pair))
+    for impl, (f32, bf16) in runs.items():
+        f32_err = grad_diff(f32["grads"], oracle["grads"])
+        bf16_err = grad_diff(bf16["grads"], oracle["grads"])
+        ok = (math.isfinite(bf16["loss"]) and math.isfinite(f32["loss"])
+              and f32_err <= GRAD_REL * scale
+              and bf16_err <= GRAD_VS_F64 * conv_bf16_err)
+        emit("route_options", case=f"temporal_{impl}",
+             f32_vs_f32_conv_grad_max_abs_err=f32_err,
+             bf16_vs_f32_conv_grad_max_abs_err=bf16_err,
+             bf16_conv_vs_f32_conv_grad_max_abs_err=conv_bf16_err,
+             f32_conv_grad_max_abs=scale,
+             bf16_within_share=bf16_err <= IMPL_GRAD_REL * scale,
+             bf16_loss=bf16["loss"], f32_loss=f32["loss"],
+             f32_conv_loss=oracle["loss"], step_ms=bf16["step_ms"],
+             bf16_conv_step_ms=yardstick["step_ms"],
+             f32_step_ms=f32["step_ms"], f32_conv_step_ms=oracle["step_ms"],
+             dropout=0.0, batch=B, frames=T, nvidia_smi=smi,
+             tolerance=(f"f32 grad max_abs_err <= {GRAD_REL} * max|f32 conv "
+                        f"grad|; bf16 <= {GRAD_VS_F64} * the bf16 conv "
+                        f"path's (against {IMPL_GRAD_REL} * max: "
+                        f"bf16_within_share)"), ok=ok)
+        if not ok:
+            raise AssertionError(f"temporal_impl={impl}: the gradient is "
+                                 "off the float32 conv oracle's, or in bf16 "
+                                 "further than the bf16 conv path's")
 
 def main() -> int:
     import torch
@@ -2563,10 +3100,15 @@ def main() -> int:
     save_totals = fused_time_phase(dev, gen, peak_flops, peak_bytes,
                                    train["totals"], train["conv_library"])
 
-    # ---- 16. cli_train: the training entry point ---------------------------
-    cli_train_phase(smi, dev)
+    # ---- 16. cli_train, 17. tools: the entry points, on one dataset ---------
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = cli_train_phase(smi, dev, tmp)
+        tools_phase(smi, dev, tmp, cli, fwd_ms)
 
-    # ---- 17. kernels --------------------------------------------------------
+    # ---- 18. route_options: remat, bits8, the temporal impls ---------------
+    route_options_phase(smi, dev)
+
+    # ---- 19. kernels --------------------------------------------------------
     kernels = [{
         "name": "block_eval",
         "route": "cuda",
@@ -2616,6 +3158,8 @@ def main() -> int:
         "stgcn_tpu/kernels/block_fused.py:737 spatial_block_vm_save "
         "(_spatial_fwd_kernel_save :495, _spatial_bwd_kernel_saved :523)",
         fused_launches, save_errors, save_totals)]
+    emit("run", run_seconds=time.perf_counter() - run_start,
+         deadline_s=DEADLINE_S)
     print(smi, flush=True)      # the card again, near the end of the output
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

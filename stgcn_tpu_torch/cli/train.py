@@ -15,10 +15,13 @@ the GPU, through the port's kernels where ``--model.block_impl`` (or
 With no dataset paths and ``--data.synthetic true``, a synthetic
 KTH-format dataset is generated under ``tempfile.gettempdir()/stgcn_synth``
 (``stgcn_synth_relational`` for that style): the JAX CLI's directory, which
-holds the same bytes, so the two CLIs share it.  The C++ batch loader is
-not ported yet: ``--data.use_native_loader`` (default true) says so and
-the batches come from numpy, as the JAX CLI's do where that library is not
-built.
+holds the same bytes, so the two CLIs share it.  With
+``--data.use_native_loader`` (default true) the batches come from the C++
+loader, built at first use from ``native/npy_loader.cc`` into
+``build/stgcn_tpu_torch/`` (:mod:`stgcn_tpu_torch.data.native_loader`),
+and the datasets are not preloaded into RAM; where it does not build, the
+CLI prints why and uses the numpy batches.  Either way one ``[data]`` line
+says which loader ran.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from stgcn_tpu_torch.data import (
     calculate_distances,
     generate_dataset,
     make_augmenter,
+    native_batches,
     prefetch,
 )
 from stgcn_tpu_torch.graph.adjacency import Strategy
@@ -94,8 +98,7 @@ def build_datasets(cfg: ExperimentConfig):
 
     transforms = (make_augmenter(compat=d.augment_compat)
                   if d.augment_data else None)
-    # the JAX CLI preloads only when its C++ loader is off (which reads
-    # files per batch); the same choice keeps the two runs' I/O alike
+    # the C++ loader reads the files per batch, so preload only without it
     preload = not d.use_native_loader
     train_ds = SkeletonDataset(splitter.metadata, data_dir, train_idx,
                                transforms=transforms, seed=d.seed,
@@ -107,16 +110,39 @@ def build_datasets(cfg: ExperimentConfig):
     return train_ds, val_ds, test_ds
 
 
-def resolve_distances(cfg: ExperimentConfig, train_ds) -> np.ndarray | None:
+def resolve_distances(cfg: ExperimentConfig,
+                      train_ds=None) -> np.ndarray | None:
     """Spatial-configuration partitioning needs gravity-center distances;
     compute them from the training set when no file is given
-    (the reference requires a precomputed file, adjacency.py:99-100)."""
+    (the reference requires a precomputed file, adjacency.py:99-100).
+    Without ``train_ds`` the training split is built from the data flags
+    when the distances are needed."""
     if Strategy(cfg.model.partitioning) != Strategy.SPATIAL_CONFIGURATION:
         return None
     if cfg.data.distance_file:
         return np.load(cfg.data.distance_file)
+    if train_ds is None:
+        train_ds = build_datasets(cfg)[0]
     print("[data] computing gravity-center distances from the training set")
     return calculate_distances(train_ds)
+
+
+def choose_batches(use_native_loader: bool):
+    """``native_batches`` if asked for and the C++ loader builds and
+    loads, else the numpy ``batches``; prints which, and why."""
+    if not use_native_loader:
+        print("[data] numpy batches (--data.use_native_loader false)")
+        return batches
+    from stgcn_tpu_torch.data import native_loader
+
+    try:
+        native_loader.load_library()
+    except (OSError, RuntimeError) as e:
+        print(f"[data] numpy batches: the native C++ batch loader did not "
+              f"build or load: {e}")
+        return batches
+    print("[data] using native C++ batch loader")
+    return native_batches
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -137,19 +163,18 @@ def _train(cfg: ExperimentConfig, device: torch.device) -> int:
 
     d = cfg.data
     collate_kwargs = dict(mode=d.collate_mode, fixed_len=d.fixed_len)
-    if d.use_native_loader:
-        print("[data] native loader not ported yet; numpy batches")
+    batch_fn = choose_batches(d.use_native_loader)
 
     def train_stream(epoch: int):
         # background-thread prefetch: batch i+1 is collated (npy reads,
         # wrap-pad, augmentation) while the device runs step i
-        return prefetch(batches(
+        return prefetch(batch_fn(
             train_ds, d.batch_size, shuffle=True,
             seed=d.seed + epoch, drop_remainder=False,
             sort_by_length=d.sort_by_length, **collate_kwargs))
 
     def val_stream():
-        return prefetch(batches(val_ds, d.batch_size, **collate_kwargs))
+        return prefetch(batch_fn(val_ds, d.batch_size, **collate_kwargs))
 
     t = cfg.train
     loggers = []

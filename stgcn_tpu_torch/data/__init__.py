@@ -1,6 +1,8 @@
 """Data pipeline of the port (``stgcn_tpu/data`` without pandas): the
-metadata table, splits and dataset, collation, augmentation, gravity-center
-distances, the synthetic dataset and background prefetch."""
+metadata table, splits and dataset, collation (numpy, or the C++ loader's
+``native_batches``), augmentation, gravity-center distances, the synthetic
+dataset, background prefetch and OpenPose ingestion
+(:mod:`~stgcn_tpu_torch.data.openpose`)."""
 
 from stgcn_tpu_torch.data.augmentation import (
     augment_sequence,
@@ -12,6 +14,7 @@ from stgcn_tpu_torch.data.collate import (
     bucket_length,
     collate,
     default_buckets,
+    native_batches,
     wrap_pad,
 )
 from stgcn_tpu_torch.data.datasets import (

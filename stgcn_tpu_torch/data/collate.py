@@ -6,7 +6,8 @@ The port's copy of ``stgcn_tpu/data/collate.py:23-129`` (numpy only):
 the start), so padded frames are real repeated motion and global average
 pooling over the padded extent is harmless (src/data/util.py:12-47).
 Buckets, or one fixed length, bound the number of distinct batch shapes.
-The JAX package's ``native_batches`` (the C++ loader) is not ported yet.
+``native_batches`` yields the same batches through the C++ loader
+(:mod:`stgcn_tpu_torch.data.native_loader`).
 """
 
 from __future__ import annotations
@@ -47,6 +48,23 @@ def bucket_length(t: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
+def target_length(max_len: int, mode: str,
+                  buckets: Sequence[int] | None = None,
+                  fixed_len: int | None = None) -> int:
+    """The padded length of a batch whose longest sequence has
+    ``max_len`` frames, by collate ``mode`` (:func:`collate`)."""
+    if mode == "max":
+        return max_len
+    if mode == "bucket":
+        return bucket_length(max_len, default_buckets() if buckets is None
+                             else buckets)
+    if mode == "fixed":
+        if fixed_len is None:
+            raise ValueError("fixed mode needs fixed_len")
+        return fixed_len
+    raise ValueError(f"unknown collate mode: {mode!r}")
+
+
 def collate(
     batch: Sequence[tuple[np.ndarray, int]],
     mode: str = "max",
@@ -65,19 +83,7 @@ def collate(
       original frame counts.
     """
     lengths = np.asarray([seq.shape[0] for seq, _ in batch], np.int32)
-    if mode == "max":
-        target = int(lengths.max())
-    elif mode == "bucket":
-        if buckets is None:
-            buckets = default_buckets()
-        target = bucket_length(int(lengths.max()), buckets)
-    elif mode == "fixed":
-        if fixed_len is None:
-            raise ValueError("fixed mode needs fixed_len")
-        target = fixed_len
-    else:
-        raise ValueError(f"unknown collate mode: {mode!r}")
-
+    target = target_length(int(lengths.max()), mode, buckets, fixed_len)
     x = np.stack([wrap_pad(seq, target) for seq, _ in batch])
     labels = np.asarray([lbl for _, lbl in batch], np.int64)
     return x, labels, lengths
@@ -100,23 +106,80 @@ def batches(
     ``sort_by_length`` groups similar-length sequences (before shuffling
     the batch order) to keep padding small.
     """
-    order = np.arange(len(dataset))
+    lengths = dataset.sequence_lengths() if sort_by_length else None
+    for chunk in batch_chunks(len(dataset), batch_size, lengths=lengths,
+                              shuffle=shuffle, seed=seed,
+                              drop_remainder=drop_remainder):
+        batch = [dataset[int(i)] for i in chunk]
+        yield collate(batch, mode=mode, buckets=buckets, fixed_len=fixed_len)
+
+
+def batch_chunks(n: int, batch_size: int, *,
+                 lengths: np.ndarray | None = None, shuffle: bool = False,
+                 seed: int = 0, drop_remainder: bool = False
+                 ) -> list[np.ndarray]:
+    """The dataset indices of each batch.  With ``lengths``, the indices
+    are sorted by length (stable) and the batch order is shuffled; without,
+    the indices are shuffled.  ``drop_remainder`` drops a short last
+    batch."""
+    order = np.arange(n)
     rng = np.random.default_rng(seed)
-    if sort_by_length:
-        lengths = dataset.sequence_lengths()
+    if lengths is not None:
         order = order[np.argsort(lengths, kind="stable")]
-        starts = np.arange(0, len(order), batch_size)
+        starts = np.arange(0, n, batch_size)
         if shuffle:
             rng.shuffle(starts)
         chunks = [order[s:s + batch_size] for s in starts]
     else:
         if shuffle:
             rng.shuffle(order)
-        chunks = [order[s:s + batch_size]
-                  for s in range(0, len(order), batch_size)]
+        chunks = [order[s:s + batch_size] for s in range(0, n, batch_size)]
+    return [c for c in chunks
+            if not (drop_remainder and len(c) < batch_size)]
 
-    for chunk in chunks:
-        if drop_remainder and len(chunk) < batch_size:
-            continue
-        batch = [dataset[int(i)] for i in chunk]
-        yield collate(batch, mode=mode, buckets=buckets, fixed_len=fixed_len)
+
+def native_batches(
+    dataset,
+    batch_size: int,
+    *,
+    shuffle: bool = False,
+    seed: int = 0,
+    drop_remainder: bool = False,
+    mode: str = "fixed",
+    buckets: Sequence[int] | None = None,
+    fixed_len: int | None = None,
+    sort_by_length: bool = False,
+    n_threads: int = 0,
+):
+    """:func:`batches` through the C++ loader (port of the JAX
+    ``native_batches``, ``stgcn_tpu/data/collate.py:132-194``).
+
+    Whole batches are read, stripped of the confidence channel and
+    wrap-padded in the loader's thread pool, past the dataset's per-item
+    ``__getitem__`` and its cache; frame counts come from the files'
+    headers.  Augmentation, where the dataset has ``transforms``, runs per
+    sequence after padding, which equals the numpy path's pad-after-augment
+    order because the transforms are affine and wrap-padding repeats
+    frames.  The chunks are :func:`batches`' own, so without augmentation
+    the two yield the same arrays.
+    """
+    from stgcn_tpu_torch.data.native_loader import (
+        collate_batch_native,
+        npy_frames,
+    )
+
+    lengths = np.asarray([npy_frames(p) for p in dataset.files])
+    keep_c = 3 if dataset.keep_confidence else 2
+    for chunk in batch_chunks(len(dataset), batch_size,
+                              lengths=lengths if sort_by_length else None,
+                              shuffle=shuffle, seed=seed,
+                              drop_remainder=drop_remainder):
+        lens = lengths[chunk]
+        target = target_length(int(lens.max()), mode, buckets, fixed_len)
+        x = collate_batch_native([dataset.files[int(i)] for i in chunk],
+                                 target, keep_c=keep_c, n_threads=n_threads)
+        if dataset.transforms is not None:
+            for j in range(x.shape[0]):
+                if dataset.rng.random() < dataset.augment_prob:
+                    x[j] = dataset.transforms(x[j], dataset.rng)
+        yield x, dataset.labels[chunk].astype(np.int64), lens.astype(np.int32)

@@ -1,7 +1,11 @@
-"""Carry weights from the JAX package's pytrees into the port's ``STGCN``.
+"""Carry weights between the JAX package's pytrees, the port's parameter
+dictionaries and the reference's state dict.
 
-The port's own copy of ``export_state_dict``
-(``stgcn_tpu/models/importer.py:106-155``): JAX ``(params, state)`` pytrees,
+The port's own copies of ``import_state_dict`` and ``export_state_dict``
+(``stgcn_tpu/models/importer.py:27-155``).  :func:`params_from_state_dict`
+reads a reference-named state dict into parameter dictionaries, each
+block's ``spatialConv.A`` as its trained ``A`` (reference mode), for
+``STGCN.apply``.  :func:`state_dict_from_jax`: JAX ``(params, state)`` pytrees,
 given as numpy arrays, become a reference-named state dict of tensors.  In
 mask mode ``A ⊙ M`` is folded into ``spatialConv.A``, which is exactly the
 eval ``effective_adjacency``; in fixed mode ``spatialConv.A`` is the fixed
@@ -94,3 +98,54 @@ def state_dict_from_params(params: dict, state: dict, *, residual: bool,
     return state_dict_from_jax(params_to_numpy(params),
                                params_to_numpy(state), residual=residual,
                                adjacency=params_to_numpy(adjacency))
+
+
+def params_from_state_dict(state_dict: dict, num_blocks: int,
+                           num_partitions: int, *, residual: bool = False
+                           ) -> tuple[dict, dict]:
+    """A reference-named state dict (tensors or numpy arrays) -> the port's
+    ``(params, state)`` dictionaries of float tensors on the CPU.
+
+    The inverse of :func:`state_dict_from_jax`: the spatial 1x1 conv
+    ``(K*C_out, C_in, 1, 1)`` becomes ``(C_in, K, C_out)``, the temporal
+    conv ``(C_out, C_in, gamma, 1)`` becomes ``(gamma, 1, C_in, C_out)``,
+    each ``spatialConv.A`` the block's ``A``; the dead ``Masks.{i}`` and
+    BatchNorm's ``num_batches_tracked`` are not read.
+    """
+    sd = {k: (v.detach().cpu() if torch.is_tensor(v)
+              else torch.from_numpy(np.array(v)))
+          for k, v in state_dict.items()}
+    blocks_p, blocks_s = [], []
+    for i in range(num_blocks):
+        pre = f"conv.{i}."
+        w = sd[pre + "spatialConv.W.weight"]       # (K*C_out, C_in, 1, 1)
+        c_out = w.shape[0] // num_partitions
+        p = {
+            "spatial": {
+                "w": w.reshape(num_partitions, c_out, w.shape[1])
+                .permute(2, 0, 1),
+                "b": sd[pre + "spatialConv.W.bias"].reshape(num_partitions,
+                                                            c_out),
+            },
+            "temporal": {"w": sd[pre + "temporalConv.weight"]
+                         .permute(2, 3, 1, 0),
+                         "b": sd[pre + "temporalConv.bias"]},
+        }
+        s = {}
+        for name, key in (("batch_n", "bn1"), ("batch_n_2", "bn2")):
+            p[key] = {"scale": sd[f"{pre}{name}.weight"],
+                      "offset": sd[f"{pre}{name}.bias"]}
+            s[key] = {"mean": sd[f"{pre}{name}.running_mean"],
+                      "var": sd[f"{pre}{name}.running_var"]}
+        if pre + "spatialConv.A" in sd:
+            p["A"] = sd[pre + "spatialConv.A"]
+        if residual and pre + "apply_residual.weight" in sd:
+            p["residual_proj"] = {
+                "w": sd[pre + "apply_residual.weight"][:, :, 0, 0].t(),
+                "b": sd[pre + "apply_residual.bias"]}
+        blocks_p.append(p)
+        blocks_s.append(s)
+    params = {"blocks": blocks_p, "fc": {"w": sd["fc_layer.weight"].t(),
+                                         "b": sd["fc_layer.bias"]}}
+    copy = lambda t: t.contiguous().clone()  # noqa: E731
+    return tree_map(copy, params), tree_map(copy, {"blocks": blocks_s})

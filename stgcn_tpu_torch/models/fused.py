@@ -192,7 +192,8 @@ def bn_affine_train(bn_params: dict, bn_state: dict, x: torch.Tensor, *,
 def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
                               adjacency: torch.Tensor, *, stride: int,
                               residual: bool, dropout_rate: float = 0.0,
-                              generator: torch.Generator | None = None
+                              generator: torch.Generator | None = None,
+                              dropout_impl: str = "exact"
                               ) -> tuple[torch.Tensor, dict]:
     """One train-mode block on V-major ``(V, N, T, C_in)``: the spatial and
     temporal ops, BN statistics, shortcut, ReLU and dropout.  Returns
@@ -236,7 +237,8 @@ def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
         if generator is None:
             raise ValueError("dropout_rate > 0 in train mode needs a "
                              "generator")
-        out = dropout(out, dropout_rate, generator=generator)
+        out = dropout(out, dropout_rate, generator=generator,
+                      impl=dropout_impl)
     return out, new_state
 
 
@@ -261,14 +263,16 @@ def _train_forward(model, params: dict, state: dict, x: torch.Tensor,
             h, s = block_forward_fused_train(
                 params["blocks"][i], state["blocks"][i], h, model.adjacency,
                 stride=stride, residual=cfg.residual,
-                dropout_rate=cfg.dropout_rate, generator=generator)
+                dropout_rate=cfg.dropout_rate, generator=generator,
+                dropout_impl=cfg.dropout_impl)
         else:
             h, s = block_forward_train(
                 _cast_tree(params["blocks"][i], cd) if cd else
                 params["blocks"][i], state["blocks"][i], h,
                 model.adjacency, stride=stride, residual=cfg.residual,
                 compute_dtype=cd, dropout_rate=cfg.dropout_rate,
-                generator=generator, spatial_impl=cfg.spatial_impl,
+                generator=generator, dropout_impl=cfg.dropout_impl,
+                spatial_impl=cfg.spatial_impl,
                 temporal_impl=cfg.temporal_impl)
         new_blocks.append(s)
     logits = _pool_head(cfg, params, h, (0, 2) if layout == "vntc"

@@ -46,13 +46,11 @@ from stgcn_tpu_torch.ops.block import (
     block_forward,
     block_forward_train,
     block_forward_vm,
+    checkpointed,
 )
-from stgcn_tpu_torch.ops.common import global_avg_pool, linear
+from stgcn_tpu_torch.ops.common import DROPOUT_IMPLS, global_avg_pool, linear
 from stgcn_tpu_torch.ops.spatial_conv import SPATIAL_IMPLS
-from stgcn_tpu_torch.ops.temporal_conv import (
-    TEMPORAL_IMPLS,
-    UNPORTED_TEMPORAL_IMPLS,
-)
+from stgcn_tpu_torch.ops.temporal_conv import TEMPORAL_IMPLS
 from stgcn_tpu_torch.tree import tree_map
 
 # (c_out, temporal stride) per block.
@@ -78,7 +76,8 @@ class STGCNConfig:
     weights are rounded to, ``None`` meaning ``dtype``.
 
     Train fields: ``dropout_rate`` after each block's outer ReLU;
-    ``dropout_impl`` "exact" (the JAX package's "bits8" is not ported);
+    ``dropout_impl`` "exact" (a float32 uniform an element) or "bits8" (a
+    random byte an element, :func:`stgcn_tpu_torch.ops.common.dropout`);
     ``mask_jitter`` for the initial mask / trained adjacency;
     ``block_impl`` "ops" (op chain), "fused" (every block on the fused
     spatial and temporal ops) or "hybrid" (the blocks ``fused_blocks``, else
@@ -87,9 +86,18 @@ class STGCNConfig:
     Routes of the op chain: ``layout`` "ntvc" runs it on ``(N, T, V, C)``
     with each conv as ``spatial_impl`` ("einsum" or "pallas", the graph-conv
     kernel) and ``temporal_impl`` ("auto" and "conv" are ``F.conv2d``,
-    "pallas" the temporal-conv kernel) say; "vntc" runs it V-major with both
-    convs on the V-major kernels, train and eval.  The JAX package's
-    "conv_vt", "shift_sum" and "block" temporal impls are not ported.
+    "conv_vt", "shift_sum" and "block" the JAX package's other op
+    formulations, "pallas" the temporal-conv kernel) say; "vntc" runs it
+    V-major with both convs on the V-major kernels, train and eval.
+
+    ``remat`` (the op chain's train forward only, as in the JAX package):
+    ``False``; ``True`` or "full" recomputes each block's whole forward in
+    the backward, keeping only its input; "selective" keeps the block's
+    input and its four conv boundaries and recomputes BN, ReLU, the
+    shortcut, dropout and each conv's intermediates
+    (:func:`~stgcn_tpu_torch.ops.block.block_forward_train`).  The fused
+    and hybrid paths recompute inside their ops and refuse it, and the
+    V-major route, which has no boundaries to keep, refuses "selective".
     """
 
     c_in: int = 2
@@ -113,18 +121,18 @@ class STGCNConfig:
     layout: str = "ntvc"
     spatial_impl: str = "einsum"
     temporal_impl: str = "auto"
+    remat: bool | str = False
 
     def __post_init__(self):
+        if self.remat not in (False, True, "full", "selective"):
+            raise ValueError(f"remat must be False/True/'full'/'selective', "
+                             f"got {self.remat!r}")
         if self.layout not in ("ntvc", "vntc"):
             raise ValueError(f"layout must be 'ntvc' or 'vntc', got "
                              f"{self.layout!r}")
         if self.spatial_impl not in SPATIAL_IMPLS:
             raise ValueError(f"spatial_impl must be one of {SPATIAL_IMPLS}, "
                              f"got {self.spatial_impl!r}")
-        if self.temporal_impl in UNPORTED_TEMPORAL_IMPLS:
-            raise NotImplementedError(
-                f"temporal_impl={self.temporal_impl!r} is not ported; use "
-                f"one of {TEMPORAL_IMPLS}")
         if self.temporal_impl not in TEMPORAL_IMPLS:
             raise ValueError(f"temporal_impl must be one of "
                              f"{TEMPORAL_IMPLS}, got {self.temporal_impl!r}")
@@ -133,12 +141,9 @@ class STGCNConfig:
                              f"{ADJACENCY_MODES}, got {self.adjacency_mode!r}")
         if self.gamma % 2 != 1:
             raise ValueError(f"gamma must be odd, got {self.gamma}")
-        if self.dropout_impl not in ("exact", "bits8"):
+        if self.dropout_impl not in DROPOUT_IMPLS:
             raise ValueError(f"dropout_impl must be 'exact' or 'bits8', got "
                              f"{self.dropout_impl!r}")
-        if self.dropout_impl == "bits8":
-            raise NotImplementedError("dropout_impl='bits8' is not ported; "
-                                      "use 'exact'")
         if self.block_impl not in ("ops", "fused", "hybrid"):
             raise ValueError(f"block_impl must be 'ops', 'fused' or "
                              f"'hybrid', got {self.block_impl!r}")
@@ -147,6 +152,10 @@ class STGCNConfig:
                 f"block_impl={self.block_impl!r} is its own fused V-major "
                 "path; use it with the default layout='ntvc' input "
                 "convention")
+        if self.block_impl != "ops" and self.remat:
+            raise ValueError(
+                f"block_impl={self.block_impl!r} has recompute built into "
+                "its ops' backwards; remat must stay False")
         if (self.block_impl == "hybrid" and self.fused_blocks is None
                 and not 0 <= self.fused_from <= len(self.plan)):
             raise ValueError(f"fused_from must be in [0, {len(self.plan)}], "
@@ -159,6 +168,14 @@ class STGCNConfig:
                     f"fused_blocks must be sorted unique indices in "
                     f"[0, {len(self.plan)}), got {self.fused_blocks}")
             object.__setattr__(self, "fused_blocks", fb)
+        if self.layout == "vntc" and self.remat == "selective":
+            # the V-major kernels' blocks have no conv boundaries to keep,
+            # so "selective" would quietly become full recompute
+            raise ValueError(
+                "remat='selective' is not available with layout='vntc' (the "
+                "V-major kernel blocks have no checkpoint anchors; it would "
+                "silently degrade to full recompute). Use remat=True for "
+                "full recompute or layout='ntvc' for the selective policy.")
 
 
 def _uniform_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -436,11 +453,15 @@ class STGCN(nn.Module):
         for i, (_, stride) in enumerate(cfg.plan):
             bp, bs = params["blocks"][i], state["blocks"][i]
             if train:
-                h, s = block_forward_train(
-                    bp, bs, h, self.adjacency, stride=stride,
-                    residual=cfg.residual, compute_dtype=cd,
-                    dropout_rate=cfg.dropout_rate, generator=generator,
-                    **impls)
+                def run(h, bp=bp, bs=bs, stride=stride):
+                    return block_forward_train(
+                        bp, bs, h, self.adjacency, stride=stride,
+                        residual=cfg.residual, compute_dtype=cd,
+                        dropout_rate=cfg.dropout_rate, generator=generator,
+                        dropout_impl=cfg.dropout_impl,
+                        selective_remat=cfg.remat == "selective", **impls)
+
+                h, s = self._maybe_full_remat(run, h, generator)
                 new_blocks.append(s)
             else:
                 h = block_forward(bp, bs, h, self.adjacency, stride=stride,
@@ -456,6 +477,17 @@ class STGCN(nn.Module):
             logits = torch.softmax(logits, dim=-1)
         return logits, ({"blocks": new_blocks} if train else state)
 
+    def _maybe_full_remat(self, run, h: torch.Tensor,
+                          generator: torch.Generator | None):
+        """``run(h)``, one train block, through
+        :func:`~stgcn_tpu_torch.ops.block.checkpointed` when ``remat`` is
+        ``True`` or "full" (port of ``stgcn_tpu/models/stgcn.py:348-356,
+        396-401``): the backward keeps the block's input and runs the block
+        again, the conv kernels' forwards included."""
+        if self.config.remat in (True, "full"):
+            return checkpointed(run, generator, h)
+        return run(h)
+
     def _apply_vm(self, params: dict, state: dict, x: torch.Tensor, *,
                   train: bool, generator: torch.Generator | None,
                   time_mask: torch.Tensor | None
@@ -470,10 +502,16 @@ class STGCN(nn.Module):
         h = x.permute(2, 0, 1, 3).contiguous()          # (V, N, T, C)
         new_blocks = []
         for i, (_, stride) in enumerate(cfg.plan):
-            h, s = block_forward_vm(
-                params["blocks"][i], state["blocks"][i], h, self.adjacency,
-                stride=stride, residual=cfg.residual, train=train,
-                dropout_rate=cfg.dropout_rate, generator=generator)
+            def run(h, bp=params["blocks"][i], bs=state["blocks"][i],
+                    stride=stride):
+                return block_forward_vm(
+                    bp, bs, h, self.adjacency, stride=stride,
+                    residual=cfg.residual, train=train,
+                    dropout_rate=cfg.dropout_rate, generator=generator,
+                    dropout_impl=cfg.dropout_impl)
+
+            h, s = (self._maybe_full_remat(run, h, generator) if train
+                    else run(h))
             new_blocks.append(s)
             if time_mask is not None:
                 if stride != 1:

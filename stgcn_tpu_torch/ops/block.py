@@ -30,6 +30,7 @@ both convs run as the V-major kernels.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from stgcn_tpu_torch.kernels.spatial_conv import spatial_conv_fused_vm
 from stgcn_tpu_torch.kernels.temporal_conv import temporal_conv_fused_vm
@@ -91,46 +92,103 @@ def block_forward_train(params: dict, state: dict, x: torch.Tensor,
                         compute_dtype: torch.dtype | None = None,
                         dropout_rate: float = 0.0,
                         generator: torch.Generator | None = None,
+                        dropout_impl: str = "exact",
                         spatial_impl: str = "einsum",
-                        temporal_impl: str = "conv"
+                        temporal_impl: str = "conv",
+                        selective_remat: bool = False
                         ) -> tuple[torch.Tensor, dict]:
     """One train-mode ST-GCN unit: ``(N, T, V, C_in) -> (N, T', V, C_out)``.
 
     Returns ``(out, new_state)``.  In mask mode the gradient lands on
     ``params["mask"]`` through ``adjacency * mask``.
+
+    ``selective_remat`` is the JAX package's ``remat="selective"``
+    (``stgcn_tpu/ops/block.py:166-203``): the backward keeps only the
+    block's input and the four conv boundaries, ``spatial_in``,
+    ``spatial_out``, ``temporal_in`` and ``temporal_out``.  Each stretch
+    between them runs as its own :func:`checkpointed` call, so BN, ReLU,
+    the shortcut, the dropout mask and each conv's own intermediates are
+    recomputed in the backward (a conv kernel's forward launches again).
     """
     a = effective_adjacency(params, adjacency)
+    run = ((lambda fn, *args: checkpointed(fn, generator, *args))
+           if selective_remat else (lambda fn, *args: fn(*args)))
+
+    def spatial(h):
+        return spatial_conv(params["spatial"], a, h,
+                            compute_dtype=compute_dtype, impl=spatial_impl)
+
+    def temporal(h):
+        return temporal_conv(params["temporal"], h, stride=stride,
+                             compute_dtype=compute_dtype, impl=temporal_impl)
+
+    def bn_relu(key, h):
+        h, s = batchnorm_train(params[key], state[key], h)
+        return (torch.relu(h) if residual else h), s
+
     new_state = {}
-    h, new_state["bn1"] = batchnorm_train(params["bn1"], state["bn1"], x)
+    h, new_state["bn1"] = run(lambda h: bn_relu("bn1", h), x)  # spatial_in
+    h = run(spatial, h)                                         # spatial_out
     if residual:
-        h = torch.relu(h)
-    h = spatial_conv(params["spatial"], a, h, compute_dtype=compute_dtype,
-                     impl=spatial_impl)
-    if residual:
-        h, new_state["bn2"] = batchnorm_train(params["bn2"], state["bn2"], h)
-        h = temporal_conv(params["temporal"], torch.relu(h), stride=stride,
-                          compute_dtype=compute_dtype, impl=temporal_impl)
-        if "residual_proj" in params:
-            shortcut = pointwise_conv(params["residual_proj"], x,
-                                      stride=stride)
-        else:
-            shortcut = x
-        out = h + shortcut
-    else:
-        h = temporal_conv(params["temporal"], h, stride=stride,
-                          compute_dtype=compute_dtype, impl=temporal_impl)
-        out, new_state["bn2"] = batchnorm_train(params["bn2"], state["bn2"],
-                                                h)
-    return _relu_dropout(out, dropout_rate, generator), new_state
+        h, new_state["bn2"] = run(lambda h: bn_relu("bn2", h), h)
+        h = run(temporal, h)                                    # temporal_out
+
+        def tail(h, x):
+            if "residual_proj" in params:
+                shortcut = pointwise_conv(params["residual_proj"], x,
+                                          stride=stride)
+            else:
+                shortcut = x
+            return _relu_dropout(h + shortcut, dropout_rate, generator,
+                                 dropout_impl)
+
+        return run(tail, h, x), new_state
+    h = run(temporal, h)                        # temporal_in is spatial_out
+
+    def tail(h):
+        out, s = batchnorm_train(params["bn2"], state["bn2"], h)
+        return _relu_dropout(out, dropout_rate, generator, dropout_impl), s
+
+    out, new_state["bn2"] = run(tail, h)
+    return out, new_state
 
 
-def _relu_dropout(out, dropout_rate, generator):
+def checkpointed(fn, generator: torch.Generator | None, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    backward keeps ``args`` and recomputes the rest by calling ``fn``
+    again.  The checkpoint restores only the global RNGs, not an explicit
+    generator, so ``generator``'s state is taken before the first call and
+    put back for the recompute (and the later state restored after it):
+    the recompute draws the forward's dropout mask.  Nothing here draws
+    from the global RNGs, so the checkpoint does not save them.  What the
+    recompute returns besides the saved tensors, such as new BN running
+    statistics, is dropped: the caller keeps the first call's."""
+    saved = generator.get_state() if generator is not None else None
+    calls = 0
+
+    def run(*inner):
+        nonlocal calls
+        calls += 1
+        if calls == 1 or generator is None:
+            return fn(*inner)
+        later = generator.get_state()
+        generator.set_state(saved)
+        try:
+            return fn(*inner)
+        finally:
+            generator.set_state(later)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _relu_dropout(out, dropout_rate, generator, impl="exact"):
     out = torch.relu(out)
     if dropout_rate > 0.0:
         if generator is None:
             raise ValueError("dropout_rate > 0 in train mode needs a "
                              "generator")
-        out = dropout(out, dropout_rate, generator=generator)
+        out = dropout(out, dropout_rate, generator=generator, impl=impl)
     return out
 
 
@@ -138,7 +196,8 @@ def block_forward_vm(params: dict, state: dict, x: torch.Tensor,
                      adjacency: torch.Tensor, *, stride: int = 1,
                      residual: bool = False, train: bool = False,
                      dropout_rate: float = 0.0,
-                     generator: torch.Generator | None = None
+                     generator: torch.Generator | None = None,
+                     dropout_impl: str = "exact"
                      ) -> tuple[torch.Tensor, dict]:
     """One ST-GCN unit on V-major ``(V, N, T, C_in) -> (V, N, T', C_out)``
     (port of ``block_forward_vm``, ``stgcn_tpu/ops/block.py:213-290``).
@@ -192,4 +251,5 @@ def block_forward_vm(params: dict, state: dict, x: torch.Tensor,
         out, new_state["bn2"] = bn("bn2", h)
     if not train:
         return torch.relu(out), state
-    return _relu_dropout(out, dropout_rate, generator), new_state
+    return (_relu_dropout(out, dropout_rate, generator, dropout_impl),
+            new_state)

@@ -14,21 +14,38 @@ import torch
 from stgcn_tpu_torch.ops.batchnorm import stat_dtype
 
 
+DROPOUT_IMPLS = ("exact", "bits8")
+
+
 def dropout(x: torch.Tensor, rate: float, *, generator: torch.Generator,
-            train: bool = True) -> torch.Tensor:
+            train: bool = True, impl: str = "exact") -> torch.Tensor:
     """Inverted dropout, torch's train-time scaling by ``1/(1-rate)``.
 
     The keep mask is drawn from ``generator``, which must live on ``x``'s
-    device.  This is the JAX package's ``impl="exact"``; its ``"bits8"``
-    variant is not ported.  The two packages' random bits differ, so the
-    masks agree in distribution only.
+    device.  ``impl="exact"`` keeps an element where a float32 uniform
+    falls below ``1 - rate``.  ``impl="bits8"`` (port of the JAX
+    ``impl="bits8"``) draws one random byte per element instead and keeps
+    it below ``round(keep * 256)``: the keep probability quantizes to
+    ``thresh / 256`` (exact for the reference's rate 0.5) and the rescale
+    uses that effective probability, so the op stays unbiased at every
+    rate; a threshold of 0 or 256 takes the exact path.  The two packages'
+    random bits differ, so the masks agree in distribution only.
     """
+    if impl not in DROPOUT_IMPLS:
+        raise ValueError(f"dropout impl must be one of {DROPOUT_IMPLS}, got "
+                         f"{impl!r}")
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if impl == "bits8":
+        thresh = int(round(keep * 256))
+        if 0 < thresh < 256:
+            bits = torch.randint(0, 256, x.shape, generator=generator,
+                                 dtype=torch.uint8, device=x.device)
+            return torch.where(bits < thresh, x / (thresh / 256.0), zero)
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
+    return torch.where(mask, x / keep, zero)
 
 
 def global_avg_pool(x: torch.Tensor,

@@ -10,8 +10,9 @@ package and ``to_dict`` gives equal dictionaries.
 What differs is what the settings reach:
 
 * :func:`model_config_from` builds the port's ``STGCNConfig`` with torch
-  dtypes; settings the port cannot run yet raise ``NotImplementedError``
-  naming their ROADMAP item (:func:`refuse_unported`);
+  dtypes; mesh axes above 1, which the port cannot run yet, raise
+  ``NotImplementedError`` naming their ROADMAP item
+  (:func:`refuse_unported`);
 * :func:`apply_device` maps ``--train.device`` onto a ``torch.device``:
   ``auto`` and ``cuda`` are the GPU and raise without one (there is no
   quiet CPU fallback, unlike the JAX package's ``auto``), ``cpu`` the CPU,
@@ -53,7 +54,8 @@ class ModelSection:
     residual: bool = False
     num_layers: int = 10              # 10 (code) or 9 (report variant)
     final_softmax: bool = False
-    temporal_impl: str = "auto"       # auto | conv | pallas (the port's
+    temporal_impl: str = "auto"       # auto | conv | conv_vt | shift_sum
+                                      # | block | pallas (the port's
                                       # temporal-conv kernel)
     spatial_impl: str = "einsum"      # einsum | pallas (graph-conv kernel)
     block_impl: str = "ops"           # ops | fused | hybrid
@@ -77,7 +79,7 @@ class DataSection:
     fixed_len: int = 256
     batch_size: int = 16
     sort_by_length: bool = True
-    use_native_loader: bool = True    # C++ batch loader (not ported yet)
+    use_native_loader: bool = True    # C++ batch loader (data/native_loader)
     synthetic: bool = False           # generate synthetic data if paths empty
     synthetic_style: str = "marginal"  # or "relational"
     seed: int = 0
@@ -121,7 +123,8 @@ class ParallelSection:
     model_axis: int = 1
     shard_joints: bool = False
     precision: str = "default"        # "default" | "highest" | "bfloat16"
-    remat: bool = False               # not ported yet
+    remat: bool = False               # recompute each block in the
+                                      # backward (op chain only)
 
 
 @dataclasses.dataclass
@@ -249,21 +252,11 @@ def precision_scope(cfg: ExperimentConfig):
 def refuse_unported(cfg: ExperimentConfig) -> None:
     """``NotImplementedError`` for a setting the port cannot run yet,
     naming its item of ROADMAP.md's queue 1."""
-    from stgcn_tpu_torch.ops.temporal_conv import UNPORTED_TEMPORAL_IMPLS
-
     p = cfg.parallel
     if p.data_axis * p.time_axis * p.model_axis > 1:
         raise NotImplementedError(
             "--parallel.{data,time,model}_axis > 1: the parallel paths are "
             "not ported yet (ROADMAP queue 1 item 7)")
-    if p.remat:
-        raise NotImplementedError(
-            "--parallel.remat true: rematerialization is not ported yet "
-            "(ROADMAP queue 1 item 6)")
-    if cfg.model.temporal_impl in UNPORTED_TEMPORAL_IMPLS:
-        raise NotImplementedError(
-            f"--model.temporal_impl {cfg.model.temporal_impl}: not ported "
-            "yet (ROADMAP queue 1 item 6)")
 
 
 def model_config_from(cfg: ExperimentConfig) -> "Any":
@@ -305,4 +298,5 @@ def model_config_from(cfg: ExperimentConfig) -> "Any":
         fused_blocks=(tuple(int(v) for v in m.fused_blocks.split(","))
                       if m.fused_blocks else None),
         layout=m.layout,
+        remat=cfg.parallel.remat,
     )

@@ -10,7 +10,8 @@
 * :func:`param_table`: a listing of the parameter dictionaries.
 
 The JAX package's ``dump_computation`` (jaxpr and HLO text) has no
-counterpart yet (ROADMAP queue 1 item 5).
+counterpart: the nearest is the graph of the ``pt2`` program that
+``python -m stgcn_tpu_torch.cli.export --format pt2`` writes.
 """
 
 from __future__ import annotations

@@ -282,9 +282,18 @@ class TestConfig:
 
     @pytest.mark.parametrize("impl", ["conv_vt", "shift_sum", "block"])
     def test_unported_temporal_impls_raise(self, impl):
-        JaxConfig(plan=PLAN, temporal_impl=impl)
-        with pytest.raises(NotImplementedError, match=impl):
-            tm.STGCNConfig(plan=PLAN, temporal_impl=impl)
+        # these formulations are ported now: both configs take them, and
+        # the eval forward on each matches the JAX one (float32, as above)
+        jcfg = JaxConfig(plan=PLAN, temporal_impl=impl, residual=True)
+        tcfg = tm.STGCNConfig(plan=PLAN, temporal_impl=impl, residual=True)
+        assert tcfg.temporal_impl == jcfg.temporal_impl == impl
+        jax_model = JaxSTGCN(jcfg)
+        params, state = randomized(jax_model, np.random.default_rng(0))
+        x, _ = batch(np.random.default_rng(1))
+        want, _ = jax_model.apply(params, state, jnp.asarray(x), train=False)
+        got, _ = tm.STGCN(tcfg).apply(*port_params(params, state),
+                                      torch.from_numpy(x), train=False)
+        close_trees(got.numpy(), np.asarray(want), 1e-4, 1e-4)
 
     def test_defaults_match_jax(self):
         jcfg, tcfg = JaxConfig(), tm.STGCNConfig()

@@ -277,8 +277,7 @@ class TestConfig:
             tm.STGCNConfig(plan=PLAN, block_impl="hybrid", fused_from=7)
         with pytest.raises(ValueError, match="block_impl"):
             tm.STGCNConfig(block_impl="megakernel")
-        with pytest.raises(NotImplementedError, match="bits8"):
-            tm.STGCNConfig(dropout_impl="bits8")
+        assert tm.STGCNConfig(dropout_impl="bits8").dropout_impl == "bits8"
         with pytest.raises(ValueError, match="dropout_impl"):
             tm.STGCNConfig(dropout_impl="approx")
         assert tm.STGCNConfig(plan=PLAN, fused_blocks=[0, 2]).fused_blocks \

@@ -286,14 +286,34 @@ def test_model_config_takes_the_jax_values():
 
 @pytest.mark.parametrize("argv,item", [
     (README_ARGV[2], "item 7"),
-    (["--parallel.remat", "true"], "item 6"),
-    (["--model.temporal_impl", "conv_vt"], "item 6"),
-    (["--model.temporal_impl", "shift_sum"], "item 6"),
-    (["--model.temporal_impl", "block"], "item 6"),
-], ids=["mesh", "remat", "conv_vt", "shift_sum", "block"])
+], ids=["mesh"])
 def test_unported_settings_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         tcfg.model_config_from(tcfg.parse_config(argv))
+
+
+@pytest.mark.parametrize("argv", [
+    ["--parallel.remat", "true"],
+    ["--model.temporal_impl", "conv_vt"],
+    ["--model.temporal_impl", "shift_sum"],
+    ["--model.temporal_impl", "block"],
+], ids=["remat", "conv_vt", "shift_sum", "block"])
+def test_ported_settings_build_and_step(argv):
+    """The settings the port once refused build the config the JAX package
+    builds and take a train step on the CPU."""
+    cfg = tcfg.parse_config(argv + ["--model.num_layers", "9",
+                                    "--model.dropout_rate", "0.5"])
+    got = tcfg.model_config_from(cfg)
+    want = jcfg.model_config_from(jcfg.parse_config(
+        argv + ["--model.num_layers", "9", "--model.dropout_rate", "0.5"]))
+    assert (got.remat, got.temporal_impl) == (want.remat, want.temporal_impl)
+    model = tm.STGCN(dataclasses.replace(got, plan=((8, 1), (16, 2))))
+    trainer = Trainer(model, lr=1e-3, device="cpu")
+    state = trainer.init_state()
+    x, y = random_batch(np.random.default_rng(0), batch=2, t=16)
+    metrics = trainer.train_step(state, torch.from_numpy(x),
+                                 torch.from_numpy(y))
+    assert np.isfinite(float(metrics["loss"])) and state.step == 1
 
 
 def test_apply_device_and_precision_scope():
