@@ -70,7 +70,11 @@ non-zero exit code:
                    float32 oracle), plus a fixed graph; both ops' bf16
                    tensor-core kernels also tightly, their backwards twice,
                    and at an odd width (C=40, T=37, both layouts; the
-                   temporal op at strides 1 and 2; both ops at C=36).
+                   temporal op at strides 1 and 2; both ops at C=36); the
+                   temporal op also at ``padding=0`` (the time halo's
+                   valid conv: 160 frames of C=64 at stride 1 and of C=128
+                   at stride 2, and the odd width), both layouts and
+                   dtypes.
 10. route_train -- the train step of route A (``layout="vntc"``) and of
                    route B (``spatial_impl``/``temporal_impl="pallas"``):
                    bench.py's configuration on the op chain; 10 launches of
@@ -170,6 +174,49 @@ non-zero exit code:
                    conv oracle's, bf16 ones no further from it than 3x the
                    bf16 conv path's (their share of the largest beside
                    2%), step ms.
+20. parallel    -- the mesh paths of ``stgcn_tpu_torch.parallel`` (run
+                   before 19).  (a) One rank, in this process, on NCCL
+                   (``make_mesh(1, 1, 1)``), every collective issued:
+                   ``Trainer(mesh=...)`` on bench.py's fused step (B=64,
+                   T=304, bf16, dropout 0.5, Adam 1e-3), 8/2/10 launches of
+                   spatial_block / spatial_block_save / temporal_block each
+                   way a step over 10 steps on a repeated batch whose loss
+                   falls; the float32 sharded gradient within 1e-6 of the
+                   largest of the unsharded fused step's (and whether
+                   bitwise equal); the sharded fused eval step, 10
+                   ``block_eval`` launches a batch; ``Predictor(mesh=...)``
+                   bitwise equal to ``Predictor``; the step's ms in turns
+                   with the unsharded fused step's.  (b) Two ranks on the
+                   one card, spawned: NCCL is probed first (all-reduce and
+                   point-to-point); where it refuses two ranks on one
+                   device the cases run on gloo, named on each line.
+                   data=2 on the fused kernels at bench.py's width (32
+                   sequences a rank, float32, dropout 0), 8/2/10 launches
+                   each way per rank, BN statistics within 1e-5 of the
+                   largest of the one-process B=64 step's; in bf16 the
+                   loss falls over 10 steps, the step ms beside the
+                   one-rank step's and the gradient all-reduce's ms.
+                   data=2 on route B (10 ``spatial_conv`` and 10
+                   ``temporal_conv`` launches each way per rank), model=2
+                   on the op path and on route B (the temporal kernel row
+                   parallel), and time=2 on route B (the halo runs
+                   ``temporal_conv`` at ``padding=0`` on each rank's 152
+                   frames), launches per rank.  Every case's float32
+                   gradient is held against the float64 op path, no
+                   further from it than 3x the one-process float32 step of
+                   the same path; that step within 1e-3 of the largest
+                   float64 gradient, and the two-rank gradient within
+                   2e-3 of the largest of both; its distance from the
+                   one-process float32 step is reported beside 1e-4 of the
+                   largest (``within_two_rel``), which float32's other
+                   summation orders do not meet.  Where the backend cannot
+                   carry a case's collectives, its line says ``ran:
+                   false`` with the error; the data-parallel cases must
+                   run.  ``python3 chip_smoke.py --parallel-cards``
+                   runs the same cases alone with one rank a card over
+                   every card of the machine (up to 4) on NCCL, the fused,
+                   model and time cases timed beside the one-process bf16
+                   step.
 19. kernels     -- one line per kernel with its launches, error, times and
                    bound (block_eval's also with its ``split_ms``).
 
@@ -1020,9 +1067,10 @@ def conv_counters() -> dict:
             "temporal_conv.backward": tc.temporal_conv_backward}
 
 
-def random_conv(gen, op, ci, co, stride, t, vmajor, dev):
+def random_conv(gen, op, ci, co, stride, t, vmajor, dev, padding=None):
     """Inputs of one conv op at a block's shape in one layout, float32, and
-    a cotangent of its output."""
+    a cotangent of its output (the temporal op's with ``padding`` frames of
+    zeros, ``None`` the same padding)."""
     import torch
 
     def r(*shape, scale=1.0):
@@ -1034,13 +1082,14 @@ def random_conv(gen, op, ci, co, stride, t, vmajor, dev):
                     b=r(2, co, scale=0.1),
                     a=torch.rand(2, V, V, generator=gen, device=dev) * 0.3)
         return args, r(*x.shape[:-1], co)
-    t_out = (t - 1) // stride + 1
+    pad = 4 if padding is None else padding
+    t_out = (t + 2 * pad - 9) // stride + 1
     args = dict(x=r(*((V * B, t, co) if vmajor else (B, t, V, co))),
                 w=r(9, co, co, scale=(9 * co) ** -0.5), b=r(co, scale=0.1))
     return args, r(*((V * B, t_out, co) if vmajor else (B, t_out, V, co)))
 
 
-def conv_fns(op, vmajor, stride, need_da=True) -> dict:
+def conv_fns(op, vmajor, stride, need_da=True, padding=None) -> dict:
     """direction -> (kernel, plain version) of one op in one layout, each a
     function of (inputs, cotangent)."""
     from stgcn_tpu_torch.kernels import spatial_conv as sc
@@ -1058,7 +1107,7 @@ def conv_fns(op, vmajor, stride, need_da=True) -> dict:
                     a["x"], g, a["w"], a["b"], a["a"], **bw),
                 lambda a, g: sc.spatial_conv_backward_reference(
                     a["x"], g, a["w"], a["b"], a["a"], **bw))}
-    fl = dict(stride=stride, vmajor=vmajor)
+    fl = dict(stride=stride, vmajor=vmajor, padding=padding)
     return {
         "forward": (lambda a, g: tc.temporal_conv_forward(**a, **fl),
                     lambda a, g: tc.temporal_conv_forward_reference(**a, **fl)),
@@ -1138,16 +1187,20 @@ def conv_kernel_phase(dev, gen, odd_gen) -> dict:
     odd = [("temporal_conv", ODD_C, ODD_C, s, ODD_T, True) for s in (1, 2)]
     worst: dict = {}
 
-    def run(op, ci, co, stride, t, need_da, dt, layout, vmajor, rng):
-        args, g = random_conv(rng, op, ci, co, stride, t, vmajor, dev)
+    def run(op, ci, co, stride, t, need_da, dt, layout, vmajor, rng,
+            padding=None):
+        args, g = random_conv(rng, op, ci, co, stride, t, vmajor, dev,
+                              padding)
         args = {k: v.to(dt) for k, v in args.items()}
         g = g.to(dt)
         oracle = {k: v.float() for k, v in args.items()}
         case = dict(layout=layout, c_in=ci, c_out=co, stride=stride, t_in=t)
         if op == "spatial_conv":
             case["need_da"] = need_da
+        if padding is not None:
+            case["padding"] = padding
         for direction, (kernel, plain) in conv_fns(
-                op, vmajor, stride, need_da).items():
+                op, vmajor, stride, need_da, padding).items():
             got = kernel(args, g)
             torch.cuda.synchronize()
             res = check_op(op, direction, got, plain(oracle, g.float()), dt,
@@ -1160,7 +1213,7 @@ def conv_kernel_phase(dev, gen, odd_gen) -> dict:
                     cur[k] = max(cur[k], res[k])
         if dt == torch.bfloat16:
             if op == "temporal_conv":
-                tight_conv(args, g, vmajor, stride, case)
+                tight_conv(args, g, vmajor, stride, case, padding)
             else:
                 tight_spatial_conv(args, g, vmajor, need_da, case)
 
@@ -1189,6 +1242,17 @@ def conv_kernel_phase(dev, gen, odd_gen) -> dict:
     for layout, vmajor in LAYOUTS.items():
         run("spatial_conv", ODD_C8, ODD_C8, 1, ODD_T, True, torch.bfloat16,
             layout, vmajor, spatial_odd8)
+    # padding=0, the time halo's valid conv: a rank's 152 frames of a
+    # T=304 clip on a time axis of 2 and its neighbours' 4 + 4, at the
+    # widths and strides of blocks 1 and 5 (and the odd width), from a
+    # generator of its own
+    valid = torch.Generator(device=dev).manual_seed(SEED + 15)
+    for dt in (torch.bfloat16, torch.float32):
+        for layout, vmajor in LAYOUTS.items():
+            for c, stride, t in ((64, 1, T // 2 + 8), (128, 2, T // 2 + 8),
+                                 (ODD_C, 2, ODD_T)):
+                run("temporal_conv", c, c, stride, t, True, dt, layout,
+                    vmajor, valid, padding=0)
     return worst
 
 
@@ -1217,14 +1281,14 @@ def tight_spatial_conv(args, g, vmajor, need_da, case) -> None:
     check_repeat("spatial_conv", *twice, "conv_kernel", **case)
 
 
-def tight_conv(args, g, vmajor, stride, case) -> None:
+def tight_conv(args, g, vmajor, stride, case, padding=None) -> None:
     """``temporal_conv``'s bf16 tensor-core kernels tightly against the
     plain version on the same bf16 inputs; the backward twice, bitwise."""
     import torch
 
     from stgcn_tpu_torch.kernels import temporal_conv as tc
 
-    fl = dict(stride=stride, vmajor=vmajor)
+    fl = dict(stride=stride, vmajor=vmajor, padding=padding)
     w32 = args["w"].float()         # bf16 values: gradients unrounded
     u = tc.temporal_conv_forward(**args, **fl)
     twice = [tc.temporal_conv_backward(args["x"], g, w32, args["b"], **fl)
@@ -2822,6 +2886,718 @@ def route_options_phase(smi: str, dev) -> None:
                                  "off the float32 conv oracle's, or in bf16 "
                                  "further than the bf16 conv path's")
 
+# ---- 20. parallel: the mesh paths of stgcn_tpu_torch.parallel ------------
+PARALLEL_STEPS = 10   # steps of the one-rank Trainer(mesh) run
+# one rank: the sharded code sums as the unsharded does, so its float32
+# gradients agree within 1e-6 of the largest (bitwise where the order of
+# every sum is the same; the line says which)
+PARALLEL_ONE_REL = 1e-6
+# two ranks: other summation orders in float32 (the BN moments and the
+# gradients of two halves, the conv kernels on halves of the batch).  On
+# an H100 the data=2 gradient lies 3.9e-4 of the largest from the
+# one-process float32 step's, which itself lies 3.8e-4 from the float64
+# op path (BN statistics 1.8e-7): so each two-rank gradient is held, as
+# the fused_train phase holds its kernels (GRAD_VS_F64), against the
+# float64 op path, no further from it than PARALLEL_VS_F64 times the
+# one-process float32 step of the same path; its distance from that step
+# is reported beside PARALLEL_TWO_REL.  Absolute limits beside the ratio,
+# so that a broken float64 reference cannot carry both sides: the
+# one-process float32 step within PARALLEL_ONE_VS_F64_MAX of the largest
+# float64 gradient (it reads 2.5-3.8e-4), each two-rank gradient within
+# PARALLEL_TWO_MAX of the largest of the one-process step's and of the
+# float64 path's
+PARALLEL_TWO_REL = 1e-4
+PARALLEL_VS_F64 = 3.0
+PARALLEL_ONE_VS_F64_MAX = 1e-3
+PARALLEL_TWO_MAX = 2e-3
+PARALLEL_BN_REL = 1e-5
+PARALLEL_TIMEOUT_S = 240       # each spawn of two ranks
+SERVE_SEQUENCES = 96           # the Predictor(mesh) request
+
+
+def reset(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read(counters: dict) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def rel_err(got: list, want: list) -> float:
+    """max |got - want| over max |want|, over lists of tensors."""
+    err = max((a.double() - b.double().to(a.device)).abs().max().item()
+              for a, b in zip(got, want))
+    scale = max(b.abs().max().item() for b in want)
+    return err / scale
+
+
+def parallel_batch(cfg):
+    """The phase's B=64, T=304 batch, from numpy (the same in every
+    process)."""
+    rng = np.random.default_rng(SEED + 20)
+    x = rng.standard_normal((B, T, V, 2)).astype(np.float32)
+    y = rng.integers(0, cfg.num_classes, B).astype(np.int64)
+    return x, y
+
+
+def unsharded_grads(cfg, dev) -> dict:
+    """One unsharded step's gradients (and new BN statistics) at the
+    phase's batch, in ``cfg.dtype``, from the float32 weights of seed SEED
+    (cast to ``cfg.dtype``): the references of both cases."""
+    import torch
+
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.training.loop import forward_backward
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import train_state_from
+    from stgcn_tpu_torch.tree import tree_items, tree_leaves, tree_map
+
+    model = STGCN(cfg).to(dev)
+    params, state = STGCN(dataclasses.replace(
+        cfg, dtype=torch.float32)).init_params(SEED)
+    ts = train_state_from(tree_map(lambda t: t.to(cfg.dtype), params),
+                          state, adam(1e-3), SEED, dev)
+    x, y = parallel_batch(cfg)
+    loss, _, new_ms = forward_backward(
+        model, ts, torch.from_numpy(x).to(dev, cfg.dtype),
+        torch.from_numpy(y).to(dev))
+    return {"loss": float(loss.detach()), "names": list(tree_items(ts.params)),
+            "grads": [p.grad.detach().cpu() for p in ts.leaves()],
+            "state": [t.detach().cpu() for t in tree_leaves(new_ms)]}
+
+
+def parallel_one_rank(smi: str, dev) -> dict:
+    """Case (a): a one-rank NCCL mesh in this process, every collective
+    issued: ``Trainer(mesh=...)`` on bench.py's fused step, the float32
+    gradient against the unsharded step's, the sharded fused eval step and
+    ``Predictor(mesh=...)`` against ``Predictor``."""
+    import torch
+    import torch.distributed as dist
+
+    from stgcn_tpu_torch.kernels.block_eval import block_eval
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.parallel.fused_dp import make_fused_dp_grads
+    from stgcn_tpu_torch.parallel.mesh import make_mesh
+    from stgcn_tpu_torch.parallel.train import (
+        create_sharded_train_state,
+        make_sharded_eval_step,
+        shard_batch,
+    )
+    from stgcn_tpu_torch.serving import Predictor
+    from stgcn_tpu_torch.training.loop import Trainer, make_train_step
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import create_train_state
+
+    mesh = make_mesh(1, 1, 1)          # a one-process NCCL world on the card
+    counters = fused_counters()
+    cfg = bench_config(block_impl="fused")
+    x, y = parallel_batch(cfg)
+
+    # ---- the main path: Trainer(mesh) on bench.py's fused step ----------
+    model = STGCN(cfg)
+    trainer = Trainer(model, adam(1e-3), mesh=mesh, seed=SEED)
+    ts = trainer.init_state()
+    batch = trainer._put_batch(x, y)
+    reset(counters)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    losses = [float(trainer.train_step(ts, *batch)["loss"])
+              for _ in range(PARALLEL_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = read(counters)
+    # the unsharded fused step beside it, timed in turns after a warm step
+    # of each (a step timed first after another phase reads slow)
+    plain_model = STGCN(cfg)
+    plain_ts = create_train_state(plain_model, adam(1e-3), seed=SEED)
+    plain_step = make_train_step(plain_model)
+    turns = {"unsharded": lambda: plain_step(plain_ts, *batch),
+             "mesh": lambda: trainer.train_step(ts, *batch)}
+    times = {k: [] for k in turns}
+    for k in ("unsharded", "mesh", "mesh", "unsharded"):
+        times[k].append(cuda_time_ms(turns[k], reps=5))
+    step_ms = float(np.mean(times["mesh"]))
+    unsharded_ms = float(np.mean(times["unsharded"]))
+    del plain_ts
+    per_step = {k: v / PARALLEL_STEPS for k, v in launches.items()}
+    n_save = len(SAVE_BLOCKS)
+    want = {"spatial_block": len(cfg.plan) - n_save,
+            "spatial_block_save": n_save, "temporal_block": len(cfg.plan)}
+    fell = (np.mean(losses[-3:]) < np.mean(losses[:3])
+            and all(np.isfinite(losses)))
+    ok = fell and all(per_step[k] == want[k.split(".")[0]] for k in per_step)
+    emit("parallel", case="one_rank_trainer", mesh=[1, 1, 1],
+         backend=mesh.backend, steps=PARALLEL_STEPS, losses=losses,
+         seconds=seconds, launches_per_step=per_step,
+         expected_per_step=want, step_ms=step_ms,
+         unsharded_step_ms=unsharded_ms, step_ms_turns=times, batch=B,
+         frames=T, dtype="bfloat16", dropout=cfg.dropout_rate,
+         nvidia_smi=smi, ok=ok)
+    if not ok:
+        raise AssertionError("Trainer(mesh) did not run 8/2/10 launches a "
+                             "step, or its loss did not fall")
+
+    # ---- the float32 gradient against the unsharded fused step ----------
+    cfg32 = dataclasses.replace(cfg, compute_dtype=None, dropout_rate=0.0)
+    ref = unsharded_grads(cfg32, dev)
+    m32 = STGCN(cfg32)
+    ts32, _ = create_sharded_train_state(m32, adam(1e-3), mesh, seed=SEED)
+    loss, _, new_ms = make_fused_dp_grads(m32, mesh)(
+        ts32.params, ts32.model_state, None, *shard_batch(x, y, mesh))
+    got = [p.grad for p in ts32.leaves()]
+    err = rel_err(got, ref["grads"])
+    bitwise = all(torch.equal(a.cpu(), b) for a, b in zip(got, ref["grads"]))
+    ok = err <= PARALLEL_ONE_REL
+    emit("parallel", case="one_rank_f32_grads", backend=mesh.backend,
+         grad_rel_err=err, bitwise_equal=bitwise,
+         loss=float(loss), unsharded_loss=ref["loss"],
+         tolerance=f"max_abs_err <= {PARALLEL_ONE_REL} * max|gradient|",
+         ok=ok)
+    if not ok:
+        raise AssertionError("the one-rank sharded fused gradient disagrees "
+                             "with the unsharded step's")
+    del ts32, got
+
+    # ---- the sharded fused eval step: 10 block_eval launches a batch ----
+    eval_step = make_sharded_eval_step(model, mesh)
+    before = block_eval.launches
+    sums = eval_step(ts, *batch)
+    eval_launches = block_eval.launches - before
+    ok = eval_launches == len(cfg.plan) and int(sums["count"]) == B
+    emit("parallel", case="one_rank_eval", backend=mesh.backend,
+         block_eval_launches=eval_launches, count=int(sums["count"]), ok=ok)
+    if not ok:
+        raise AssertionError("the sharded fused eval step did not run "
+                             f"{len(cfg.plan)} block_eval launches")
+
+    # ---- Predictor(mesh) bitwise against Predictor ----------------------
+    serve = STGCN(bench_config(dropout_rate=0.0)).to(dev)
+    rng = np.random.default_rng(SEED + 21)
+    seqs = [rng.standard_normal((int(n), V, 2)).astype(np.float32)
+            for n in rng.integers(60, 300, SERVE_SEQUENCES)]
+    plain = Predictor(serve).predict(seqs).probs
+    sharded = Predictor(serve, mesh=mesh).predict(seqs).probs
+    ok = bool(np.array_equal(plain, sharded))
+    emit("parallel", case="one_rank_predictor", backend=mesh.backend,
+         sequences=SERVE_SEQUENCES, bitwise_equal=ok, ok=ok)
+    if not ok:
+        raise AssertionError("Predictor(mesh) answered otherwise than "
+                             "Predictor")
+    del trainer, ts, model, serve
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"launches_per_step": per_step, "step_ms": step_ms,
+            "eval_launches": eval_launches}
+
+
+def spawn_ranks(suite: str, backend: str, tmp: str, world: int = 2,
+                cards: bool = False,
+                timeout_s: float = PARALLEL_TIMEOUT_S) -> tuple[list, list]:
+    """Run ``python chip_smoke.py --parallel-rank SUITE BACKEND RANK WORLD
+    TMP CARDS`` for every rank: all on card 0, or with ``cards`` rank r on
+    card r; returns their exit codes and outputs (killed at
+    ``timeout_s``)."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--parallel-rank",
+         suite, backend, str(r), str(world), tmp, str(int(cards))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout_s)[0])
+    except subprocess.TimeoutExpired:
+        outs = outs + [""] * (world - len(outs))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], outs
+
+
+def parallel_refs(dev, timed: bool, n: int = 1) -> dict:
+    """The one-process references of the spawned cases at the phase's
+    batch: float32 gradients of the fused step, the op path and route B,
+    the float64 op path's, and with ``timed`` each bf16 step's ms (and
+    the fused step's at one rank's share of the batch, ``B / n``)."""
+    import torch
+
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.training.loop import make_train_step
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import create_train_state
+
+    cfg32 = bench_config(block_impl="fused", compute_dtype=None,
+                         dropout_rate=0.0)
+    ops32 = dataclasses.replace(cfg32, block_impl="ops")
+    kinds = {"fused": cfg32, "ops": ops32,
+             "route_b": dataclasses.replace(ops32, spatial_impl="pallas",
+                                            temporal_impl="pallas")}
+    refs = {k: unsharded_grads(c, dev) for k, c in kinds.items()}
+    refs["f64"] = unsharded_grads(dataclasses.replace(
+        ops32, dtype=torch.float64), dev)
+    refs["step_ms"] = {}
+    if timed:
+        x, y = (torch.from_numpy(a).to(dev)
+                for a in parallel_batch(cfg32))
+        for k, c in kinds.items():
+            cfg = dataclasses.replace(c, compute_dtype=torch.bfloat16)
+            model = STGCN(cfg)
+            ts = create_train_state(model, adam(1e-3), seed=SEED)
+            step = make_train_step(model)
+            refs["step_ms"][k] = cuda_time_ms(lambda: step(ts, x, y),
+                                              reps=5)
+            if k == "fused":
+                refs["step_ms"]["fused_rank_batch"] = cuda_time_ms(
+                    lambda: step(ts, x[:B // n], y[:B // n]), reps=5)
+            del ts
+    torch.cuda.empty_cache()
+    return refs
+
+
+def parallel_two_ranks(smi: str, dev, one_rank: dict) -> dict:
+    """Case (b): two ranks on the one card, spawned.  NCCL is tried first
+    (it may refuse two ranks of one communicator on one device); where it
+    does not run, the cases run on the gloo backend, named on each line.
+    The data-parallel case must run; the time and model cases report
+    ``ran: false`` with the backend's error where it cannot carry their
+    collectives on CUDA tensors of two ranks on one device."""
+    refs = parallel_refs(dev, timed=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        rcs, outs = spawn_ranks("probe", "nccl", tmp, timeout_s=120)
+        probe = {}
+        if all(rc == 0 for rc in rcs):
+            with open(Path(tmp) / "probe.json") as f:
+                probe = json.load(f)
+        nccl_ok = bool(probe.get("all_reduce")) and bool(probe.get("p2p"))
+        emit("parallel", case="nccl_two_ranks_one_card", backend="nccl",
+             ran=nccl_ok, exit_codes=rcs, result=probe,
+             error=None if nccl_ok else "\n".join(o[-1500:] for o in outs))
+        backend = "nccl" if nccl_ok else "gloo"
+        results = run_cases(backend, tmp, world=2, cards=False)
+    return report_cases("parallel", results, refs, backend, smi, 2,
+                        one_rank["step_ms"])
+
+
+def run_cases(backend: str, tmp: str, world: int, cards: bool) -> dict:
+    """The cases of :data:`PARALLEL_CASES` on ``world`` spawned ranks:
+    their results by name, a case whose ranks died marked not run with
+    their last output."""
+    import torch
+
+    rcs, outs = spawn_ranks("cases", backend, tmp, world, cards)
+    results = {}
+    path = Path(tmp) / "cases.pt"
+    if path.exists():
+        results = torch.load(path)
+    if any(rc != 0 for rc in rcs):
+        # a rank died in a case: that case did not run, with the
+        # process's own last words as its error
+        started = [line.split()[1] for line in outs[0].splitlines()
+                   if line.startswith("CASE ")]
+        if started and started[-1] not in results:
+            results[started[-1]] = {
+                "ran": False, "exit_codes": rcs,
+                "error": "\n".join(o[-1500:] for o in outs)}
+    return results
+
+
+def report_cases(phase: str, results: dict, refs: dict, backend: str,
+                 smi: str, n: int, one_rank_step_ms) -> dict:
+    """One line a case, held against the one-process references; raises
+    if a data-parallel case did not run or a case that ran disagrees."""
+    summary, failed = {"backend": backend}, []
+    for kind, _ in PARALLEL_CASES:
+        ref_key = CASE_REFS[kind]
+        name = case_name(kind, n)
+        res = results.get(name, {"ran": False, "error": "no result"})
+        line = {k: v for k, v in res.items()
+                if k not in ("grads", "state")}
+        passed = False
+        if res.get("ran"):
+            ref, f64 = refs[ref_key], refs["f64"]
+            line["grad_rel_err"] = rel_err(res["grads"], ref["grads"])
+            line["within_two_rel"] = line["grad_rel_err"] <= PARALLEL_TWO_REL
+            line["grad_rel_err_vs_f64"] = rel_err(res["grads"], f64["grads"])
+            line["one_process_rel_err_vs_f64"] = rel_err(ref["grads"],
+                                                        f64["grads"])
+            line["worst_leaves"] = worst_leaves(res["grads"], ref["grads"],
+                                                ref["names"])
+            line["loss"], line["unsharded_loss"] = res["loss"], ref["loss"]
+            line["one_process_step_ms"] = refs["step_ms"].get(ref_key)
+            passed = (line["grad_rel_err_vs_f64"] <= PARALLEL_VS_F64
+                      * line["one_process_rel_err_vs_f64"]
+                      and line["one_process_rel_err_vs_f64"]
+                      <= PARALLEL_ONE_VS_F64_MAX
+                      and line["grad_rel_err"] <= PARALLEL_TWO_MAX
+                      and line["grad_rel_err_vs_f64"] <= PARALLEL_TWO_MAX)
+            if "state" in res:
+                line["bn_state_rel_err"] = rel_err(res["state"],
+                                                   ref["state"])
+                passed = passed and (line["bn_state_rel_err"]
+                                     <= PARALLEL_BN_REL)
+            want = case_launches(kind, n)
+            passed = passed and res.get("bf16_fell", True) and all(
+                n_ == want[k] for r in res.get("launches_per_rank", [])
+                for k, n_ in r.items() if k in want)
+            if kind == "data":
+                line["one_rank_step_ms"] = one_rank_step_ms
+                line["one_process_step_ms_at_rank_batch"] = refs[
+                    "step_ms"].get("fused_rank_batch")
+        line.update(case=name, backend=backend, passed=passed,
+                    tolerance=(f"gradients no further from the float64 op "
+                               f"path than {PARALLEL_VS_F64}x the one-process "
+                               f"float32 step's, that step within "
+                               f"{PARALLEL_ONE_VS_F64_MAX} and the gradients "
+                               f"within {PARALLEL_TWO_MAX} of the largest of "
+                               f"both (their distance from the one-process "
+                               f"step beside {PARALLEL_TWO_REL}), "
+                               f"BN statistics within {PARALLEL_BN_REL}; "
+                               f"launches a rank "
+                               f"{case_launches(kind, n)}"),
+                    nvidia_smi=smi)
+        emit(phase, **line)
+        summary[name] = line
+        if (kind.startswith("data") or res.get("ran")) and not passed:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"cases {failed} did not run or disagree with "
+                             "the one-process step (the data-parallel cases "
+                             "must run)")
+    return summary
+
+
+def worst_leaves(got: list, want: list, names: list, k: int = 3) -> list:
+    """The ``k`` leaves farthest from ``want``, with their error and their
+    own largest value."""
+    errs = [((a.double() - b.double()).abs().max().item(),
+             b.abs().max().item(), name) for name, a, b in zip(
+                names, got, want)]
+    return [{"leaf": name, "max_abs_err": e, "leaf_max": m}
+            for e, m, name in sorted(errs, reverse=True)[:k]]
+
+
+def parallel_rank_main(suite: str, backend: str, rank: int, world: int,
+                       tmp: str, cards: bool) -> int:
+    """One spawned rank (``--parallel-rank``): on card 0, or with
+    ``cards`` on card ``rank``."""
+    import torch
+    import torch.distributed as dist
+
+    from stgcn_tpu_torch.kernels import _build
+    from stgcn_tpu_torch.parallel.launcher import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    local = rank if cards else 0
+    initialize_distributed("file://" + str(Path(tmp) / f"rdv-{suite}"),
+                           world, rank, backend=backend, local_rank=local)
+    dev = torch.device("cuda", local)
+    if suite == "probe":
+        out = {}
+        t = torch.full((4,), float(rank + 1), device=dev)
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        out["all_reduce"] = bool((t == 3.0).all())
+        peer = 1 - rank
+        recv = torch.zeros(4, device=dev)
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, t, peer), dist.P2POp(dist.irecv, recv,
+                                                        peer)])
+        for w in works:
+            w.wait()
+        torch.cuda.synchronize()
+        out["p2p"] = bool((recv == 3.0).all())
+        if rank == 0:
+            with open(Path(tmp) / "probe.json", "w") as f:
+                json.dump(out, f)
+        dist.barrier()
+        return 0
+    results = {}
+    for kind, fn in PARALLEL_CASES:
+        name = case_name(kind, world)
+        # saved after every case: a backend may abort the process (gloo
+        # does, on point-to-point of CUDA tensors), and the parent then
+        # names the case that was running from this line
+        print(f"CASE {name}", flush=True)
+        try:
+            results[name] = {"ran": True, **fn(dev, world)}
+        except Exception as e:  # noqa: BLE001 - reported on the case's line
+            results[name] = {"ran": False,
+                             "error": f"{type(e).__name__}: {e}"[:1500]}
+        if rank == 0:
+            torch.save(results, Path(tmp) / "cases.pt")
+    return 0
+
+
+def _gathered_grads(ts, mesh) -> list:
+    from stgcn_tpu_torch.parallel.mesh import gather_params
+    from stgcn_tpu_torch.tree import tree_leaves, tree_map
+
+    g = gather_params(tree_map(lambda p: p.grad, ts.params), mesh)
+    return [t.detach().cpu() for t in tree_leaves(g)]
+
+
+def _all_launches(counters) -> list:
+    """Every rank's launch counts, in rank order (gathered through an
+    object collective)."""
+    import torch.distributed as dist
+
+    mine = read(counters)
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, mine)
+    return out
+
+
+def _rank_data(dev, n: int) -> dict:
+    """data=n on the fused kernels at bench.py's width: the float32
+    gradients and BN statistics of one step; bf16 steps for the falling
+    loss, the step ms and the gradient all-reduce's ms."""
+    import torch
+
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.parallel.collectives import all_reduce_
+    from stgcn_tpu_torch.parallel.fused_dp import make_fused_dp_grads
+    from stgcn_tpu_torch.parallel.mesh import make_mesh
+    from stgcn_tpu_torch.parallel.train import (
+        create_sharded_train_state,
+        make_sharded_train_step,
+        shard_batch,
+    )
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.tree import tree_leaves
+
+    mesh = make_mesh(n, 1, 1, device=dev)
+    counters = fused_counters()
+    cfg32 = bench_config(block_impl="fused", compute_dtype=None,
+                         dropout_rate=0.0)
+    x, y = parallel_batch(cfg32)
+    m32 = STGCN(cfg32)
+    ts, _ = create_sharded_train_state(m32, adam(1e-3), mesh, seed=SEED)
+    batch = shard_batch(x, y, mesh)
+    reset(counters)
+    loss, _, new_ms = make_fused_dp_grads(m32, mesh)(
+        ts.params, ts.model_state, None, *batch)
+    torch.cuda.synchronize()
+    launches = _all_launches(counters)
+    out = {"loss": float(loss), "launches_per_rank": launches,
+           "sequences_per_rank": batch[0].shape[0],
+           "grads": [p.grad.detach().cpu() for p in ts.leaves()],
+           "state": [t.detach().cpu() for t in tree_leaves(new_ms)]}
+    del ts
+
+    cfg = bench_config(block_impl="fused")
+    model = STGCN(cfg)
+    ts, _ = create_sharded_train_state(model, adam(1e-3), mesh, seed=SEED)
+    step = make_sharded_train_step(model, mesh)
+    losses = [float(step(ts, *batch)["loss"]) for _ in range(PARALLEL_STEPS)]
+    out["bf16_losses"] = losses
+    out["bf16_fell"] = bool(np.isfinite(losses).all()
+                            and np.mean(losses[-3:]) < np.mean(losses[:3]))
+    out["step_ms"] = cuda_time_ms(lambda: step(ts, *batch), reps=5)
+    grads = [torch.zeros_like(p) for p in ts.leaves()]
+    out["grad_all_reduce_ms"] = cuda_time_ms(
+        lambda: all_reduce_(grads, mesh.group("data")), reps=5)
+    out["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+    return out
+
+
+def _rank_model(dev, n: int) -> dict:
+    """model=n on the op path (channel tensor parallelism): float32
+    gradients, and the bf16 step's ms."""
+    import torch
+
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.parallel.mesh import make_mesh
+    from stgcn_tpu_torch.parallel.train import (
+        create_sharded_train_state,
+        make_sharded_grads,
+        shard_batch,
+    )
+    from stgcn_tpu_torch.training.optimizers import adam
+
+    mesh = make_mesh(1, 1, n, device=dev)
+    cfg = bench_config(compute_dtype=None, dropout_rate=0.0)
+    x, y = parallel_batch(cfg)
+    model = STGCN(cfg)
+    ts, _ = create_sharded_train_state(model, adam(1e-3), mesh, seed=SEED)
+    loss, _, _ = make_sharded_grads(model, mesh)(
+        ts, *shard_batch(x, y, mesh))
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "grads": _gathered_grads(ts, mesh),
+            "step_ms": _bf16_step_ms(cfg, mesh)}
+
+
+def _route_b(dev, shape: tuple, timed: bool) -> dict:
+    """Route B on a ``(data, time, model)`` mesh: ``spatial_conv`` on each
+    rank's slice and ``temporal_conv`` on each rank's frames (on a time
+    mesh inside the halo, at ``padding=0`` on its T/n frames and its
+    neighbours' 4 + 4; on a model mesh on its C_in slice, its partial
+    sums all-reduced): float32 gradients and launches, and with ``timed``
+    the bf16 step's ms."""
+    import torch
+
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.parallel.mesh import make_mesh
+    from stgcn_tpu_torch.parallel.train import (
+        create_sharded_train_state,
+        make_sharded_grads,
+        shard_batch,
+    )
+    from stgcn_tpu_torch.training.optimizers import adam
+
+    mesh = make_mesh(*shape, device=dev)
+    cfg = bench_config(compute_dtype=None, dropout_rate=0.0,
+                       spatial_impl="pallas", temporal_impl="pallas")
+    x, y = parallel_batch(cfg)
+    model = STGCN(cfg)
+    ts, _ = create_sharded_train_state(model, adam(1e-3), mesh, seed=SEED)
+    counters = conv_counters()
+    reset(counters)
+    loss, _, _ = make_sharded_grads(model, mesh)(
+        ts, *shard_batch(x, y, mesh))
+    torch.cuda.synchronize()
+    out = {"loss": float(loss), "launches_per_rank": _all_launches(counters),
+           "frames_per_rank": T // shape[1],
+           "sequences_per_rank": B // shape[0],
+           "grads": _gathered_grads(ts, mesh)}
+    if timed:
+        out["step_ms"] = _bf16_step_ms(cfg, mesh)
+    return out
+
+
+def _rank_data_route_b(dev, n: int) -> dict:
+    """data=n on route B: both conv kernels on each rank's B/n sequences."""
+    return _route_b(dev, (n, 1, 1), timed=False)
+
+
+def _rank_model_route_b(dev, n: int) -> dict:
+    """model=n on route B: the spatial kernel column parallel, the temporal
+    kernel row parallel at the reference padding."""
+    return _route_b(dev, (1, 1, n), timed=False)
+
+
+def _rank_time(dev, n: int) -> dict:
+    """time=n on route B: the halo runs the ``temporal_conv`` kernel at
+    ``padding=0`` on each rank's frames; timed."""
+    return _route_b(dev, (1, n, 1), timed=True)
+
+
+def _bf16_step_ms(cfg32, mesh) -> float:
+    """The bf16 (dropout 0.5) sharded step's ms of ``cfg32``'s path on
+    ``mesh``, CUDA events over 3 steps after a warm one."""
+    import torch
+
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.parallel.train import (
+        create_sharded_train_state,
+        make_sharded_train_step,
+        shard_batch,
+    )
+    from stgcn_tpu_torch.training.optimizers import adam
+
+    cfg = dataclasses.replace(cfg32, compute_dtype=torch.bfloat16,
+                              dropout_rate=0.5)
+    model = STGCN(cfg)
+    ts, _ = create_sharded_train_state(model, adam(1e-3), mesh, seed=SEED)
+    batch = shard_batch(*parallel_batch(cfg), mesh)
+    step = make_sharded_train_step(model, mesh)
+    return cuda_time_ms(lambda: step(ts, *batch), reps=3)
+
+
+# the spawned cases, in the order they run: those that need only
+# all-reduce and all-gather first, point-to-point last
+PARALLEL_CASES = (("data", _rank_data), ("data_route_b", _rank_data_route_b),
+                  ("model", _rank_model),
+                  ("model_route_b", _rank_model_route_b),
+                  ("time", _rank_time))
+# each case's one-process reference (parallel_refs)
+CASE_REFS = {"data": "fused", "data_route_b": "route_b", "model": "ops",
+             "model_route_b": "route_b", "time": "route_b"}
+
+
+def case_launches(kind: str, n: int) -> dict:
+    """The kernel launches each rank's step runs, by case kind: the fused
+    step's 8/2/10; route B's spatial conv once a block, its temporal conv
+    once a block, and on a time mesh three times a block where the halo
+    overlaps (the interior and two edge strips) and once where the shard
+    is too short (``parallel/halo.overlap_split``); none on the op
+    path."""
+    from stgcn_tpu_torch.parallel.halo import overlap_split
+
+    if kind == "data":
+        counts = (("spatial_block", 8), ("spatial_block_save", 2),
+                  ("temporal_block", 10))
+    elif kind in ("data_route_b", "model_route_b"):
+        counts = (("spatial_conv", 10), ("temporal_conv", 10))
+    elif kind == "time":
+        temporal, t = 0, T // n
+        for _, c_out, stride, _ in plan_block_shapes():
+            temporal += 3 if overlap_split(t, stride, 9) else 1
+            t //= stride
+        counts = (("spatial_conv", 10), ("temporal_conv", temporal))
+    else:
+        return {}
+    return {f"{op}.{d}": c for op, c in counts
+            for d in ("forward", "backward")}
+
+
+def case_name(kind: str, n: int) -> str:
+    return {"data": f"data{n}_fused", "data_route_b": f"data{n}_route_b",
+            "model": f"model{n}_ops", "model_route_b": f"model{n}_route_b",
+            "time": f"time{n}_route_b"}[kind]
+
+
+def parallel_cards_main() -> int:
+    """``python3 chip_smoke.py --parallel-cards``: the spawned cases with
+    one rank a card on NCCL, over every card of the machine (up to 4):
+    data=n on the fused kernels and on route B, model=n on the op path
+    and on route B, time=n on route B, each held against the one-process
+    references of phase 20, the fused, model and time cases timed beside
+    the one-process bf16 step.  Needs two cards or more."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import _build
+
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        print("--parallel-cards needs two CUDA devices or more",
+              file=sys.stderr)
+        return 1
+    start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    _build.build()
+    _build.load_library()
+    dev = torch.device("cuda", 0)
+    refs = parallel_refs(dev, timed=True, n=n)
+    with tempfile.TemporaryDirectory() as tmp:
+        results = run_cases("nccl", tmp, world=n, cards=True)
+    report_cases("parallel_cards", results, refs, "nccl", smi, n,
+                 refs["step_ms"]["fused"])
+    emit("run", run_seconds=time.perf_counter() - start, cards=n)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def parallel_phase(smi: str, dev) -> dict:
+    """Phase 20: case (a) in this process, then case (b) on two spawned
+    ranks."""
+    one = parallel_one_rank(smi, dev)
+    two = parallel_two_ranks(smi, dev, one)
+    return {"one_rank": one, "two_ranks": two}
+
+
 def main() -> int:
     import torch
 
@@ -3108,6 +3884,9 @@ def main() -> int:
     # ---- 18. route_options: remat, bits8, the temporal impls ---------------
     route_options_phase(smi, dev)
 
+    # ---- 20. parallel: the mesh paths ---------------------------------------
+    parallel_phase(smi, dev)
+
     # ---- 19. kernels --------------------------------------------------------
     kernels = [{
         "name": "block_eval",
@@ -3170,4 +3949,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank_main(sys.argv[2], sys.argv[3],
+                                    int(sys.argv[4]), int(sys.argv[5]),
+                                    sys.argv[6], sys.argv[7] == "1"))
+    if sys.argv[1:2] == ["--parallel-cards"]:
+        sys.exit(parallel_cards_main())
     sys.exit(main())

@@ -22,6 +22,17 @@ loader, built at first use from ``native/npy_loader.cc`` into
 and the datasets are not preloaded into RAM; where it does not build, the
 CLI prints why and uses the numpy batches.  Either way one ``[data]`` line
 says which loader ran.
+
+With ``--parallel.{data,time,model}_axis`` above 1 it runs on a mesh of
+that many processes, one a GPU, each started by ``torchrun``::
+
+    torchrun --nproc_per_node 2 -m stgcn_tpu_torch.cli.train \
+        --data.synthetic true --parallel.data_axis 2
+
+Every process joins the world (``parallel.launcher``), prints the JAX
+CLI's ``[dist]`` lines, lays the mesh over the ranks and runs the same
+loop on the same batches, each on its slice; rank 0 writes the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -182,9 +193,27 @@ def _train(cfg: ExperimentConfig, device: torch.device) -> int:
         loggers = [CsvLogger(t.log_dir), TensorBoardLogger(t.log_dir)]
     logger = MultiLogger(*loggers) if loggers else None
 
+    mesh = None
+    p = cfg.parallel
+    if p.data_axis * p.time_axis * p.model_axis > 1:
+        from stgcn_tpu_torch.parallel.launcher import initialize_distributed
+        from stgcn_tpu_torch.parallel.mesh import (
+            make_mesh,
+            validate_joint_sharding,
+        )
+
+        info = initialize_distributed()
+        print(f"[dist] {info}")
+        mesh = make_mesh(p.data_axis, p.time_axis, p.model_axis,
+                         device=device)
+        if p.shard_joints:
+            validate_joint_sharding(model.num_joints, p.model_axis)
+        print(f"[dist] mesh data={p.data_axis} time={p.time_axis} "
+              f"model={p.model_axis} shard_joints={p.shard_joints}")
+
     trainer = Trainer(
         model, optimizer=make_optimizer(t),
-        lr=t.lr, logger=logger,
+        lr=t.lr, logger=logger, mesh=mesh, shard_joints=p.shard_joints,
         checkpoint_dir=t.checkpoint_dir,
         checkpoint_every_epochs=t.checkpoint_every_epochs,
         log_every_steps=t.log_every_steps, seed=t.seed,
@@ -206,8 +235,7 @@ def _train(cfg: ExperimentConfig, device: torch.device) -> int:
     if t.profile_dir:
         # trace a handful of warm steps, then train
         x0, y0, _ = next(iter(train_stream(0)))
-        batch = (torch.as_tensor(x0).to(device),
-                 torch.as_tensor(y0).to(device))
+        batch = trainer._put_batch(x0, y0)
         trainer.train_step(state, *batch)
         with trace(t.profile_dir):
             for _ in range(3):

@@ -53,14 +53,14 @@ TEMPORAL_BWD_ARGTYPES = [_P] * 8 + [_I] * 12 + [_P]
 SPATIAL_CONV_FWD_ARGTYPES = [_P] * 5 + [_I] * 8 + [_P]
 # spatial_conv_bwd_launch(9 pointers, 10 ints, stream), float32
 SPATIAL_CONV_BWD_ARGTYPES = [_P] * 9 + [_I] * 10 + [_P]
-# temporal_conv_fwd_launch(4 pointers, 12 ints, stream), float32
-TEMPORAL_CONV_FWD_ARGTYPES = [_P] * 4 + [_I] * 12 + [_P]
-# temporal_conv_bwd_launch(6 pointers, 13 ints, stream), float32
-TEMPORAL_CONV_BWD_ARGTYPES = [_P] * 6 + [_I] * 13 + [_P]
-# temporal_mma_fwd_launch(6 pointers, 14 ints, stream), bf16, both ops
-TEMPORAL_MMA_FWD_ARGTYPES = [_P] * 6 + [_I] * 14 + [_P]
-# temporal_mma_bwd_launch(10 pointers, 19 ints, stream), bf16, both ops
-TEMPORAL_MMA_BWD_ARGTYPES = [_P] * 10 + [_I] * 19 + [_P]
+# temporal_conv_fwd_launch(4 pointers, 13 ints, stream), float32
+TEMPORAL_CONV_FWD_ARGTYPES = [_P] * 4 + [_I] * 13 + [_P]
+# temporal_conv_bwd_launch(6 pointers, 14 ints, stream), float32
+TEMPORAL_CONV_BWD_ARGTYPES = [_P] * 6 + [_I] * 14 + [_P]
+# temporal_mma_fwd_launch(6 pointers, 15 ints, stream), bf16, both ops
+TEMPORAL_MMA_FWD_ARGTYPES = [_P] * 6 + [_I] * 15 + [_P]
+# temporal_mma_bwd_launch(10 pointers, 20 ints, stream), bf16, both ops
+TEMPORAL_MMA_BWD_ARGTYPES = [_P] * 10 + [_I] * 20 + [_P]
 # spatial_mma_fwd_launch(8 pointers, 13 ints, stream), bf16, every op of
 # spatial_block.cu
 SPATIAL_MMA_FWD_ARGTYPES = [_P] * 8 + [_I] * 13 + [_P]

@@ -52,10 +52,12 @@ def pitch(c: int) -> int:
     return -(-c // 16) * 16 + PAD
 
 
-def t_out_of(t: int, stride: int, gamma: int) -> int:
-    """Frames after a same-padded temporal conv of width gamma."""
-    pad_l = (gamma - 1) // 2
-    return (t + 2 * pad_l - gamma) // stride + 1
+def t_out_of(t: int, stride: int, gamma: int, pad: int | None = None) -> int:
+    """Frames after a temporal conv of width gamma with ``pad`` frames of
+    zeros on both ends (``None``: same padding, ``(gamma - 1) // 2``)."""
+    if pad is None:
+        pad = (gamma - 1) // 2
+    return (t + 2 * pad - gamma) // stride + 1
 
 
 def check_block_args(x, w, a, wt, wr, br, *, stride, order, shortcut,

@@ -26,7 +26,9 @@
 // V*C.
 //
 // Function, for joint v, sequence n, output frame t ("round" = to the
-// activation dtype T; sums in float32; pad = (gamma - 1) / 2; AFF only in
+// activation dtype T; sums in float32; pad = (gamma - 1) / 2 for
+// temporal_block, the caller's 0 <= pad <= (gamma - 1) / 2 for temporal_conv
+// (0: the valid conv of a time shard's slab with its halo); AFF only in
 // brackets):
 //   zh[f] = round([relu?](z[f] [* s2 + t2])) for 0 <= f < T, and 0 on the
 //           padding frames (zero padding after the activation)
@@ -274,10 +276,12 @@ temporal_bwd_kernel(const T* __restrict__ z, const T* __restrict__ g,
     __syncthreads();
 
     // dbt: this item owns the output rows t with f0 <= t*s < f0 + fc, which
-    // sit at gu rows pad .. pad + fc - 1
+    // sit at gu rows G-1-pad .. G-1-pad + fc - 1 (every output row has
+    // t*s < T, since 2 pad <= G - 1)
+    const int l0 = G - 1 - d.pad;
     for (int o = threadIdx.x; o < Co; o += blockDim.x) {
       float sb = 0.f;
-      for (int l = d.pad; l < d.pad + fc; ++l)
+      for (int l = l0; l < l0 + fc; ++l)
         for (int v = 0; v < vc; ++v) sb += gu[(l * VG + v) * Co + o];
       accumulate(&p_dbt[o], sb, first);
     }
@@ -336,7 +340,7 @@ temporal_bwd_kernel(const T* __restrict__ z, const T* __restrict__ g,
 }
 
 Dims make_dims(int V, int N, int T, int Ci, int Co, int gamma, int stride,
-               int T_out, int tile, int vg, int relu2, int vmajor) {
+               int pad, int T_out, int tile, int vg, int relu2, int vmajor) {
   Dims d;
   d.V = V;
   d.N = N;
@@ -345,7 +349,7 @@ Dims make_dims(int V, int N, int T, int Ci, int Co, int gamma, int stride,
   d.Co = Co;
   d.gamma = gamma;
   d.stride = stride;
-  d.pad = (gamma - 1) / 2;
+  d.pad = pad;
   d.T_out = T_out;
   d.tile = tile;
   d.vg = vg;
@@ -390,6 +394,12 @@ cudaError_t launch_bwd(const void* z, const void* g, const void* s2,
   if (err != cudaSuccess) return err;
   return train::launch_reduce(static_cast<const float*>(partial),
                               static_cast<float*>(grads), ctas, E, stream);
+}
+
+// A padding the kernels take: 0 <= pad <= (gamma - 1) / 2, so that every
+// output row t has t*s < T (the backward's dbt ownership).
+inline bool bad_pad(int gamma, int pad) {
+  return pad < 0 || 2 * pad > gamma - 1;
 }
 
 bool bad_fwd_args(int tt, int vg, int stride, int T_out) {
@@ -1292,8 +1302,8 @@ extern "C" int temporal_block_fwd_launch(
     int stride, int T_out, int tt, int vg, int relu2, int smem_bytes,
     void* stream) {
   if (bad_fwd_args(tt, vg, stride, T_out)) return (int)cudaErrorInvalidValue;
-  const Dims d =
-      make_dims(V, N, T, C, C, gamma, stride, T_out, tt, vg, relu2, 1);
+  const Dims d = make_dims(V, N, T, C, C, gamma, stride, (gamma - 1) / 2,
+                           T_out, tt, vg, relu2, 1);
   return (int)fwd<float, true>(z, s2, t2, wt, bt, out, d, smem_bytes,
                                static_cast<cudaStream_t>(stream));
 }
@@ -1307,22 +1317,24 @@ extern "C" int temporal_block_bwd_launch(
     int relu2, int smem_bytes, void* stream) {
   if (bad_bwd_args(V, N, T, ft, vg, stride, ctas))
     return (int)cudaErrorInvalidValue;
-  const Dims d =
-      make_dims(V, N, T, C, C, gamma, stride, T_out, ft, vg, relu2, 1);
+  const Dims d = make_dims(V, N, T, C, C, gamma, stride, (gamma - 1) / 2,
+                           T_out, ft, vg, relu2, 1);
   return (int)bwd<float, true>(z, g, s2, t2, wtT, dz, partial, grads, ctas,
                                d, smem_bytes,
                                static_cast<cudaStream_t>(stream));
 }
 
 // The plain temporal convolution: vmajor = 1 for (V, N, T, C) tensors
-// (pass V = R, N = 1 for (R, T, C)), 0 for (N, T, V, C) ones.
+// (pass V = R, N = 1 for (R, T, C)), 0 for (N, T, V, C) ones; pad frames
+// of zeros on both ends.
 extern "C" int temporal_conv_fwd_launch(
     const void* x, const void* w, const void* b, void* out, int V, int N,
-    int T, int C_in, int C_out, int gamma, int stride, int T_out, int tt,
-    int vg, int vmajor, int smem_bytes, void* stream) {
-  if (bad_fwd_args(tt, vg, stride, T_out)) return (int)cudaErrorInvalidValue;
-  const Dims d = make_dims(V, N, T, C_in, C_out, gamma, stride, T_out, tt,
-                           vg, 0, vmajor);
+    int T, int C_in, int C_out, int gamma, int stride, int pad, int T_out,
+    int tt, int vg, int vmajor, int smem_bytes, void* stream) {
+  if (bad_fwd_args(tt, vg, stride, T_out) || bad_pad(gamma, pad))
+    return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(V, N, T, C_in, C_out, gamma, stride, pad, T_out,
+                           tt, vg, 0, vmajor);
   return (int)fwd<float, false>(x, nullptr, nullptr, w, b, out, d,
                                 smem_bytes, static_cast<cudaStream_t>(stream));
 }
@@ -1331,12 +1343,12 @@ extern "C" int temporal_conv_fwd_launch(
 extern "C" int temporal_conv_bwd_launch(
     const void* x, const void* g, const void* wT, void* dx, void* partial,
     void* grads, int V, int N, int T, int C_in, int C_out, int gamma,
-    int stride, int T_out, int ft, int vg, int ctas, int vmajor,
+    int stride, int pad, int T_out, int ft, int vg, int ctas, int vmajor,
     int smem_bytes, void* stream) {
-  if (bad_bwd_args(V, N, T, ft, vg, stride, ctas))
+  if (bad_bwd_args(V, N, T, ft, vg, stride, ctas) || bad_pad(gamma, pad))
     return (int)cudaErrorInvalidValue;
-  const Dims d = make_dims(V, N, T, C_in, C_out, gamma, stride, T_out, ft,
-                           vg, 0, vmajor);
+  const Dims d = make_dims(V, N, T, C_in, C_out, gamma, stride, pad, T_out,
+                           ft, vg, 0, vmajor);
   return (int)bwd<float, false>(x, g, nullptr, nullptr, wT, dx, partial,
                                 grads, ctas, d, smem_bytes,
                                 static_cast<cudaStream_t>(stream));
@@ -1344,16 +1356,18 @@ extern "C" int temporal_conv_bwd_launch(
 
 // The bf16 launchers run the warpgroup kernels, for both ops: aff = 1 is
 // temporal_block (V-major z, the affine and ReLU), aff = 0 temporal_conv
-// (vmajor picks the layout; s2, t2 unused).  bn (64, 128 or 256) is the N
+// (vmajor picks the layout; s2, t2 unused).  pad is the frames of zeros
+// on both ends ((gamma - 1) / 2 for temporal_block).  bn (64, 128 or 256)
+// is the N
 // tile, kc (64 or 32) the input channels of a weight ring stage and stages
 // (2-4) the ring's depth, as temporal_block.py plan_mma_forward gives them
 // with the shared bytes.
 extern "C" int temporal_mma_fwd_launch(
     const void* x, const void* s2, const void* t2, const void* wt,
     const void* bt, void* out, int V, int N, int T, int C_in, int C_out,
-    int gamma, int stride, int aff, int relu2, int vmajor, int bn, int kc,
-    int stages, int smem_bytes, void* stream) {
-  if (stride < 1 || gamma < 1 || gamma % 2 == 0 ||
+    int gamma, int stride, int pad, int aff, int relu2, int vmajor, int bn,
+    int kc, int stages, int smem_bytes, void* stream) {
+  if (stride < 1 || gamma < 1 || gamma % 2 == 0 || bad_pad(gamma, pad) ||
       mma_path::bad_tile(bn, kc, stages) ||
       (long long)V * N * T >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -1367,7 +1381,7 @@ extern "C" int temporal_mma_fwd_launch(
   a.V = V;
   a.N = N;
   a.T = T;
-  a.pad = (gamma - 1) / 2;
+  a.pad = pad;
   a.T_out = (T + 2 * a.pad - gamma) / stride + 1;
   a.K_in = C_in;
   a.N_out = C_out;
@@ -1409,15 +1423,14 @@ extern "C" int temporal_mma_bwd_launch(
     const void* x, const void* g, const void* s2, const void* t2,
     const void* wtT, void* dx, void* partial_dw, void* partial_dx, void* zh,
     void* grads, int V, int N, int T, int C_in, int C_out, int gamma,
-    int stride, int aff, int relu2, int vmajor, int bn_dx, int kc_dx,
-    int stages_dx, int tiles_x, int dx_smem, int splits, int split_rows,
-    int dw_stages, int dw_smem, void* stream) {
-  const int pad = (gamma - 1) / 2;
+    int stride, int pad, int aff, int relu2, int vmajor, int bn_dx,
+    int kc_dx, int stages_dx, int tiles_x, int dx_smem, int splits,
+    int split_rows, int dw_stages, int dw_smem, void* stream) {
   const int T_out = (T + 2 * pad - gamma) / stride + 1;
   const long long lines = (long long)V * N;
   const long long dx_rows = lines * ((T + stride - 1) / stride);
-  if (stride < 1 || gamma < 1 || gamma % 2 == 0 || T_out < 1 ||
-      lines * T >= (1LL << 31) ||
+  if (stride < 1 || gamma < 1 || gamma % 2 == 0 || bad_pad(gamma, pad) ||
+      T_out < 1 || lines * T >= (1LL << 31) ||
       mma_path::bad_tile(bn_dx, kc_dx, stages_dx) ||
       splits < 1 || split_rows < 1 || dw_stages < 2 || dw_stages > 4 ||
       (aff && zh == nullptr) ||

@@ -61,19 +61,31 @@ def _post_activation(z, s2, t2, relu2, acc):
     return zf, pre, h.to(z.dtype).to(acc)
 
 
+def _padding(gamma: int, pad: int | None) -> int:
+    """``pad`` frames of zeros on both ends; ``None`` is same padding.  The
+    kernels take ``0 <= pad <= (gamma - 1) // 2``."""
+    if pad is None:
+        return (gamma - 1) // 2
+    if not 0 <= 2 * pad <= gamma - 1:
+        raise ValueError(f"padding must be in [0, {(gamma - 1) // 2}], got "
+                         f"{pad}")
+    return pad
+
+
 def temporal_block_forward_reference(z, s2, t2, wt, bt, *, stride: int,
-                                     relu2: bool):
+                                     relu2: bool, pad: int | None = None):
     """Plain PyTorch version of the forward kernel, same rounding points.
 
     ``z``: ``(V, N, T, C)``; ``s2, t2``: ``(C,)``; ``wt``:
-    ``(gamma, C, C_out)`` in ``z``'s dtype; ``bt``: ``(C_out,)``.  Returns
+    ``(gamma, C, C_out)`` in ``z``'s dtype; ``bt``: ``(C_out,)``; ``pad``
+    frames of zeros on both ends (``None``: ``(gamma - 1) // 2``).  Returns
     ``(V, N, T_out, C_out)``.
     """
     check_args(z, wt, square=False)
     acc = _acc(z.dtype)
     gamma, t = wt.shape[0], z.shape[2]
-    pad = (gamma - 1) // 2
-    t_out = t_out_of(t, stride, gamma)
+    pad = _padding(gamma, pad)
+    t_out = t_out_of(t, stride, gamma, pad)
     _, _, h = _post_activation(z, s2, t2, relu2, acc)
     hp = F.pad(h, (0, 0, pad, pad))
     u = None
@@ -84,7 +96,7 @@ def temporal_block_forward_reference(z, s2, t2, wt, bt, *, stride: int,
 
 
 def temporal_block_backward_reference(z, g, s2, t2, wt, bt, *, stride: int,
-                                      relu2: bool):
+                                      relu2: bool, pad: int | None = None):
     """Plain PyTorch version of the backward kernel, written out (not left
     to autograd) with the rounding points of ``_temporal_bwd_kernel``.
 
@@ -93,8 +105,8 @@ def temporal_block_backward_reference(z, g, s2, t2, wt, bt, *, stride: int,
     check_args(z, wt, square=False)
     acc = _acc(z.dtype)
     gamma, t = wt.shape[0], z.shape[2]
-    pad = (gamma - 1) // 2
-    t_out = t_out_of(t, stride, gamma)
+    pad = _padding(gamma, pad)
+    t_out = t_out_of(t, stride, gamma, pad)
     zf, pre, h = _post_activation(z, s2, t2, relu2, acc)
     hp = F.pad(h, (0, 0, pad, pad))
     gf = g.to(z.dtype).to(acc)
@@ -178,13 +190,13 @@ def staged_rows(bm: int, rows_per_line: int, walk: int, ntap: int) -> int:
     return walk * (bm - segments) + segments * ntap
 
 
-def parity_taps(gamma: int, stride: int, parity: int
-                ) -> tuple[int, list[int], list[int]]:
+def parity_taps(gamma: int, stride: int, parity: int,
+                pad: int | None = None) -> tuple[int, list[int], list[int]]:
     """dx of the input frames ``f = j*stride + parity``: ``(e0, taps,
     shifts)``; frame f takes tap ``taps[i]`` from g row ``j + shifts[i]``
     (``shifts[i] = e0 - i``), the only taps with ``t*s - pad + tap = f``:
     at stride 1 all of them, at stride 2 every other one."""
-    pad = (gamma - 1) // 2
+    pad = _padding(gamma, pad)
     tap0 = (parity + pad) % stride
     taps = list(range(tap0, gamma, stride))
     e0 = (parity + pad - tap0) // stride
@@ -260,37 +272,40 @@ def dwt_splits(rows: int, gamma: int, c_in: int, c_out: int,
 
 
 def plan_mma_forward(t: int, c_in: int, c_out: int, stride: int,
-                     gamma: int) -> tuple[int, int, int, int]:
+                     gamma: int, pad: int | None = None
+                     ) -> tuple[int, int, int, int]:
     """``(BN, kc, stages, shared bytes)`` of the bf16 forward: the weight
     ring, the row offsets and the staged input frames of one tile."""
     bn = gemm_tile(c_out)
-    t_out = t_out_of(t, stride, gamma)
+    t_out = t_out_of(t, stride, gamma, _padding(gamma, pad))
     return (bn, *plan_gemm(bn, staged_rows(GEMM_ROWS, t_out, stride, gamma),
                            c_in, False))
 
 
-def dx_staged_rows(t: int, stride: int, gamma: int) -> int:
+def dx_staged_rows(t: int, stride: int, gamma: int,
+                   pad: int | None = None) -> int:
     """The most input rows a dx tile stages, over the input-frame
     parities."""
     rows = 0
     for parity in range(stride):
         per_line = -(-(t - parity) // stride)
         if per_line > 0:
-            ntap = len(parity_taps(gamma, stride, parity)[1])
+            ntap = len(parity_taps(gamma, stride, parity, pad)[1])
             rows = max(rows, staged_rows(GEMM_ROWS, per_line, 1, ntap))
     return rows
 
 
 def plan_mma_backward(lines: int, t: int, c_in: int, c_out: int,
-                      stride: int, gamma: int, aff: bool, ctas: int) -> dict:
+                      stride: int, gamma: int, aff: bool, ctas: int,
+                      pad: int | None = None) -> dict:
     """The bf16 backward's launch: the dx GEMM's N tile ``bn_dx``, ring
     (``kc_dx`` channels, ``stages_dx`` stages), row tiles per parity
     ``tiles_x`` and ``dx_smem``; the
     dWt GEMM's ``splits`` of ``split_rows`` rows (about ``ctas`` CTAs in
     all), its ring of ``dw_stages`` and ``dw_smem``."""
-    t_out = t_out_of(t, stride, gamma)
+    t_out = t_out_of(t, stride, gamma, _padding(gamma, pad))
     bn = gemm_tile(c_in)
-    kc, stages, dx_smem = plan_gemm(bn, dx_staged_rows(t, stride, gamma),
+    kc, stages, dx_smem = plan_gemm(bn, dx_staged_rows(t, stride, gamma, pad),
                                     c_out, aff)
     zrows = dwt_rows(t_out, stride, gamma)
     dw_stages = next((n for n in DW_STAGES
@@ -312,14 +327,17 @@ def sm_count(device: torch.device) -> int:
 
 
 def launch_mma_forward(x, s2, t2, w, b, *, v, n, t, stride, relu2, aff,
-                       vmajor, out_shape):
+                       vmajor, out_shape, pad=None):
     """Launch the bf16 forward kernel of either op on ``x`` (V-major, or
     ``(N, T, V, C)``, as ``(V, N, T)`` joints, sequences and frames);
-    ``s2``, ``t2`` are None without the affine."""
+    ``s2``, ``t2`` are None without the affine; ``pad`` frames of zeros on
+    both ends (``None``: same padding)."""
     from stgcn_tpu_torch.kernels._build import load_library
 
     gamma, c_in, c_out = w.shape
-    bn, kc, stages, smem = plan_mma_forward(t, c_in, c_out, stride, gamma)
+    pad = _padding(gamma, pad)
+    bn, kc, stages, smem = plan_mma_forward(t, c_in, c_out, stride, gamma,
+                                            pad)
     args = [x.contiguous(), _f32(s2), _f32(t2), w.to(x.dtype).contiguous(),
             _f32(b)]
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
@@ -327,7 +345,7 @@ def launch_mma_forward(x, s2, t2, w, b, *, v, n, t, stride, relu2, aff,
     with torch.cuda.device(x.device):
         err = lib.temporal_mma_fwd_launch(
             *[_ptr(p) for p in args], out.data_ptr(), v, n, t, c_in,
-            c_out, gamma, stride, int(aff), int(relu2), int(vmajor), bn,
+            c_out, gamma, stride, pad, int(aff), int(relu2), int(vmajor), bn,
             kc, stages, smem,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "temporal bf16 forward")
@@ -335,14 +353,15 @@ def launch_mma_forward(x, s2, t2, w, b, *, v, n, t, stride, relu2, aff,
 
 
 def launch_mma_backward(x, g, s2, t2, w, *, v, n, t, stride, relu2, aff,
-                        vmajor):
+                        vmajor, pad=None):
     """Launch the bf16 backward kernels of either op: ``(dx, grads)``,
     grads the float32 ``[dWt | dbt (| ds2 | dt2)]``."""
     from stgcn_tpu_torch.kernels._build import load_library
 
     gamma, c_in, c_out = w.shape
+    pad = _padding(gamma, pad)
     plan = plan_mma_backward(v * n, t, c_in, c_out, stride, gamma, aff,
-                             sm_count(x.device))
+                             sm_count(x.device), pad)
     f32 = torch.float32
     args = [x.contiguous(), g.to(x.dtype).contiguous(), _f32(s2), _f32(t2),
             w.to(x.dtype).transpose(1, 2).contiguous()]  # (gamma, C_out, C_in)
@@ -361,7 +380,7 @@ def launch_mma_backward(x, g, s2, t2, w, *, v, n, t, stride, relu2, aff,
         err = lib.temporal_mma_bwd_launch(
             *[_ptr(p) for p in args], dx.data_ptr(), partial_dw.data_ptr(),
             _ptr(partial_dx), _ptr(zh), grads.data_ptr(), v, n,
-            t, c_in, c_out, gamma, stride, int(aff), int(relu2),
+            t, c_in, c_out, gamma, stride, pad, int(aff), int(relu2),
             int(vmajor), plan["bn_dx"], plan["kc_dx"], plan["stages_dx"],
             plan["tiles_x"],
             plan["dx_smem"], plan["splits"], plan["split_rows"],

@@ -3,7 +3,10 @@
 :func:`temporal_conv_fused` on ``(N, T, V, C_in)`` and
 :func:`temporal_conv_fused_vm` on V-major ``(R = V*N, T, C_in)``
 activations compute the ``gamma x 1`` convolution with stride ``s`` and
-``(gamma - 1) // 2`` frames of zero padding::
+``pad`` frames of zero padding on both ends, ``(gamma - 1) // 2`` unless
+the caller gives ``padding`` (the time halo's valid conv of a shard's
+frames and their neighbours' takes 0; ``T_out = (T + 2 pad - gamma) // s
++ 1``)::
 
     u[t] = round(sum_g x[t*s - pad + g] . W_g + b)
 
@@ -46,6 +49,7 @@ from stgcn_tpu_torch.kernels.spatial_conv import (
 )
 from stgcn_tpu_torch.kernels.temporal_block import (
     FRAME_TILES,
+    _padding,
     launch_mma_backward,
     launch_mma_forward,
     temporal_block_backward_reference,
@@ -69,28 +73,31 @@ def check_args(x, w, b, vmajor: bool) -> None:
         raise ValueError(f"b must be ({w.shape[2]},), got {tuple(b.shape)}")
 
 
-def temporal_conv_forward_reference(x, w, b, *, stride: int, vmajor: bool):
+def temporal_conv_forward_reference(x, w, b, *, stride: int, vmajor: bool,
+                                    padding: int | None = None):
     """Plain PyTorch version of the forward kernel.
 
     ``x``: ``(R, T, C_in)`` if ``vmajor`` else ``(N, T, V, C_in)``; ``w``:
-    ``(gamma, C_in, C_out)``, rounded to ``x``'s dtype; ``b``: ``(C_out,)``.
+    ``(gamma, C_in, C_out)``, rounded to ``x``'s dtype; ``b``: ``(C_out,)``;
+    ``padding`` frames of zeros on both ends (``None``: same padding).
     Returns ``u`` in ``x``'s layout and dtype.
     """
     check_args(x, w, b, vmajor)
     u = temporal_block_forward_reference(
         _as_vntc(x, vmajor), *_identity_affine(x), w.to(x.dtype), b,
-        stride=stride, relu2=False)
+        stride=stride, relu2=False, pad=padding)
     return _from_vntc(u, vmajor)
 
 
 def temporal_conv_backward_reference(x, g, w, b, *, stride: int,
-                                     vmajor: bool):
+                                     vmajor: bool,
+                                     padding: int | None = None):
     """Plain PyTorch version of the backward kernel: ``(dx, dw, db)``, each
     in its input's dtype; ``w`` is rounded to ``x``'s dtype."""
     check_args(x, w, b, vmajor)
     dx, _, _, dw, db = temporal_block_backward_reference(
         _as_vntc(x, vmajor), _as_vntc(g, vmajor), *_identity_affine(x),
-        _rounded(w, x.dtype), b, stride=stride, relu2=False)
+        _rounded(w, x.dtype), b, stride=stride, relu2=False, pad=padding)
     return _from_vntc(dx, vmajor), dw, db
 
 
@@ -132,29 +139,35 @@ def _dims(x, vmajor) -> tuple[int, int, int]:
     return v, n, t
 
 
-def temporal_conv_forward(x, w, b, *, stride: int, vmajor: bool):
+def temporal_conv_forward(x, w, b, *, stride: int, vmajor: bool,
+                          padding: int | None = None):
     """Forward kernel wrapper: plain version on the CPU, kernel on CUDA."""
     if x.device.type == "cpu":
         return temporal_conv_forward_reference(x, w, b, stride=stride,
-                                               vmajor=vmajor)
+                                               vmajor=vmajor, padding=padding)
     if x.device.type != "cuda":
         raise ValueError(f"temporal_conv runs on cuda or cpu, not {x.device}")
-    return _launch_forward(x, w, b, stride=stride, vmajor=vmajor)
+    return _launch_forward(x, w, b, stride=stride, vmajor=vmajor,
+                           padding=padding)
 
 
-def _launch_forward(x, w, b, *, stride, vmajor):
+def _launch_forward(x, w, b, *, stride, vmajor, padding=None):
     from stgcn_tpu_torch.kernels._build import load_library
 
     check_args(x, w, b, vmajor)
     _check_cuda("temporal_conv", x, (w, b))
     v, n, t = _dims(x, vmajor)
     gamma, c_in, c_out = w.shape
-    t_out = t_out_of(t, stride, gamma)
+    pad = _padding(gamma, padding)
+    t_out = t_out_of(t, stride, gamma, pad)
+    if t_out < 1:
+        raise ValueError(f"T={t} frames give no output of a {gamma}-tap "
+                         f"conv with padding {pad}")
     shape = (v, t_out, c_out) if vmajor else (n, t_out, v, c_out)
     if x.dtype == torch.bfloat16:
         out = launch_mma_forward(x, None, None, w, b, v=v, n=n, t=t,
                                  stride=stride, relu2=False, aff=False,
-                                 vmajor=vmajor, out_shape=shape)
+                                 vmajor=vmajor, out_shape=shape, pad=pad)
         temporal_conv_forward.launches += 1
         return out
     tt, vg, smem = plan_forward(v, c_in, stride, gamma)
@@ -166,7 +179,7 @@ def _launch_forward(x, w, b, *, stride, vmajor):
     with torch.cuda.device(x.device):
         err = lib.temporal_conv_fwd_launch(
             *[p.data_ptr() for p in args], out.data_ptr(), v, n, t, c_in,
-            c_out, gamma, stride, t_out, tt, vg, int(vmajor), smem,
+            c_out, gamma, stride, pad, t_out, tt, vg, int(vmajor), smem,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "temporal_conv forward")
     temporal_conv_forward.launches += 1
@@ -176,25 +189,29 @@ def _launch_forward(x, w, b, *, stride, vmajor):
 temporal_conv_forward.launches = 0
 
 
-def temporal_conv_backward(x, g, w, b, *, stride: int, vmajor: bool):
+def temporal_conv_backward(x, g, w, b, *, stride: int, vmajor: bool,
+                           padding: int | None = None):
     """Backward kernel wrapper: ``(dx, dw, db)``, each in its input's
     dtype.  Plain version on the CPU, kernel on CUDA."""
     if x.device.type == "cpu":
         return temporal_conv_backward_reference(x, g, w, b, stride=stride,
-                                                vmajor=vmajor)
+                                                vmajor=vmajor,
+                                                padding=padding)
     if x.device.type != "cuda":
         raise ValueError(f"temporal_conv runs on cuda or cpu, not {x.device}")
-    return _launch_backward(x, g, w, b, stride=stride, vmajor=vmajor)
+    return _launch_backward(x, g, w, b, stride=stride, vmajor=vmajor,
+                            padding=padding)
 
 
-def _launch_backward(x, g, w, b, *, stride, vmajor):
+def _launch_backward(x, g, w, b, *, stride, vmajor, padding=None):
     from stgcn_tpu_torch.kernels._build import load_library
 
     check_args(x, w, b, vmajor)
     _check_cuda("temporal_conv", x, (g, w, b))
     v, n, t = _dims(x, vmajor)
     gamma, c_in, c_out = w.shape
-    t_out = t_out_of(t, stride, gamma)
+    pad = _padding(gamma, padding)
+    t_out = t_out_of(t, stride, gamma, pad)
     want = (v, t_out, c_out) if vmajor else (n, t_out, v, c_out)
     if tuple(g.shape) != want:
         raise ValueError(f"g must be {want}, got {tuple(g.shape)}")
@@ -202,7 +219,7 @@ def _launch_backward(x, g, w, b, *, stride, vmajor):
     if x.dtype == torch.bfloat16:
         dx, grads = launch_mma_backward(x, g, None, None, w, v=v, n=n, t=t,
                                         stride=stride, relu2=False,
-                                        aff=False, vmajor=vmajor)
+                                        aff=False, vmajor=vmajor, pad=pad)
     else:
         ft, vg, smem = plan_backward(v, c_in, c_out, gamma)
         items = -(-t // ft) * n * -(-v // vg)
@@ -218,7 +235,7 @@ def _launch_backward(x, g, w, b, *, stride, vmajor):
             err = lib.temporal_conv_bwd_launch(
                 *[p.data_ptr() for p in args], dx.data_ptr(),
                 partial.data_ptr(), grads.data_ptr(), v, n, t, c_in, c_out,
-                gamma, stride, t_out, ft, vg, ctas, int(vmajor), smem,
+                gamma, stride, pad, t_out, ft, vg, ctas, int(vmajor), smem,
                 torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(lib, err, "temporal_conv backward")
     temporal_conv_backward.launches += 1
@@ -231,25 +248,27 @@ temporal_conv_backward.launches = 0
 
 class _TemporalConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, stride, vmajor):
+    def forward(ctx, x, w, b, stride, vmajor, padding):
         ctx.save_for_backward(x, w, b)
-        ctx.flags = dict(stride=stride, vmajor=vmajor)
+        ctx.flags = dict(stride=stride, vmajor=vmajor, padding=padding)
         return temporal_conv_forward(x, w, b, **ctx.flags)
 
     @staticmethod
     def backward(ctx, g):
         x, w, b = ctx.saved_tensors
         return (*temporal_conv_backward(x, g.contiguous(), w, b,
-                                        **ctx.flags), None, None)
+                                        **ctx.flags), None, None, None)
 
 
-def temporal_conv_fused(x, w, b, stride: int = 1):
+def temporal_conv_fused(x, w, b, stride: int = 1,
+                        padding: int | None = None):
     """The differentiable temporal conv on ``(N, T, V, C_in)``:
-    ``-> (N, T_out, V, C_out)``."""
-    return _TemporalConv.apply(x, w, b, stride, False)
+    ``-> (N, T_out, V, C_out)``, with ``padding`` frames of zeros on both
+    ends (``None``: ``(gamma - 1) // 2``)."""
+    return _TemporalConv.apply(x, w, b, stride, False, padding)
 
 
 def temporal_conv_fused_vm(x, w, b, stride: int = 1):
     """The differentiable temporal conv on V-major ``(R, T, C_in)``:
     ``-> (R, T_out, C_out)``."""
-    return _TemporalConv.apply(x, w, b, stride, True)
+    return _TemporalConv.apply(x, w, b, stride, True, None)

@@ -174,16 +174,19 @@ def _head(cfg, params: dict, pooled: torch.Tensor,
 
 
 def bn_affine_train(bn_params: dict, bn_state: dict, x: torch.Tensor, *,
-                    momentum: float = 0.1, eps: float = 1e-5
+                    momentum: float = 0.1, eps: float = 1e-5, group=None
                     ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Batch-statistic BN as a differentiable affine ``(s, t, new_state)``.
 
     Statistics over every axis but the last, as ``batchnorm_train`` takes
     them; ``x * s + t`` is the normalized ``x``, and ``s``, ``t`` depend on
     ``x`` through the mean and variance, so autograd carries the full BN
-    gradient through the fused ops' ``ds`` and ``dt``.
+    gradient through the fused ops' ``ds`` and ``dt``.  With ``group`` the
+    statistics are the whole batch's that its ranks hold in equal shards
+    (``batch_moments``; the JAX ``axis_name`` path,
+    ``stgcn_tpu/models/fused.py:196-199``).
     """
-    mean, var, n = batch_moments(x)
+    mean, var, n = batch_moments(x, group)
     s = bn_params["scale"].to(mean.dtype) * torch.rsqrt(var + eps)
     t = bn_params["offset"].to(mean.dtype) - mean * s
     return s, t, running_update(bn_state, mean, var, n, momentum)
@@ -193,17 +196,18 @@ def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
                               adjacency: torch.Tensor, *, stride: int,
                               residual: bool, dropout_rate: float = 0.0,
                               generator: torch.Generator | None = None,
-                              dropout_impl: str = "exact"
+                              dropout_impl: str = "exact", bn_group=None
                               ) -> tuple[torch.Tensor, dict]:
     """One train-mode block on V-major ``(V, N, T, C_in)``: the spatial and
-    temporal ops, BN statistics, shortcut, ReLU and dropout.  Returns
-    ``(out, new_state)``."""
+    temporal ops, BN statistics (over ``bn_group``'s ranks with one),
+    shortcut, ReLU and dropout.  Returns ``(out, new_state)``."""
     cd = x.dtype
     a = effective_adjacency(bp, adjacency).to(cd)
     wt = bp["temporal"]["w"][:, 0].to(cd)
     bt = bp["temporal"]["b"].to(torch.float32)
     new_state = {}
-    s1, t1, new_state["bn1"] = bn_affine_train(bp["bn1"], bs["bn1"], x)
+    s1, t1, new_state["bn1"] = bn_affine_train(bp["bn1"], bs["bn1"], x,
+                                               group=bn_group)
     # a fixed graph has no trained adjacency: skip the backward's y_k pass
     need_da = "A" in bp or "mask" in bp
     w, b = bp["spatial"]["w"].to(cd), bp["spatial"]["b"].to(cd)
@@ -216,7 +220,8 @@ def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
                           need_da=need_da)
     acc = stat_dtype(x)
     if residual:
-        s2, t2, new_state["bn2"] = bn_affine_train(bp["bn2"], bs["bn2"], z)
+        s2, t2, new_state["bn2"] = bn_affine_train(bp["bn2"], bs["bn2"], z,
+                                                   group=bn_group)
         u = temporal_block(z, s2, t2, wt, bt, stride=stride, relu2=True)
         if "residual_proj" in bp:
             rp = bp["residual_proj"]
@@ -231,7 +236,8 @@ def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
         ident_s = torch.ones(c_out, dtype=torch.float32, device=x.device)
         u = temporal_block(z, ident_s, torch.zeros_like(ident_s), wt, bt,
                            stride=stride, relu2=False)
-        out, new_state["bn2"] = batchnorm_train(bp["bn2"], bs["bn2"], u)
+        out, new_state["bn2"] = batchnorm_train(bp["bn2"], bs["bn2"], u,
+                                                group=bn_group)
         out = torch.relu(out)
     if dropout_rate > 0.0:
         if generator is None:
@@ -251,7 +257,8 @@ def hybrid_fused_set(cfg) -> frozenset:
 
 
 def _train_forward(model, params: dict, state: dict, x: torch.Tensor,
-                   fused_set, generator) -> tuple[torch.Tensor, dict]:
+                   fused_set, generator, bn_group=None
+                   ) -> tuple[torch.Tensor, dict]:
     cfg = model.config
     cd = cfg.compute_dtype
     h, layout = x.to(cd or cfg.dtype), "ntvc"
@@ -264,7 +271,7 @@ def _train_forward(model, params: dict, state: dict, x: torch.Tensor,
                 params["blocks"][i], state["blocks"][i], h, model.adjacency,
                 stride=stride, residual=cfg.residual,
                 dropout_rate=cfg.dropout_rate, generator=generator,
-                dropout_impl=cfg.dropout_impl)
+                dropout_impl=cfg.dropout_impl, bn_group=bn_group)
         else:
             h, s = block_forward_train(
                 _cast_tree(params["blocks"][i], cd) if cd else
@@ -273,7 +280,7 @@ def _train_forward(model, params: dict, state: dict, x: torch.Tensor,
                 compute_dtype=cd, dropout_rate=cfg.dropout_rate,
                 generator=generator, dropout_impl=cfg.dropout_impl,
                 spatial_impl=cfg.spatial_impl,
-                temporal_impl=cfg.temporal_impl)
+                temporal_impl=cfg.temporal_impl, bn_group=bn_group)
         new_blocks.append(s)
     logits = _pool_head(cfg, params, h, (0, 2) if layout == "vntc"
                         else (1, 2))
@@ -281,11 +288,14 @@ def _train_forward(model, params: dict, state: dict, x: torch.Tensor,
 
 
 def fused_train_forward(model, params: dict, state: dict, x: torch.Tensor, *,
-                        generator: torch.Generator | None = None
-                        ) -> tuple[torch.Tensor, dict]:
-    """Train logits and new BN state with every block on the fused ops."""
+                        generator: torch.Generator | None = None,
+                        bn_group=None) -> tuple[torch.Tensor, dict]:
+    """Train logits and new BN state with every block on the fused ops;
+    with ``bn_group`` the BN statistics are its ranks' whole batch (the
+    data-parallel step, :mod:`stgcn_tpu_torch.parallel.fused_dp`)."""
     return _train_forward(model, params, state, x,
-                          frozenset(range(len(model.config.plan))), generator)
+                          frozenset(range(len(model.config.plan))), generator,
+                          bn_group)
 
 
 def hybrid_train_forward(model, params: dict, state: dict, x: torch.Tensor,

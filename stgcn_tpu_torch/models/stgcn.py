@@ -399,7 +399,9 @@ class STGCN(nn.Module):
 
     def apply(self, params: dict, state: dict, x: torch.Tensor, *,
               train: bool = False, generator: torch.Generator | None = None,
-              time_mask: torch.Tensor | None = None
+              time_mask: torch.Tensor | None = None,
+              bn_group=None, channel_group=None, pool_group=None,
+              constrain=None, temporal_impl=None, spatial_impl=None
               ) -> tuple[torch.Tensor, dict]:
         """Forward of the parameter dictionaries: ``(logits, new_state)``.
 
@@ -415,8 +417,32 @@ class STGCN(nn.Module):
         chain for the rest.  ``time_mask`` works on the op chain and on the
         fused eval; elsewhere it raises ``ValueError``, as the JAX package
         does.
+
+        The mesh hooks of :mod:`stgcn_tpu_torch.parallel` (the JAX
+        ``bn_axis_names``, ``constrain`` and callable impls,
+        ``stgcn_tpu/models/stgcn.py:227-257``): ``bn_group`` and
+        ``channel_group`` as in :func:`~stgcn_tpu_torch.ops.block.
+        block_forward_train`, ``pool_group`` the ranks whose shards of T
+        (and V) the global pool sums over, ``constrain`` and the callable
+        ``temporal_impl``/``spatial_impl`` (None: the config's).  They run
+        on the op chain of ``layout="ntvc"`` only: the fused and hybrid
+        paths (data parallel through ``parallel/fused_dp.py``) and the
+        V-major route refuse them, as in the JAX package.
         """
         cfg = self.config
+        hooked = (bn_group is not None or channel_group is not None
+                  or pool_group is not None or constrain is not None
+                  or callable(temporal_impl) or callable(spatial_impl))
+        if temporal_impl is None:
+            temporal_impl = cfg.temporal_impl
+        if spatial_impl is None:
+            spatial_impl = cfg.spatial_impl
+        if cfg.block_impl != "ops" and hooked:
+            raise ValueError(
+                f"block_impl={cfg.block_impl!r} cannot compose with "
+                "GSPMD sharding hooks, or time_mask outside fused EVAL; "
+                "use block_impl='ops' for time/model-sharded or masked-"
+                "train runs (data parallelism: parallel/fused_dp.py)")
         if cfg.block_impl != "ops":
             masked_eval_ok = cfg.block_impl == "fused" and not train
             if time_mask is not None and not masked_eval_ok:
@@ -445,10 +471,16 @@ class STGCN(nn.Module):
         if time_mask is not None:
             h = h * time_mask[:, :, None, None].to(h.dtype)
         if cfg.layout == "vntc":
+            if hooked:
+                raise ValueError(
+                    "layout='vntc' is the single-chip fused-kernel path and "
+                    "cannot compose with mesh sharding hooks (bn_axis_names/"
+                    "constrain/halo temporal conv); use layout='ntvc' for "
+                    "sharded training")
             return self._apply_vm(params, state, h, train=train,
                                   generator=generator, time_mask=time_mask)
-        impls = dict(spatial_impl=cfg.spatial_impl,
-                     temporal_impl=cfg.temporal_impl)
+        impls = dict(spatial_impl=spatial_impl, temporal_impl=temporal_impl,
+                     constrain=constrain, channel_group=channel_group)
         new_blocks = []
         for i, (_, stride) in enumerate(cfg.plan):
             bp, bs = params["blocks"][i], state["blocks"][i]
@@ -459,7 +491,8 @@ class STGCN(nn.Module):
                         residual=cfg.residual, compute_dtype=cd,
                         dropout_rate=cfg.dropout_rate, generator=generator,
                         dropout_impl=cfg.dropout_impl,
-                        selective_remat=cfg.remat == "selective", **impls)
+                        selective_remat=cfg.remat == "selective",
+                        bn_group=bn_group, **impls)
 
                 h, s = self._maybe_full_remat(run, h, generator)
                 new_blocks.append(s)
@@ -471,7 +504,7 @@ class STGCN(nn.Module):
                 if stride != 1:
                     time_mask = time_mask[:, ::stride]
                 h = h * time_mask[:, :, None, None].to(h.dtype)
-        pooled = global_avg_pool(h, time_mask)
+        pooled = global_avg_pool(h, time_mask, group=pool_group)
         logits = linear(params["fc"], pooled)
         if cfg.final_softmax:
             logits = torch.softmax(logits, dim=-1)

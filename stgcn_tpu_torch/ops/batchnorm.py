@@ -9,6 +9,16 @@ taken over every axis but the last (channels), in at least float32 as
 goes into the running buffer with momentum 0.1.  The running statistics are
 returned as new tensors (out of place, as in the JAX package), never
 written into the old ones.
+
+On a mesh (:mod:`stgcn_tpu_torch.parallel`) the train statistics are the
+global batch's: each rank's moments, weighted by its share of the equally
+sized shards, are summed over the ranks of ``group`` with their gradients
+(the SyncBatchNorm pattern, as the JAX ``axis_names`` path averages them,
+``stgcn_tpu/ops/batchnorm.py:55-60``), and ``n`` is the global count.
+With a ``channel_group`` the input holds this rank's slice of the
+channels: the whole parameters and statistics are sliced to it, the
+parameters' gradients gathered back, and the new statistics gathered
+whole.
 """
 
 from __future__ import annotations
@@ -22,8 +32,11 @@ def stat_dtype(x: torch.Tensor) -> torch.dtype:
 
 
 def batchnorm_eval(params: dict, state: dict, x: torch.Tensor,
-                   eps: float = 1e-5) -> torch.Tensor:
-    """Normalize ``(..., C)`` per channel with the running statistics."""
+                   eps: float = 1e-5, channel_group=None) -> torch.Tensor:
+    """Normalize ``(..., C)`` per channel with the running statistics
+    (of this rank's channels with a ``channel_group``)."""
+    if channel_group is not None:
+        params, state = channel_slice(params, state, channel_group)
     sd = stat_dtype(x)
     inv = torch.rsqrt(state["var"].to(sd) + eps) * params["scale"].to(sd)
     y = (x.to(sd) - state["mean"].to(sd)) * inv + params["offset"].to(sd)
@@ -41,14 +54,27 @@ def fold_batchnorm_eval(params: dict, state: dict, eps: float = 1e-5
     return inv, params["offset"] - state["mean"] * inv
 
 
-def batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+def batch_moments(x: torch.Tensor, group=None
+                  ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Per-channel ``(mean, biased variance, count)`` of ``(..., C)`` in at
-    least float32, as ``E[x^2] - E[x]^2``."""
+    least float32, as ``E[x^2] - E[x]^2``; with ``group``, of the whole
+    batch its ranks hold in equal shards."""
     xf = x.to(stat_dtype(x))
     axes = tuple(range(x.dim() - 1))
     mean = xf.mean(dim=axes)
-    var = xf.square().mean(dim=axes) - mean.square()
-    return mean, var, x.numel() // x.shape[-1]
+    mean_sq = xf.square().mean(dim=axes)
+    n = x.numel() // x.shape[-1]
+    if group is not None:
+        from stgcn_tpu_torch.parallel.collectives import (
+            all_reduce_sum,
+            group_size,
+        )
+
+        size = group_size(group)
+        mean, mean_sq = all_reduce_sum(
+            torch.stack([mean, mean_sq]) * (1.0 / size), group)
+        n *= size
+    return mean, mean_sq - mean.square(), n
 
 
 def running_update(state: dict, mean: torch.Tensor, var: torch.Tensor,
@@ -59,13 +85,37 @@ def running_update(state: dict, mean: torch.Tensor, var: torch.Tensor,
             "var": (1 - momentum) * state["var"] + momentum * unbiased}
 
 
+def channel_slice(params: dict, state: dict, channel_group):
+    """This rank's slice of a BatchNorm's parameters (gradients gathered
+    back over ``channel_group``) and statistics."""
+    from stgcn_tpu_torch.parallel.collectives import (
+        rank_slice,
+        scatter_to_group,
+    )
+
+    return ({k: scatter_to_group(v, channel_group, 0)
+             for k, v in params.items()},
+            {k: rank_slice(v, channel_group, 0) for k, v in state.items()})
+
+
 def batchnorm_train(params: dict, state: dict, x: torch.Tensor, *,
-                    momentum: float = 0.1, eps: float = 1e-5
+                    momentum: float = 0.1, eps: float = 1e-5,
+                    group=None, channel_group=None
                     ) -> tuple[torch.Tensor, dict]:
     """Normalize ``(..., C)`` with the batch statistics; returns
-    ``(y, new_state)``."""
+    ``(y, new_state)``.  ``group``: the ranks whose shards make the batch;
+    ``channel_group``: the ranks whose channel slices make ``C`` (module
+    docstring)."""
+    if channel_group is not None:
+        from stgcn_tpu_torch.parallel.collectives import gather_tensor
+
+        params, state = channel_slice(params, state, channel_group)
+        y, new = batchnorm_train(params, state, x, momentum=momentum,
+                                 eps=eps, group=group)
+        return y, {k: gather_tensor(v, channel_group, 0)
+                   for k, v in new.items()}
     sd = stat_dtype(x)
-    mean, var, n = batch_moments(x)
+    mean, var, n = batch_moments(x, group)
     inv = torch.rsqrt(var + eps) * params["scale"].to(sd)
     y = (x.to(sd) - mean) * inv + params["offset"].to(sd)
     return y.to(x.dtype), running_update(state, mean, var, n, momentum)

@@ -22,7 +22,16 @@ neither uses the fixed adjacency (``"fixed"``).
 
 ``spatial_impl`` and ``temporal_impl`` pick each conv's implementation on
 ``(N, T, V, C)`` (:mod:`stgcn_tpu_torch.ops.spatial_conv`,
-:mod:`stgcn_tpu_torch.ops.temporal_conv`).  :func:`block_forward_vm` is the
+:mod:`stgcn_tpu_torch.ops.temporal_conv`), or are callables built by
+:mod:`stgcn_tpu_torch.parallel` (the time halo, channel tensor
+parallelism, the joint exchange), which own their dtype handling, as in
+the JAX package (``stgcn_tpu/ops/block.py:112-147``).  The other mesh
+hooks are ``constrain(x, tag)`` (tags ``"spatial_in"`` and
+``"adjacency"``, the spatial conv's inputs, then ``"spatial_out"`` and
+``"block_out"``), ``bn_group`` (the ranks whose shards make the batch of
+the train BatchNorms, the JAX ``bn_axis_names``) and ``channel_group``
+(the ranks whose channel slices make the spatial output: bn2 of the
+residual order normalizes its slice).  :func:`block_forward_vm` is the
 unit on V-major ``(V, N, T, C)`` activations, the ``layout="vntc"`` route:
 both convs run as the V-major kernels.
 """
@@ -55,21 +64,52 @@ def effective_adjacency(params: dict, adjacency: torch.Tensor) -> torch.Tensor:
     return adjacency
 
 
+def _conv_fns(params: dict, a: torch.Tensor, *, stride: int,
+              compute_dtype, spatial_impl, temporal_impl, constrain):
+    """The block's ``spatial(h)`` and ``temporal(h)``: the configured op,
+    or a callable impl, between the ``constrain`` hook's tags."""
+    c = constrain if constrain is not None else (lambda h, tag: h)
+
+    def spatial(h):
+        h, a_in = c(h, "spatial_in"), c(a, "adjacency")
+        if callable(spatial_impl):
+            out = spatial_impl(params["spatial"], a_in, h)
+        else:
+            out = spatial_conv(params["spatial"], a_in, h,
+                               compute_dtype=compute_dtype, impl=spatial_impl)
+        return c(out, "spatial_out")
+
+    def temporal(h):
+        if callable(temporal_impl):
+            out = temporal_impl(params["temporal"], h, stride=stride)
+        else:
+            out = temporal_conv(params["temporal"], h, stride=stride,
+                                compute_dtype=compute_dtype,
+                                impl=temporal_impl)
+        return c(out, "block_out")
+
+    return spatial, temporal
+
+
 def block_forward(params: dict, state: dict, x: torch.Tensor,
                   adjacency: torch.Tensor, *, stride: int = 1,
                   residual: bool = False,
                   compute_dtype: torch.dtype | None = None,
-                  spatial_impl: str = "einsum",
-                  temporal_impl: str = "conv") -> torch.Tensor:
-    """One eval-mode ST-GCN unit: ``(N, T, V, C_in) -> (N, T', V, C_out)``."""
+                  spatial_impl="einsum", temporal_impl="conv",
+                  constrain=None, channel_group=None) -> torch.Tensor:
+    """One eval-mode ST-GCN unit: ``(N, T, V, C_in) -> (N, T', V, C_out)``
+    (the mesh hooks as in the module docstring)."""
     a = effective_adjacency(params, adjacency)
+    spatial, temporal = _conv_fns(
+        params, a, stride=stride, compute_dtype=compute_dtype,
+        spatial_impl=spatial_impl, temporal_impl=temporal_impl,
+        constrain=constrain)
     if residual:
         h = torch.relu(batchnorm_eval(params["bn1"], state["bn1"], x))
-        h = spatial_conv(params["spatial"], a, h, compute_dtype=compute_dtype,
-                         impl=spatial_impl)
-        h = torch.relu(batchnorm_eval(params["bn2"], state["bn2"], h))
-        h = temporal_conv(params["temporal"], h, stride=stride,
-                          compute_dtype=compute_dtype, impl=temporal_impl)
+        h = spatial(h)
+        h = torch.relu(batchnorm_eval(params["bn2"], state["bn2"], h,
+                                      channel_group=channel_group))
+        h = temporal(h)
         if "residual_proj" in params:
             shortcut = pointwise_conv(params["residual_proj"], x,
                                       stride=stride)
@@ -78,10 +118,7 @@ def block_forward(params: dict, state: dict, x: torch.Tensor,
         out = h + shortcut
     else:
         h = batchnorm_eval(params["bn1"], state["bn1"], x)
-        h = spatial_conv(params["spatial"], a, h, compute_dtype=compute_dtype,
-                         impl=spatial_impl)
-        h = temporal_conv(params["temporal"], h, stride=stride,
-                          compute_dtype=compute_dtype, impl=temporal_impl)
+        h = temporal(spatial(h))
         out = batchnorm_eval(params["bn2"], state["bn2"], h)
     return torch.relu(out)
 
@@ -93,14 +130,15 @@ def block_forward_train(params: dict, state: dict, x: torch.Tensor,
                         dropout_rate: float = 0.0,
                         generator: torch.Generator | None = None,
                         dropout_impl: str = "exact",
-                        spatial_impl: str = "einsum",
-                        temporal_impl: str = "conv",
-                        selective_remat: bool = False
+                        spatial_impl="einsum", temporal_impl="conv",
+                        selective_remat: bool = False,
+                        constrain=None, bn_group=None, channel_group=None
                         ) -> tuple[torch.Tensor, dict]:
     """One train-mode ST-GCN unit: ``(N, T, V, C_in) -> (N, T', V, C_out)``.
 
     Returns ``(out, new_state)``.  In mask mode the gradient lands on
-    ``params["mask"]`` through ``adjacency * mask``.
+    ``params["mask"]`` through ``adjacency * mask``.  The mesh hooks are
+    those of the module docstring.
 
     ``selective_remat`` is the JAX package's ``remat="selective"``
     (``stgcn_tpu/ops/block.py:166-203``): the backward keeps only the
@@ -113,17 +151,17 @@ def block_forward_train(params: dict, state: dict, x: torch.Tensor,
     a = effective_adjacency(params, adjacency)
     run = ((lambda fn, *args: checkpointed(fn, generator, *args))
            if selective_remat else (lambda fn, *args: fn(*args)))
-
-    def spatial(h):
-        return spatial_conv(params["spatial"], a, h,
-                            compute_dtype=compute_dtype, impl=spatial_impl)
-
-    def temporal(h):
-        return temporal_conv(params["temporal"], h, stride=stride,
-                             compute_dtype=compute_dtype, impl=temporal_impl)
+    spatial, temporal = _conv_fns(
+        params, a, stride=stride, compute_dtype=compute_dtype,
+        spatial_impl=spatial_impl, temporal_impl=temporal_impl,
+        constrain=constrain)
 
     def bn_relu(key, h):
-        h, s = batchnorm_train(params[key], state[key], h)
+        # the residual order's bn2 sits on the (channel-sharded) spatial
+        # output
+        h, s = batchnorm_train(
+            params[key], state[key], h, group=bn_group,
+            channel_group=channel_group if key == "bn2" else None)
         return (torch.relu(h) if residual else h), s
 
     new_state = {}
@@ -146,7 +184,8 @@ def block_forward_train(params: dict, state: dict, x: torch.Tensor,
     h = run(temporal, h)                        # temporal_in is spatial_out
 
     def tail(h):
-        out, s = batchnorm_train(params["bn2"], state["bn2"], h)
+        out, s = batchnorm_train(params["bn2"], state["bn2"], h,
+                                 group=bn_group)
         return _relu_dropout(out, dropout_rate, generator, dropout_impl), s
 
     out, new_state["bn2"] = run(tail, h)

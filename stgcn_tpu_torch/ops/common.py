@@ -49,17 +49,32 @@ def dropout(x: torch.Tensor, rate: float, *, generator: torch.Generator,
 
 
 def global_avg_pool(x: torch.Tensor,
-                    time_mask: torch.Tensor | None = None) -> torch.Tensor:
+                    time_mask: torch.Tensor | None = None,
+                    group=None) -> torch.Tensor:
     """Mean over (T, V): ``(N, T, V, C) -> (N, C)`` in at least float32.
 
     ``time_mask`` (``(N, T)`` booleans) averages the valid frames only.
+    ``group``: the ranks whose equal shards of T (or V) make the whole;
+    the sums are all-reduced over it, with their gradients.
     """
     acc = stat_dtype(x)
+    if group is not None:
+        from stgcn_tpu_torch.parallel.collectives import (
+            all_reduce_sum,
+            group_size,
+            sum_over,
+        )
     if time_mask is None:
-        return x.to(acc).mean(dim=(1, 2))
+        pooled = x.to(acc).mean(dim=(1, 2))
+        if group is None:
+            return pooled
+        return all_reduce_sum(pooled * (1.0 / group_size(group)), group)
     m = time_mask[:, :, None, None].to(acc)
     total = (x.to(acc) * m).sum(dim=(1, 2))
     count = m.sum(dim=(1, 2)) * x.shape[2]
+    if group is not None:
+        total = all_reduce_sum(total, group)
+        count = sum_over(count, group)
     return total / torch.clamp(count, min=1.0)
 
 

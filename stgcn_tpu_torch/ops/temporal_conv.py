@@ -47,10 +47,13 @@ BLOCK_FRAMES = 8
 
 
 def temporal_conv(params: dict, x: torch.Tensor, *, stride: int = 1,
+                  padding: int | None = None,
                   compute_dtype: torch.dtype | None = None,
                   impl: str = "conv") -> torch.Tensor:
-    """``(N, T, V, C_in) -> (N, T_out, V, C_out)``, with the reference's
-    ``(gamma - 1) // 2`` frames of zero padding on both ends.
+    """``(N, T, V, C_in) -> (N, T_out, V, C_out)``, with ``padding`` frames
+    of zeros on both ends: ``None`` is the reference's ``(gamma - 1) // 2``,
+    0 the valid conv the time halo runs on a shard's frames and their
+    neighbours' (``stgcn_tpu/ops/temporal_conv.py:44,78-79``).
 
     ``impl``: one of ``TEMPORAL_IMPLS`` (module docstring); ``"pallas"``
     casts ``x`` and the taps to ``compute_dtype`` and passes the bias as it
@@ -61,11 +64,13 @@ def temporal_conv(params: dict, x: torch.Tensor, *, stride: int = 1,
         h, taps = x, w[:, 0]
         if compute_dtype is not None:
             h, taps = h.to(compute_dtype), taps.to(compute_dtype)
-        return temporal_conv_fused(h, taps, params["b"], stride).to(x.dtype)
+        return temporal_conv_fused(h, taps, params["b"], stride,
+                                   padding).to(x.dtype)
     if impl not in TEMPORAL_IMPLS:
         raise ValueError(f"temporal_impl must be one of {TEMPORAL_IMPLS}, "
                          f"got {impl!r}")
-    padding = (w.shape[0] - 1) // 2
+    if padding is None:
+        padding = (w.shape[0] - 1) // 2
     if impl in ("shift_sum", "block"):
         fn = _shift_sum if impl == "shift_sum" else _block_toeplitz
         out_dtype = x.dtype

@@ -62,15 +62,38 @@ class Predictor:
     ``use_fused`` (default) serves through the fused kernel forward; False
     serves through the op path (``STGCN.forward``).  ``device`` is
     ``"cuda"`` unless ``"cpu"`` is asked for.
+
+    ``mesh`` (a ``(data, 1, 1)`` :class:`stgcn_tpu_torch.parallel.mesh.
+    Mesh`, on its device) serves data parallel, as the JAX
+    ``Predictor(mesh=...)`` does: each rank of every rank's identical call
+    runs the fused forward on its slice of each batch and every rank
+    returns the whole answer (``parallel/fused_dp.fused_eval_forward_dp``).
+    ``max_batch`` must divide by the data axis and ``batch_pad`` must be
+    ``"max"``, so every batch does.
     """
 
     def __init__(self, model: STGCN, buckets: tuple[int, ...] | None = None,
                  max_batch: int = 64, batch_pad: str = "max",
                  use_fused: bool = True,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         if batch_pad not in BATCH_PADS:
             raise ValueError(f"batch_pad must be max|pow2|none, "
                              f"got {batch_pad!r}")
+        if mesh is not None:
+            from stgcn_tpu_torch.parallel.fused_dp import check_dp_only
+
+            check_dp_only(mesh, "Predictor(mesh=...)")
+            dp = mesh.shape["data"]
+            if max_batch % dp:
+                raise ValueError(
+                    f"max_batch {max_batch} must be divisible by the mesh's "
+                    f"data axis {dp}")
+            if batch_pad != "max":
+                raise ValueError(
+                    "Predictor(mesh=...) requires batch_pad='max' so every "
+                    "compiled batch divides the data axis")
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.buckets = tuple(buckets or default_buckets(1024))
@@ -125,7 +148,21 @@ class Predictor:
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            if self.use_fused:
+            if self.use_fused and self.mesh is not None:
+                from stgcn_tpu_torch.parallel.fused_dp import (
+                    fused_eval_forward_dp,
+                )
+
+                dp = self.mesh.shape["data"]
+                if x.shape[0] % dp:
+                    raise ValueError(
+                        f"batch {x.shape[0]} not divisible by data axis "
+                        f"{dp}")
+                local = x.chunk(dp)[self.mesh.index("data")]
+                logits = fused_eval_forward_dp(
+                    self.model, *self.model.params_and_state(), local,
+                    self.mesh)
+            elif self.use_fused:
                 logits = fused_eval_forward(
                     self.model, *self.model.params_and_state(), x)
             else:

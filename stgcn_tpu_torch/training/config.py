@@ -10,9 +10,8 @@ package and ``to_dict`` gives equal dictionaries.
 What differs is what the settings reach:
 
 * :func:`model_config_from` builds the port's ``STGCNConfig`` with torch
-  dtypes; mesh axes above 1, which the port cannot run yet, raise
-  ``NotImplementedError`` naming their ROADMAP item
-  (:func:`refuse_unported`);
+  dtypes (the mesh axes are read by the training CLI, which lays a
+  :mod:`stgcn_tpu_torch.parallel` mesh over its ranks);
 * :func:`apply_device` maps ``--train.device`` onto a ``torch.device``:
   ``auto`` and ``cuda`` are the GPU and raise without one (there is no
   quiet CPU fallback, unlike the JAX package's ``auto``), ``cpu`` the CPU,
@@ -118,7 +117,7 @@ class TrainSection:
 
 @dataclasses.dataclass
 class ParallelSection:
-    data_axis: int = 1                # mesh axes: not ported yet
+    data_axis: int = 1                # mesh axes (stgcn_tpu_torch.parallel)
     time_axis: int = 1
     model_axis: int = 1
     shard_joints: bool = False
@@ -249,21 +248,10 @@ def precision_scope(cfg: ExperimentConfig):
          torch.backends.cudnn.allow_tf32) = saved
 
 
-def refuse_unported(cfg: ExperimentConfig) -> None:
-    """``NotImplementedError`` for a setting the port cannot run yet,
-    naming its item of ROADMAP.md's queue 1."""
-    p = cfg.parallel
-    if p.data_axis * p.time_axis * p.model_axis > 1:
-        raise NotImplementedError(
-            "--parallel.{data,time,model}_axis > 1: the parallel paths are "
-            "not ported yet (ROADMAP queue 1 item 7)")
-
-
 def model_config_from(cfg: ExperimentConfig) -> "Any":
     """Map the experiment config onto the port's :class:`STGCNConfig`."""
     from stgcn_tpu_torch.models.stgcn import DEFAULT_PLAN, PLAN_9, STGCNConfig
 
-    refuse_unported(cfg)
     m = cfg.model
     if m.num_layers == 10:
         plan = DEFAULT_PLAN

@@ -144,8 +144,15 @@ class Trainer:
     CUDA unless ``"cpu"`` is asked for.  ``check_invariants`` runs
     :func:`~stgcn_tpu_torch.training.checks.make_checked_train_step`;
     ``debug_nans`` turns on autograd's anomaly detection for the duration
-    of :meth:`fit`.  ``mesh`` (the JAX package's sharded trainer) is not
-    ported: passing one raises ``NotImplementedError``.
+    of :meth:`fit`.
+
+    ``mesh`` (a :class:`stgcn_tpu_torch.parallel.mesh.Mesh`) runs the
+    sharded steps of :mod:`stgcn_tpu_torch.parallel.train` on this rank's
+    slice of every batch, on the mesh's device, with ``shard_joints``
+    splitting the joints instead of the channels.  Every rank runs the
+    same loop on the same global batches.  A checkpoint is written by the
+    primary rank only, after the model-sharded leaves are gathered from
+    their ranks; a restore slices them again.
     """
 
     def __init__(
@@ -162,12 +169,14 @@ class Trainer:
         debug_nans: bool = False,
         check_invariants: bool = False,
         mesh=None,
+        shard_joints: bool = False,
         device: str | torch.device | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): the parallel paths are not ported yet "
-                "(ROADMAP queue 1 item 7)")
+        if check_invariants and mesh is not None:
+            raise ValueError(
+                "check_invariants is only supported for single-device "
+                "training (the checkify'd step is not built for a mesh); "
+                "drop --train.check_invariants or the --parallel.* axes")
         self.model = model
         self.optimizer = optimizer or adam(lr)
         self.logger = logger
@@ -176,33 +185,71 @@ class Trainer:
         self.log_every_steps = log_every_steps
         self.seed = seed
         self.debug_nans = debug_nans
-        self.device = resolve_device(device)
-        if check_invariants:
+        self.mesh = mesh
+        self.shard_joints = shard_joints
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
+        if mesh is not None:
+            # built in init_state, as the JAX Trainer builds its
+            self.train_step = self.eval_step = None
+        elif check_invariants:
             from stgcn_tpu_torch.training.checks import (
                 make_checked_train_step,
             )
             self.train_step = make_checked_train_step(model)
         else:
             self.train_step = make_train_step(model)
-        self.eval_step = make_eval_step(model)
+        if mesh is None:
+            self.eval_step = make_eval_step(model)
 
     # -- state ------------------------------------------------------------
     def init_state(self) -> TrainState:
-        return create_train_state(self.model, self.optimizer, seed=self.seed,
-                                  device=self.device)
+        if self.mesh is None:
+            return create_train_state(self.model, self.optimizer,
+                                      seed=self.seed, device=self.device)
+        from stgcn_tpu_torch.parallel import train as ptrain
+
+        state, _ = ptrain.create_sharded_train_state(
+            self.model, self.optimizer, self.mesh, seed=self.seed,
+            shard_joints=self.shard_joints)
+        if self.train_step is None:
+            self.train_step = ptrain.make_sharded_train_step(
+                self.model, self.mesh, shard_joints=self.shard_joints)
+            self.eval_step = ptrain.make_sharded_eval_step(
+                self.model, self.mesh, shard_joints=self.shard_joints)
+        return state
 
     def _put_batch(self, x, y):
+        if self.mesh is not None:
+            from stgcn_tpu_torch.parallel.train import shard_batch
+
+            return shard_batch(x, y, self.mesh,
+                               shard_joints=self.shard_joints)
         return (torch.as_tensor(x).to(self.device),
                 torch.as_tensor(y).to(self.device))
 
+    def _replicated(self) -> bool:
+        """Whether the mesh's state holds every leaf whole."""
+        return self.shard_joints or self.model.config.block_impl == "fused"
+
     def maybe_resume(self, state: TrainState) -> tuple[TrainState, int]:
         """Restore the newest checkpoint into ``state`` if one exists;
-        returns (state, epoch)."""
+        returns (state, epoch).  On a mesh every rank reads it and keeps
+        its slices."""
         base = (latest_checkpoint(self.checkpoint_dir)
                 if self.checkpoint_dir else None)
         if base is None:
             return state, 0
-        restored = restore_checkpoint(base, state)
+        if self.mesh is None:
+            restored = restore_checkpoint(base, state)
+        else:
+            from stgcn_tpu_torch.parallel import train as ptrain
+
+            full = ptrain.gather_train_state(state, self.mesh,
+                                             replicated=self._replicated())
+            restore_checkpoint(base, full)
+            restored = ptrain.scatter_train_state(
+                full, state, self.mesh, replicated=self._replicated())
         return restored, int(checkpoint_metadata(base).get("epoch", 0))
 
     # -- loops ------------------------------------------------------------
@@ -299,6 +346,18 @@ class Trainer:
         return result
 
     def save(self, state: TrainState, epoch: int, final: bool = False) -> None:
+        """``ckpt_<step>`` in ``checkpoint_dir``; on a mesh every rank
+        takes part in gathering the sharded leaves and the primary rank
+        writes."""
+        meta = {"epoch": epoch, "step": state.step, "final": final}
+        if self.mesh is not None:
+            from stgcn_tpu_torch.parallel import train as ptrain
+            from stgcn_tpu_torch.parallel.launcher import is_primary
+
+            state = ptrain.gather_train_state(state, self.mesh,
+                                              replicated=self._replicated())
+            if not is_primary():
+                return
+            meta["writer"] = 0
         save_checkpoint(os.path.join(self.checkpoint_dir,
-                                     f"ckpt_{state.step}"), state,
-                        {"epoch": epoch, "step": state.step, "final": final})
+                                     f"ckpt_{state.step}"), state, meta)

@@ -62,8 +62,13 @@ def train_state_from(params: dict, state: dict, optimizer, seed: int,
                       seed=seed)
 
 
-def step_generator(seed: int, step: int,
-                   device: torch.device) -> torch.Generator:
-    """The dropout generator of one step, on ``device``."""
-    key = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+def step_generator(seed: int, step: int, device: torch.device,
+                   shard: tuple[int, ...] = ()) -> torch.Generator:
+    """The dropout generator of one step, on ``device``; on a mesh,
+    ``shard`` is the rank's coordinates on the axes its activations are
+    sharded over, so shards draw their own masks (the JAX package folds
+    the shard index into the step's key, ``stgcn_tpu/parallel/
+    fused_dp.py:107``) and replicas draw the same."""
+    key = int(np.random.SeedSequence([seed, step, *shard]
+                                     ).generate_state(1)[0])
     return torch.Generator(device=device).manual_seed(key)

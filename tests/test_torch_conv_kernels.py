@@ -512,17 +512,48 @@ class TestLaunch:
         # V-major (R, T, C) runs as V = R joints of one sequence
         v, n = (V * N, 1) if vmajor else (V, N)
         bn, kc, stages, fwd_smem = tb.plan_mma_forward(17, 8, 16, 2, GAMMA)
-        # ..., V, N, T, C_in, C_out, gamma, stride, aff, relu2, vmajor, bn,
-        # kc, stages, smem
-        assert fwd[6:20] == (v, n, 17, 8, 16, GAMMA, 2, 0, 0, int(vmajor),
-                             bn, kc, stages, fwd_smem)
+        # ..., V, N, T, C_in, C_out, gamma, stride, pad, aff, relu2,
+        # vmajor, bn, kc, stages, smem
+        assert fwd[6:21] == (v, n, 17, 8, 16, GAMMA, 2, 4, 0, 0,
+                             int(vmajor), bn, kc, stages, fwd_smem)
         # the dWt kernel fills one CTA an SM (132 on the fake card)
         plan = tb.plan_mma_backward(v * n, 17, 8, 16, 2, GAMMA, False, 132)
-        assert bwd[10:29] == (v, n, 17, 8, 16, GAMMA, 2, 0, 0, int(vmajor),
+        assert bwd[10:30] == (v, n, 17, 8, 16, GAMMA, 2, 4, 0, 0,
+                             int(vmajor),
                              plan["bn_dx"], plan["kc_dx"], plan["stages_dx"],
                              plan["tiles_x"], plan["dx_smem"],
                              plan["splits"], plan["split_rows"],
                              plan["dw_stages"], plan["dw_smem"])
+
+    @pytest.mark.parametrize("stride", [1, 2])
+    def test_temporal_launches_at_padding_0(self, rng, fake_lib, stride):
+        """``padding=0`` (the time halo's valid conv) reaches both
+        launchers, with the output ``gamma - 1`` frames shorter before the
+        stride, and their planners."""
+        d = temporal_inputs(rng, "ntvc", 8, 16, 17)
+        ins = [tensor(d[k], torch.bfloat16) for k in TEMPORAL_ARGS]
+        u = tc._launch_forward(*ins, stride=stride, vmajor=False, padding=0)
+        t_out = (17 - GAMMA) // stride + 1
+        assert tuple(u.shape) == (N, t_out, V, 16)
+        grads = tc._launch_backward(ins[0], torch.zeros(tuple(u.shape)),
+                                    *ins[1:], stride=stride, vmajor=False,
+                                    padding=0)
+        for got, p in zip(grads, ins):
+            assert got.shape == p.shape and got.dtype == p.dtype
+        (fwd,), (bwd,) = (fake_lib["temporal_mma_fwd_launch"],
+                          fake_lib["temporal_mma_bwd_launch"])
+        bn, kc, stages, fwd_smem = tb.plan_mma_forward(17, 8, 16, stride,
+                                                       GAMMA, 0)
+        assert fwd[6:21] == (V, N, 17, 8, 16, GAMMA, stride, 0, 0, 0, 0, bn,
+                             kc, stages, fwd_smem)
+        plan = tb.plan_mma_backward(V * N, 17, 8, 16, stride, GAMMA, False,
+                                    132, 0)
+        assert bwd[10:21] == (V, N, 17, 8, 16, GAMMA, stride, 0, 0, 0, 0)
+        assert bwd[21:30] == tuple(plan[k] for k in (
+            "bn_dx", "kc_dx", "stages_dx", "tiles_x", "dx_smem", "splits",
+            "split_rows", "dw_stages", "dw_smem"))
+        with pytest.raises(ValueError, match="padding"):
+            tc._launch_forward(*ins, stride=1, vmajor=False, padding=5)
 
     def test_rejects_other_dtypes_and_shapes_on_the_cuda_path(self, rng,
                                                              fake_lib):

@@ -3,8 +3,9 @@
 The GPU machine the port runs on has torch, numpy, scipy, einops, pytest and
 hypothesis, and no jax, jaxlib, pandas, ml_dtypes or optax.  A subprocess
 recreates that with an import hook, serves a prediction, takes one hybrid
-train step, saves and restores a checkpoint, runs an eval step and serves
-from the checkpoint on the CPU; a second one imports ``stgcn_tpu_torch.data``
+train step, saves and restores a checkpoint, runs an eval step, serves
+from the checkpoint and takes one sharded step of
+``stgcn_tpu_torch.parallel`` on a one-rank gloo mesh on the CPU; a second one imports ``stgcn_tpu_torch.data``
 and runs the training CLI for one synthetic epoch on the CPU, TensorBoard
 hidden as well; an AST scan checks every module of the port and
 ``chip_smoke.py``.
@@ -97,6 +98,17 @@ SCRIPT = HOOK + textwrap.dedent("""
         served = Predictor.from_checkpoint(d + "/ckpt_1", cfg, max_batch=2,
                                            device="cpu")
         assert served.predict([x[0].numpy()]).probs.shape == (1, 6)
+
+    from stgcn_tpu_torch.parallel import (create_sharded_train_state,
+                                          make_mesh, make_sharded_train_step,
+                                          shard_batch)
+    mesh = make_mesh(1, 1, 1, device="cpu")     # a one-rank gloo world
+    pmodel = STGCN(STGCNConfig(plan=((8, 1), (16, 2)),
+                               strategy=Strategy.DISTANCE))
+    pts, _ = create_sharded_train_state(pmodel, adam(1e-3), mesh)
+    pm = make_sharded_train_step(pmodel, mesh)(
+        pts, *shard_batch(x.numpy(), np.array([1, 4]), mesh))
+    assert bool(torch.isfinite(pm["loss"])) and pts.step == 1, pm
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
     assert not loaded, loaded
     print("ISOLATED-OK")

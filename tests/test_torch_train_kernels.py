@@ -449,13 +449,13 @@ class TestLaunch:
         self.check_call(fwd, "temporal_mma_fwd_launch")
         self.check_call(bwd, "temporal_mma_bwd_launch")
         bn, kc, stages, smem = tb.plan_mma_forward(T, 16, 16, 2, GAMMA)
-        # ..., V, N, T, C_in, C_out, gamma, stride, aff, relu2, vmajor, bn,
-        # kc, stages, smem
-        assert fwd[6:20] == (V, N, T, 16, 16, GAMMA, 2, 1, 1, 1, bn, kc,
+        # ..., V, N, T, C_in, C_out, gamma, stride, pad, aff, relu2,
+        # vmajor, bn, kc, stages, smem
+        assert fwd[6:21] == (V, N, T, 16, 16, GAMMA, 2, 4, 1, 1, 1, bn, kc,
                              stages, smem)
         # the dWt kernel fills one CTA an SM (132 on the fake card)
         plan = tb.plan_mma_backward(V * N, T, 16, 16, 2, GAMMA, True, 132)
-        assert bwd[10:29] == (V, N, T, 16, 16, GAMMA, 2, 1, 1, 1,
+        assert bwd[10:30] == (V, N, T, 16, 16, GAMMA, 2, 4, 1, 1, 1,
                              plan["bn_dx"], plan["kc_dx"], plan["stages_dx"],
                              plan["tiles_x"], plan["dx_smem"],
                              plan["splits"], plan["split_rows"],

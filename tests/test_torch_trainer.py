@@ -19,13 +19,15 @@ Held here:
   1e-5 of the largest value (the two sides sum in other orders).
 * **Config.**  Both parsers give equal ``to_dict()`` for the README's
   command lines (and both refuse its ``--train.batch_size``), the port's
-  ``STGCNConfig`` takes the JAX config's values, settings the port cannot
-  run raise ``NotImplementedError``, ``apply_device`` has no CPU fallback,
+  ``STGCNConfig`` takes the JAX config's values, the mesh command line
+  builds and a ``Trainer`` steps on a one-rank gloo mesh, ``apply_device``
+  has no CPU fallback,
   and ``precision_scope`` restores the TF32 settings.
 * **Checks.**  ``check_invariants`` trips on a bad label, a non-finite
   input and a non-finite gradient (as the JAX checkified step does on the
   first two) and leaves the state as it was; ``debug_nans`` raises on a
-  NaN and switches anomaly detection off again; ``mesh`` is refused.
+  NaN and switches anomaly detection off again; with a ``mesh`` the checked
+  step is refused, as in the JAX package.
 * **Profiling.**  ``ModelFlops`` and ``param_table`` equal to the JAX
   package's; ``trace`` writes a Chrome trace of a train step.
 * **CLI.**  The synthetic smoke run of ``tests/test_training.py:214``
@@ -284,12 +286,40 @@ def test_model_config_takes_the_jax_values():
                                                   "fp8"]))
 
 
-@pytest.mark.parametrize("argv,item", [
-    (README_ARGV[2], "item 7"),
-], ids=["mesh"])
-def test_unported_settings_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tcfg.model_config_from(tcfg.parse_config(argv))
+@pytest.fixture()
+def one_rank_world():
+    """A one-process gloo world for a ``(1, 1, 1)`` mesh, torn down after
+    the test so no later test of this worker finds it."""
+    import torch.distributed as dist
+
+    from stgcn_tpu_torch.parallel.mesh import make_mesh
+
+    yield lambda: make_mesh(1, 1, 1, device="cpu")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_mesh_settings_build_and_step(one_rank_world):
+    """The README's mesh command line gives the JAX package's model config
+    (the port once refused it), and a ``Trainer`` on a one-rank gloo mesh
+    builds the sharded steps and takes the unsharded step's loss."""
+    got = tcfg.model_config_from(tcfg.parse_config(README_ARGV[2]))
+    want = jcfg.model_config_from(jcfg.parse_config(README_ARGV[2]))
+    assert got.plan == want.plan and got.block_impl == want.block_impl
+    _, _, pt, pstate = trainers(train_section())
+    mesh_trainer = Trainer(pt.model, optimizer=pt.optimizer,
+                           mesh=one_rank_world())
+    mstate = mesh_trainer.init_state()
+    for leaf, src in zip(mstate.leaves(), pstate.leaves()):
+        leaf.data.copy_(src.detach())
+    x, y, _ = stream(3, batches=1)[0]
+    got_m = mesh_trainer.train_step(mstate, *mesh_trainer._put_batch(x, y))
+    want_m = pt.train_step(pstate, torch.from_numpy(x), torch.from_numpy(y))
+    assert float(got_m["loss"]) == pytest.approx(float(want_m["loss"]),
+                                                 rel=RTOL)
+    assert mstate.step == 1
+    sums = mesh_trainer.eval_step(mstate, *mesh_trainer._put_batch(x, y))
+    assert int(sums["count"]) == len(y)
 
 
 @pytest.mark.parametrize("argv", [
@@ -377,8 +407,13 @@ def test_debug_nans_and_mesh():
     with pytest.raises(RuntimeError, match="nan"):
         pt.fit(pstate, lambda epoch: [(x, y, lens)])
     assert not torch.is_anomaly_enabled()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Trainer(pt.model, mesh=object(), device="cpu")
+    # a mesh runs, but not the checked step: refused as in the JAX package
+    msg = "check_invariants is only supported for single-device"
+    with pytest.raises(ValueError, match=msg):
+        Trainer(pt.model, mesh=object(), check_invariants=True)
+    with pytest.raises(ValueError, match=msg):
+        JaxTrainer(JaxSTGCN(configs()[0]), mesh=object(),
+                   check_invariants=True)
 
 
 @pytest.fixture()
