@@ -217,6 +217,39 @@ non-zero exit code:
                    every card of the machine (up to 4) on NCCL, the fused,
                    model and time cases timed beside the one-process bf16
                    step.
+21. graph       -- the compiled step (run after 18, before 20): every
+                   step is captured in a CUDA graph per input signature on
+                   the card by default (``training/graphs.CapturedStep``),
+                   so every phase above drives captured steps; this one
+                   holds them against the eager ones.  For the fused
+                   step, routes A and B, the hybrid and the op path
+                   (bench.py's step: bf16, B=64, T=304, dropout 0.5, Adam,
+                   each case's batch from a generator of its own): a
+                   captured step (a warm-up, then GRAPH_REPLAYS replays)
+                   against as many eager steps and a second eager run, all
+                   from the same weights, seed and batch, cuDNN
+                   deterministic: parameters, moments, BN statistics,
+                   gradients and losses bitwise equal where the two eager
+                   runs are (else no further apart than they are); the
+                   wrapper launches a replay counts (8/2/10 fused, 10/10
+                   routes, 7/0/7 hybrid, none on the op path), and the
+                   kernels a ``torch.profiler`` trace of one replay and of
+                   one eager step counts by name, equal; each step's ms
+                   captured (a step captured anew with cuDNN's default
+                   algorithms) and eager in turns after warm steps, the
+                   host's ms to issue it (and a replay alone) and the
+                   device's idle share.  A
+                   ``Predictor`` with a graph a bucket (152 and 304 frames)
+                   bitwise the eager one, ``predict_stream`` too, 10
+                   ``block_eval`` launches a batch; serial and pipelined
+                   seq/s captured and eager in alternating rounds.  In
+                   phase 16 each CLI run must be captured, its per-step
+                   losses differ and average to the printed epoch loss; its
+                   graphs and peak memory are reported.  In phase 20 the
+                   one-rank NCCL ``Trainer(mesh)`` step captured (its BN
+                   and gradient all-reduces in the graph) bitwise the
+                   captured unsharded step (bf16, dropout 0), both timed
+                   captured and eager in turns.
 19. kernels     -- one line per kernel with its launches, error, times and
                    bound (block_eval's also with its ``split_ms``).
 
@@ -312,7 +345,10 @@ def card_peaks(name: str) -> tuple[str, float, float]:
     return (part, *PEAKS[part])
 
 
-def cuda_time_ms(fn, reps: int = 3, warmup: int = 1) -> float:
+def cuda_time_ms(fn, reps: int = 3, warmup: int = 2) -> float:
+    """CUDA-event ms of a call of ``fn``, over ``reps`` calls after
+    ``warmup``: two by default, a captured step's warm-up and its
+    capture."""
     import torch
 
     for _ in range(warmup):
@@ -2183,7 +2219,7 @@ def run_cli(argv: list[str]) -> tuple[dict, dict, dict]:
 
     counters = {**fused_counters(), "block_eval": block_eval}
     out = io.StringIO()
-    steps: dict = {"batches": []}
+    steps: dict = {"batches": [], "losses": []}
     make_step = loop.make_train_step
 
     def timed_step(model, **kw):
@@ -2196,6 +2232,7 @@ def run_cli(argv: list[str]) -> tuple[dict, dict, dict]:
             result = step(ts, x, y, *args, **kwargs)
             end.record()
             steps["batches"].append((x.shape[0], x.shape[1], start, end))
+            steps["losses"].append(result["loss"].clone())
             steps.update(step=step, ts=ts)
             return result
 
@@ -2203,6 +2240,7 @@ def run_cli(argv: list[str]) -> tuple[dict, dict, dict]:
 
     for fn in counters.values():
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     loop.make_train_step = timed_step
     try:
         with contextlib.redirect_stdout(out):
@@ -2213,6 +2251,7 @@ def run_cli(argv: list[str]) -> tuple[dict, dict, dict]:
     finally:
         loop.make_train_step = make_step
     torch.cuda.synchronize()
+    steps["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
     launches = {name: fn.launches for name, fn in counters.items()}
     text = out.getvalue()
     splits = re.search(r"\[data\] splits: train=(\d+) val=(\d+) test=(\d+)",
@@ -2360,17 +2399,35 @@ def cli_train_phase(smi: str, dev, tmp: str) -> dict:
             e["host_share_vs_cli_step"] = (
                 1 - e["work_steps"] * cli_step_ms / (e["epoch_s"] * 1e3)
                 if cli_step_ms and not hybrid else None)
+        # the captured step (phase 21): the Trainer's epoch loss is the
+        # mean of its steps' own losses, which differ, not the last
+        # step's output read again
+        step_losses = [float(v) for v in steps["losses"]]
+        graph = dict(
+            captured=steps["step"].captured,
+            graphs=steps["step"].cache_size, peak_mib=steps["peak_mib"],
+            step_losses=step_losses,
+            epoch_means=[float(np.mean(step_losses[
+                i * batches_per_epoch:(i + 1) * batches_per_epoch]))
+                for i in range(len(epochs))] if split_ok else [])
+        losses_ok = split_ok and all(
+            len(set(step_losses[i * batches_per_epoch:
+                                (i + 1) * batches_per_epoch])) > 1
+            and math.isclose(m, e["train_loss"], rel_tol=1e-6)
+            for i, (m, e) in enumerate(zip(graph["epoch_means"], epochs)))
         ok = (printed["rc"] == 0 and finite and ckpt_ok and epochs_ok
               and split_ok and launches == want
               and printed["test"] is not None
-              and math.isfinite(printed["test"][0]))
+              and math.isfinite(printed["test"][0])
+              and graph["captured"] and losses_ok)
         results[name] = dict(
             seconds=seconds, splits=printed["splits"],
             batches_per_epoch=batches_per_epoch,
             epochs=[e["epoch"] for e in epochs], losses=losses,
             per_epoch=per_epoch, test=printed["test"],
             launches=launches, expected_launches=want,
-            checkpoints={str(k): v for k, v in metas.items()}, ok=ok)
+            checkpoints={str(k): v for k, v in metas.items()},
+            graph=graph, step_losses_ok=losses_ok, ok=ok)
         emit("cli_train", run=name, argv=argv, **results[name])
         del steps
         if not ok:
@@ -2378,7 +2435,8 @@ def cli_train_phase(smi: str, dev, tmp: str) -> dict:
                 f"the training CLI's {name} run failed: rc "
                 f"{printed['rc']}, finite {finite}, checkpoints "
                 f"{ckpt_ok}, epochs {epochs_ok}, steps {split_ok}, "
-                f"launches {launches} against {want}")
+                f"launches {launches} against {want}, captured "
+                f"{graph['captured']}, step losses {losses_ok}")
 
     def column(run, key):
         return [e[key] for e in results[run]["per_epoch"]]
@@ -2770,9 +2828,11 @@ def route_options_phase(smi: str, dev) -> None:
 
     def in_turns(*cases):
         """Each case's step ms, timed in turns (in order, then reversed)
-        after a warm step of each: the card's clocks after the host-bound
-        tools phase and its allocator favour no case.  Drops the states."""
+        after two warm steps of each (a captured step's warm-up and
+        capture): the card's clocks after the host-bound tools phase and
+        its allocator favour no case.  Drops the states."""
         for case in cases:
+            case["run"]()
             case["run"]()
         for case in cases:
             case["step_ms"] = 0.0
@@ -2825,6 +2885,7 @@ def route_options_phase(smi: str, dev) -> None:
     ts = create_train_state(model, adam(1e-3), seed=SEED)
     step = make_train_step(model)
     fall = [float(step(ts, x, y)["loss"]) for _ in range(FALL_STEPS)]
+    del step
     n, saves = len(cfg.plan), len(SAVE_BLOCKS)
     want = {f"{op}.{d}": k for op, k in (
         ("spatial_block", n - saves), ("spatial_block_save", saves),
@@ -2885,6 +2946,332 @@ def route_options_phase(smi: str, dev) -> None:
             raise AssertionError(f"temporal_impl={impl}: the gradient is "
                                  "off the float32 conv oracle's, or in bf16 "
                                  "further than the bf16 conv path's")
+
+# ---- 21. graph: the compiled step -------------------------------------------
+GRAPH_CASES = (("fused", dict(block_impl="fused"),
+                {"spatial_block": 8, "spatial_block_save": 2,
+                 "temporal_block": 10}),
+               ("route_A", ROUTES["A"],
+                {"spatial_conv": 10, "temporal_conv": 10}),
+               ("route_B", ROUTES["B"],
+                {"spatial_conv": 10, "temporal_conv": 10}),
+               ("hybrid", dict(block_impl="hybrid", fused_blocks=FUSED_BLOCKS),
+                {"spatial_block": 7, "spatial_block_save": 0,
+                 "temporal_block": 7}),
+               ("ops", {}, {}))
+GRAPH_REPLAYS = 3        # replays held against as many eager steps
+GRAPH_SERVE_ROUNDS = 2   # rounds of captured, eager, eager, captured
+PRE_ROLL = 32            # launches that open each trace, not counted
+PRE_ROLL_KERNEL = "spin_kernel"  # torch.cuda._sleep's
+# kernels a profiler trace counts, each launched once by one op call of a
+# direction: the spatial ops' forward and t kernels, the temporal ops' dWt
+# kernel (their backward) and tap GEMM (their forward, and their
+# backward's dx), block_eval's spatial kernel
+TRACE_KERNELS = {"spatial.forward": "spatial_wg_fwd_kernel",
+                 "spatial.backward": "spatial_wg_t_kernel",
+                 "temporal.dwt": "tap_dwt_kernel",
+                 "temporal.gemm": "tap_gemm_kernel",
+                 "block_eval": "block_eval_spatial_kernel"}
+
+
+def trace_call(fn) -> tuple[dict, float]:
+    """One call of ``fn`` under ``torch.profiler``: the launches of each of
+    TRACE_KERNELS by kernel name, and the device's busy ms (every kernel,
+    copy and set, summed), after PRE_ROLL spin kernels that neither
+    counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a pre-roll: a trace can miss the first kernels after it starts
+        # (one of an eager step's first forward kernels went missing once)
+        for _ in range(PRE_ROLL):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        fn()
+        torch.cuda.synchronize()
+    counts, busy = dict.fromkeys(TRACE_KERNELS, 0), 0.0
+    for ev in prof.key_averages():
+        total = (getattr(ev, "device_time_total", None)
+                 or getattr(ev, "cuda_time_total", 0))
+        if not total or PRE_ROLL_KERNEL in ev.key:
+            continue
+        busy += total / 1e3
+        for fam, name in TRACE_KERNELS.items():
+            if name in ev.key:
+                counts[fam] += ev.count
+    return counts, busy
+
+
+def traced_from_counters(launches: dict) -> dict:
+    """What TRACE_KERNELS should count for these wrapper launches."""
+    def n(*keys):
+        return sum(launches.get(k, 0) for k in keys)
+
+    spatial = ("spatial_block", "spatial_block_save", "spatial_conv")
+    temporal = ("temporal_block", "temporal_conv")
+    return {"spatial.forward": n(*(f"{s}.forward" for s in spatial)),
+            "spatial.backward": n(*(f"{s}.backward" for s in spatial)),
+            "temporal.dwt": n(*(f"{t}.backward" for t in temporal)),
+            "temporal.gemm": n(*(f"{t}.{d}" for t in temporal
+                                 for d in ("forward", "backward"))),
+            "block_eval": launches.get("block_eval", 0)}
+
+
+def memory_checkpoint(before: str) -> None:
+    """Between phases: collect Python's cyclic garbage (a graph held in a
+    cycle keeps its memory pool reserved until then) and the allocator's
+    cached blocks, and report the device memory before and after."""
+    import gc
+
+    import torch
+
+    from stgcn_tpu_torch.training import graphs
+
+    def reading():
+        private = sum(seg["total_size"] - seg["allocated_size"]
+                      for seg in torch.cuda.memory_snapshot()
+                      if seg.get("segment_pool_id", (0, 0)) != (0, 0))
+        return {"reserved_mib": torch.cuda.memory_reserved() / 2 ** 20,
+                "allocated_mib": torch.cuda.memory_allocated() / 2 ** 20,
+                "graph_pools_free_mib": private / 2 ** 20,
+                "graphs_alive": sum(len(c.graphs)
+                                    for c in graphs._CAPTURES.values())}
+
+    found = reading()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("memory", before=before, found=found, after_collect=reading())
+
+
+def pool_mib(pool) -> tuple[float, float]:
+    """Reserved and allocated MiB of the segments of a CUDA-graph memory
+    pool (``torch.cuda.memory_snapshot``)."""
+    import torch
+
+    reserved = allocated = 0
+    for seg in torch.cuda.memory_snapshot():
+        if tuple(seg.get("segment_pool_id", ())) == tuple(pool):
+            reserved += seg["total_size"]
+            allocated += seg["allocated_size"]
+    return reserved / 2 ** 20, allocated / 2 ** 20
+
+
+def peak_mib(fn) -> float:
+    """MiB ``fn`` allocated at its peak above what was allocated before."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def issue_ms(fn, reps: int = 3) -> float:
+    """The host's ms to issue one call of ``fn`` (from an idle device, no
+    synchronisation inside the timed span)."""
+    import torch
+
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        total += time.perf_counter() - start
+    torch.cuda.synchronize()
+    return total * 1e3 / reps
+
+
+def max_distance(got: list, want: list) -> float:
+    """The largest elementwise distance between two lists of tensors."""
+    return max(((a.double() - b.double()).abs().max().item()
+                if a.numel() else 0.0) for a, b in zip(got, want))
+
+
+def graph_state_tensors(ts) -> list:
+    """What the comparison reads of a train state: parameters, BN
+    statistics, Adam's moments, the gradients of the last step."""
+    return ts.tensors() + [p.grad for p in ts.leaves()]
+
+
+def graph_phase(smi: str, dev, cases=None, serving: bool = True) -> dict:
+    """The captured steps (module docstring, phase 21), of GRAPH_CASES
+    named in ``cases`` (all by default) and, with ``serving``, the
+    ``Predictor``; fails on any check.  Returns each case's figures."""
+    import torch
+
+    from stgcn_tpu_torch.kernels.block_eval import block_eval
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.serving import Predictor
+    from stgcn_tpu_torch.training.graphs import capture_pool
+    from stgcn_tpu_torch.training.loop import make_train_step
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import create_train_state
+
+    counters = {**fused_counters(), **conv_counters()}
+    results = {}
+    for i, (name, kw, want) in enumerate(GRAPH_CASES):
+        if cases is not None and name not in cases:
+            continue
+        cfg = bench_config(**kw)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30 + i)
+        x = torch.randn(B, T, V, 2, generator=gen, device=dev)
+        y = torch.randint(0, 6, (B,), generator=gen, device=dev)
+        model = STGCN(cfg, seed=SEED)
+        states = {k: create_train_state(model, adam(1e-3), seed=SEED)
+                  for k in ("captured", "eager", "eager_again")}
+        steps = {"captured": make_train_step(model),
+                 "eager": make_train_step(model, capture=False),
+                 "eager_again": make_train_step(model, capture=False)}
+        # the same steps from the same state, seed and batch; cuDNN's
+        # deterministic algorithms, so that eager repeats itself
+        torch.backends.cudnn.deterministic = True
+        losses = {k: [] for k in steps}
+        launches = []
+        for _ in range(1 + GRAPH_REPLAYS):   # a warm-up, then replays
+            for k, step in steps.items():
+                reset(counters)
+                out = step(states[k], x, y)
+                losses[k].append(out["loss"].clone())
+                if k == "captured":
+                    launches.append(read(counters))
+        torch.backends.cudnn.deterministic = False
+        step = steps["captured"]
+        captured, graphs = step.captured, step.cache_size
+        got = graph_state_tensors(states["captured"]) + losses["captured"]
+        ref = graph_state_tensors(states["eager"]) + losses["eager"]
+        again = graph_state_tensors(states["eager_again"]) + \
+            losses["eager_again"]
+        eager_dist = max_distance(again, ref)
+        graph_dist = max_distance(got, ref)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+        per_step = {k: n for k, n in launches[-1].items() if n}
+        expected = {f"{op}.{d}": n for op, n in want.items()
+                    for d in ("forward", "backward") if n}
+        # timing: a step captured with cuDNN's default algorithms (the one
+        # above holds its deterministic ones), two warm calls of each
+        step = steps["captured"] = make_train_step(model)
+        runs = {k: (lambda k=k: steps[k](states[k], x, y))
+                for k in ("captured", "eager")}
+        for k in runs:
+            runs[k]()
+        # the capture's cost, jit's compile time: host seconds of the call
+        # that captures and replays, beside a replay's
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        runs["captured"]()
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - start
+        runs["eager"]()
+        # one replay and one eager step traced: launches by kernel name
+        replay_trace, replay_busy = trace_call(runs["captured"])
+        eager_trace, eager_busy = trace_call(runs["eager"])
+        want_trace = traced_from_counters(expected)
+        times = {k: [] for k in runs}
+        for k in ("captured", "eager", "eager", "captured"):
+            times[k].append(cuda_time_ms(runs[k], reps=3, warmup=0))
+        step_ms = {k: float(np.mean(v)) for k, v in times.items()}
+        issued = {k: issue_ms(runs[k]) for k in runs}
+        # the host's ms of the replay alone, without the step's host work
+        graph = next(e.graph for e in step._entries.values())
+        issued["replay_only"] = issue_ms(graph.replay)
+        busy = {"captured": replay_busy, "eager": eager_busy}
+        idle = {k: 1 - busy[k] / step_ms[k] for k in runs}
+        # memory: the eager step's peak, the graph's pool
+        memory = {"eager_peak_mib": peak_mib(runs["eager"])}
+        memory["pool_reserved_mib"], memory["pool_allocated_mib"] = \
+            pool_mib(capture_pool(dev))
+        ok = (captured and graphs == 1
+              and (bitwise if eager_dist == 0 else graph_dist <= eager_dist)
+              and all(launches[i] == launches[0] for i in range(1, len(
+                  launches)))
+              and per_step == expected and replay_trace == want_trace
+              and eager_trace == want_trace)
+        results[name] = dict(step_ms=step_ms, issue_ms=issued,
+                             idle_share=idle)
+        emit("graph", case=name, captured=captured, graphs=graphs,
+             bitwise_equal=bitwise,
+             max_dist_vs_eager=graph_dist, eager_vs_eager=eager_dist,
+             losses=[float(v) for v in losses["captured"]],
+             eager_losses=[float(v) for v in losses["eager"]],
+             launches_per_call=launches, expected_per_step=expected,
+             replay_trace=replay_trace, eager_trace=eager_trace,
+             expected_trace=want_trace, step_ms=step_ms,
+             step_ms_turns=times, issue_ms=issued, device_busy_ms=busy,
+             idle_share=idle, memory=memory, capture_s=capture_s,
+             batch=B, frames=T,
+             dtype="bfloat16",
+             dropout=cfg.dropout_rate, nvidia_smi=smi, ok=ok)
+        del states, steps, model, runs, step, graph
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(
+                f"the captured {name} step: captured {captured}, "
+                f"replays not the eager step's ({graph_dist} against "
+                f"eager-vs-eager {eager_dist}), or launches {per_step} / "
+                f"trace {replay_trace} against {expected} / {want_trace}")
+
+    if not serving:
+        return results
+
+    # ---- serving: one graph a bucket, bitwise the eager forward ----------
+    serve = STGCN(bench_config(dropout_rate=0.0)).to(dev)
+    randomize_batchnorm(serve, torch.Generator().manual_seed(SEED + 35))
+    buckets = (T // 2, T)
+    captured = Predictor(serve, buckets=buckets, max_batch=B)
+    eager = Predictor(serve, buckets=buckets, max_batch=B, capture=False)
+    captured.warmup()
+    eager.warmup()
+    rng = np.random.default_rng(SEED + 36)
+    batches = [rng.standard_normal((B, t, V, 2)).astype(np.float32)
+               for t in buckets for _ in range(4)]
+    before = block_eval.launches
+    probs = [captured.predict_batch(b) for b in batches]
+    serve_launches = block_eval.launches - before
+    want_probs = [eager.predict_batch(b) for b in batches]
+    bitwise = all(np.array_equal(a, b) for a, b in zip(probs, want_probs))
+    stream = list(captured.predict_stream(batches))
+    stream_ok = all(np.array_equal(a, b) for a, b in zip(stream, probs))
+    rounds = {"captured": {"serial": [], "pipelined": []},
+              "eager": {"serial": [], "pipelined": []}}
+    preds = {"captured": captured, "eager": eager}
+    for _ in range(GRAPH_SERVE_ROUNDS):
+        for k in ("captured", "eager", "eager", "captured"):
+            start = time.perf_counter()
+            for b in batches:
+                preds[k].predict_batch(b)
+            rounds[k]["serial"].append(
+                len(batches) * B / (time.perf_counter() - start))
+            start = time.perf_counter()
+            for _ in preds[k].predict_stream(batches):
+                pass
+            rounds[k]["pipelined"].append(
+                len(batches) * B / (time.perf_counter() - start))
+    ok = (captured._step.captured and captured._step.cache_size ==
+          len(buckets) and not eager._step.captured and bitwise and stream_ok
+          and serve_launches == len(batches) * len(serve.config.plan))
+    emit("graph", case="serving", captured=captured._step.captured,
+         graphs=captured._step.cache_size, buckets=list(buckets),
+         bitwise_equal=bitwise, stream_equal=stream_ok,
+         block_eval_launches=serve_launches,
+         seq_per_s={k: {m: float(np.mean(v)) for m, v in r.items()}
+                    for k, r in rounds.items()},
+         seq_per_s_rounds=rounds, batch=B, dtype="bfloat16",
+         nvidia_smi=smi, ok=ok)
+    if not ok:
+        raise AssertionError("the captured Predictor did not capture a "
+                             "graph a bucket, or answered otherwise than "
+                             "the eager forward")
+    results["serving"] = {k: {m: float(np.mean(v)) for m, v in r.items()}
+                          for k, r in rounds.items()}
+    del captured, eager, serve
+    torch.cuda.empty_cache()
+    return results
+
 
 # ---- 20. parallel: the mesh paths of stgcn_tpu_torch.parallel ------------
 PARALLEL_STEPS = 10   # steps of the one-rank Trainer(mesh) run
@@ -3085,10 +3472,79 @@ def parallel_one_rank(smi: str, dev) -> dict:
         raise AssertionError("Predictor(mesh) answered otherwise than "
                              "Predictor")
     del trainer, ts, model, serve
+    graph_mesh_case(smi, dev, mesh, x, y)
     dist.destroy_process_group()
     torch.cuda.empty_cache()
     return {"launches_per_step": per_step, "step_ms": step_ms,
             "eval_launches": eval_launches}
+
+
+def graph_mesh_case(smi: str, dev, mesh, x, y) -> None:
+    """Phase 21's mesh case, on phase 20's one-rank NCCL mesh:
+    ``Trainer(mesh)``'s fused step captured, its BN and gradient
+    all-reduces inside the graph, against the captured unsharded fused
+    step from the same weights and batch (bf16, dropout 0: the mesh seeds
+    its masks with the rank's data index), a warm-up and GRAPH_REPLAYS
+    replays each; gradients, parameters, moments and BN statistics
+    bitwise equal.  Then each step's ms, captured and eager, in turns."""
+    import torch
+
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.parallel.train import make_sharded_train_step
+    from stgcn_tpu_torch.training.loop import Trainer, make_train_step
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import create_train_state
+
+    cfg = bench_config(block_impl="fused", dropout_rate=0.0)
+    runs, states, steps = {}, {}, {}
+    for capture in (None, False):
+        kind = "captured" if capture is None else "eager"
+        model = STGCN(cfg)
+        trainer = Trainer(model, adam(1e-3), mesh=mesh, seed=SEED)
+        states[f"mesh_{kind}"] = trainer.init_state()
+        steps[f"mesh_{kind}"] = (trainer.train_step if capture is None else
+                                 make_sharded_train_step(model, mesh,
+                                                         capture=False))
+        plain = STGCN(cfg)
+        states[f"unsharded_{kind}"] = create_train_state(plain, adam(1e-3),
+                                                         seed=SEED)
+        steps[f"unsharded_{kind}"] = make_train_step(plain, capture=capture)
+    batches = {k: (trainer._put_batch(x, y) if k.startswith("mesh") else
+                   (torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)))
+               for k in steps}
+    for k in steps:
+        runs[k] = (lambda k=k: steps[k](states[k], *batches[k]))
+    for _ in range(1 + GRAPH_REPLAYS):
+        runs["mesh_captured"]()
+        runs["unsharded_captured"]()
+    got = graph_state_tensors(states["mesh_captured"])
+    want = graph_state_tensors(states["unsharded_captured"])
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    dist_ = max_distance(got, want)
+    captured = (steps["mesh_captured"].captured
+                and steps["unsharded_captured"].captured)
+    for k in runs:
+        runs[k]()
+        runs[k]()
+    order = list(runs)
+    times = {k: [] for k in runs}
+    for k in order + order[::-1]:
+        times[k].append(cuda_time_ms(runs[k], reps=3, warmup=0))
+    step_ms = {k: float(np.mean(v)) for k, v in times.items()}
+    issued = {k: issue_ms(runs[k]) for k in runs}
+    ok = captured and bitwise
+    emit("graph", case="one_rank_mesh", mesh=[1, 1, 1],
+         backend=mesh.backend, captured=captured,
+         graphs=steps["mesh_captured"].cache_size, bitwise_equal=bitwise,
+         max_dist=dist_, step_ms=step_ms, step_ms_turns=times,
+         issue_ms=issued, batch=B, frames=T, dtype="bfloat16", dropout=0.0,
+         nvidia_smi=smi, ok=ok)
+    del states, steps, runs
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the captured one-rank mesh step is not "
+                             "captured, or not bitwise the captured "
+                             "unsharded step")
 
 
 def spawn_ranks(suite: str, backend: str, tmp: str, world: int = 2,
@@ -3355,7 +3811,8 @@ def _all_launches(counters) -> list:
 def _rank_data(dev, n: int) -> dict:
     """data=n on the fused kernels at bench.py's width: the float32
     gradients and BN statistics of one step; bf16 steps for the falling
-    loss, the step ms and the gradient all-reduce's ms."""
+    loss, the step ms (captured on NCCL, and eager beside it) and the
+    gradient all-reduce's ms."""
     import torch
 
     from stgcn_tpu_torch.models.stgcn import STGCN
@@ -3398,6 +3855,10 @@ def _rank_data(dev, n: int) -> dict:
     out["bf16_fell"] = bool(np.isfinite(losses).all()
                             and np.mean(losses[-3:]) < np.mean(losses[:3]))
     out["step_ms"] = cuda_time_ms(lambda: step(ts, *batch), reps=5)
+    # the same step eager (captured on NCCL by default; gloo runs eagerly)
+    out["captured"] = step.captured
+    eager = make_sharded_train_step(model, mesh, capture=False)
+    out["eager_step_ms"] = cuda_time_ms(lambda: eager(ts, *batch), reps=5)
     grads = [torch.zeros_like(p) for p in ts.leaves()]
     out["grad_all_reduce_ms"] = cuda_time_ms(
         lambda: all_reduce_(grads, mesh.group("data")), reps=5)
@@ -3854,18 +4315,25 @@ def main() -> int:
          serving_pipelined_seq_per_s=pipelined, batch=B, frames=T,
          dtype="bfloat16", nvidia_smi=smi,
          run_seconds=time.perf_counter() - run_start)
+    # their captured graphs would hold the graph memory pool, and with it
+    # the largest later graph's memory, for the rest of the run
+    del pred, oracle_pred
 
+    memory_checkpoint("train_kernel")
     # ---- 6. train_kernel ----------------------------------------------------
     train_errors = train_kernel_phase(dev, gen, odd_gen)
 
+    memory_checkpoint("train")
     # ---- 7. train, 8. train_time: the train path ---------------------------
     train = train_phase(dev, gen, peak_flops, peak_bytes)
 
+    memory_checkpoint("conv_kernel")
     # ---- 9. conv_kernel, 10. route_train, 11. route_time: the two routes ----
     conv_errors = conv_kernel_phase(dev, gen, odd_gen)
     route_launches = route_train_phase(dev, gen)
     route_totals = route_time_phase(dev, gen, peak_flops, peak_bytes)
 
+    memory_checkpoint("save_kernel")
     # ---- 12. save_kernel, 13. fused_train, 14. checkpoint, 15. fused_time:
     # the all-fused loop ------------------------------------------------------
     save_errors = save_kernel_phase(dev, gen)
@@ -3876,15 +4344,22 @@ def main() -> int:
     save_totals = fused_time_phase(dev, gen, peak_flops, peak_bytes,
                                    train["totals"], train["conv_library"])
 
+    memory_checkpoint("cli_train")
     # ---- 16. cli_train, 17. tools: the entry points, on one dataset ---------
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_train_phase(smi, dev, tmp)
         tools_phase(smi, dev, tmp, cli, fwd_ms)
 
+    memory_checkpoint("route_options")
     # ---- 18. route_options: remat, bits8, the temporal impls ---------------
     route_options_phase(smi, dev)
 
-    # ---- 20. parallel: the mesh paths ---------------------------------------
+    memory_checkpoint("graph")
+    # ---- 21. graph: the captured steps against the eager ones -------------
+    graph_phase(smi, dev)
+
+    memory_checkpoint("parallel")
+    # ---- 20. parallel: the mesh paths (and phase 21's mesh case) -----------
     parallel_phase(smi, dev)
 
     # ---- 19. kernels --------------------------------------------------------

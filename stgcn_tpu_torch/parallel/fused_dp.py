@@ -35,7 +35,13 @@ from stgcn_tpu_torch.parallel.mesh import (
     Mesh,
 )
 from stgcn_tpu_torch.training import metrics as M
-from stgcn_tpu_torch.training.train_state import TrainState, step_generator
+from stgcn_tpu_torch.training.graphs import CapturedStep
+from stgcn_tpu_torch.training.loop import (
+    begin_train_step,
+    end_train_step,
+    eval_sums,
+)
+from stgcn_tpu_torch.training.train_state import TrainState, copy_state_
 
 
 def check_dp_only(mesh: Mesh, what: str = "block_impl='fused'") -> None:
@@ -95,49 +101,54 @@ def make_fused_dp_grads(model, mesh: Mesh) -> Callable:
     return grads
 
 
-def make_fused_dp_train_step(model, mesh: Mesh) -> Callable:
+def make_fused_dp_train_step(model, mesh: Mesh, *,
+                             capture: bool | None = None) -> CapturedStep:
     """``step(ts, x, y) -> {"loss", "acc"}`` on this rank's slices, with
-    the contract of ``make_sharded_train_step``."""
+    the contract of ``make_sharded_train_step``: captured in a CUDA graph
+    with its collectives on NCCL (the JAX step is jitted, ``:159``), eager
+    on gloo."""
     check_dp_only(mesh)
     sharded_grads = make_fused_dp_grads(model, mesh)
 
-    def step(ts: TrainState, x, y):
-        gen = None
-        if model.config.dropout_rate > 0:
-            gen = step_generator(ts.seed, ts.step, x.device,
-                                 (mesh.index(AXIS_DATA),))
-        loss, acc, new_ms = sharded_grads(ts.params, ts.model_state, gen,
-                                          x, y)
-        ts.optimizer.step()
-        ts.model_state = new_ms
-        ts.step += 1
+    def body(ts: TrainState, x, y, *, generator=None):
+        loss, acc, new_ms = sharded_grads(ts.params, ts.model_state,
+                                          generator, x, y)
+        ts.optimizer.update()
+        copy_state_(ts.model_state, new_ms)
         return {"loss": loss, "acc": acc}
 
-    return step
+    return CapturedStep(
+        body, state_tensors=lambda ts: ts.tensors() + list(model.buffers()),
+        before=begin_train_step(model, (mesh.index(AXIS_DATA),)),
+        after=end_train_step, capture=capture,
+        eager_reason=mesh_eager_reason(mesh), name="fused mesh train step")
 
 
-def make_fused_dp_eval_step(model, mesh: Mesh) -> Callable:
+def make_fused_dp_eval_step(model, mesh: Mesh, *,
+                            capture: bool | None = None) -> CapturedStep:
     """Sharded eval step over the fused forward: the global batch's sums
-    (``loss_sum``, ``correct``, ``count``, ``cm``) on every rank."""
+    (``loss_sum``, ``correct``, ``count``, ``cm``) on every rank (the JAX
+    eval step, ``:195``)."""
     check_dp_only(mesh)
     num_classes = model.config.num_classes
     group = mesh.group(AXIS_DATA)
 
     @torch.no_grad()
-    def step(ts: TrainState, x, y):
+    def body(ts: TrainState, x, y, *, generator=None):
         logits = fused_eval_forward_dp(model, ts.params, ts.model_state, x,
                                        mesh)
         y_all = all_gather(y, group, 0)
         return eval_sums(logits, y_all, num_classes)
 
-    return step
+    return CapturedStep(
+        body, state_tensors=lambda ts: ts.tensors() + list(model.buffers()),
+        capture=capture, eager_reason=mesh_eager_reason(mesh),
+        name="fused mesh eval step")
 
 
-def eval_sums(logits, y, num_classes) -> dict:
-    """The eval step's sums of one batch's logits and labels."""
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -logp.gather(-1, y[:, None].long())[:, 0]
-    return {"loss_sum": nll.sum(),
-            "correct": (logits.argmax(dim=-1) == y).sum(),
-            "count": torch.tensor(y.shape[0], device=logits.device),
-            "cm": M.confusion_matrix(logits, y, num_classes)}
+def mesh_eager_reason(mesh: Mesh) -> str | None:
+    """Why a step on ``mesh`` cannot be captured, or None: gloo runs its
+    collectives on the host, which a CUDA graph cannot hold."""
+    if mesh.backend == "gloo":
+        return "gloo collectives run on the host, outside any CUDA graph"
+    return None

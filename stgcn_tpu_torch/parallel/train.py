@@ -50,8 +50,16 @@ from stgcn_tpu_torch.parallel.mesh import (
     Mesh,
 )
 from stgcn_tpu_torch.training import metrics as M
+from stgcn_tpu_torch.training.graphs import CapturedStep
+from stgcn_tpu_torch.training.loop import (
+    REMAT_EAGER,
+    begin_train_step,
+    end_train_step,
+    eval_sums,
+)
 from stgcn_tpu_torch.training.train_state import (
     TrainState,
+    copy_state_,
     step_generator,
     train_state_from,
 )
@@ -192,11 +200,12 @@ def _shard_index(mesh: Mesh, shard_joints: bool) -> tuple[int, ...]:
 
 def make_sharded_grads(model, mesh: Mesh, *, shard_joints: bool = False,
                        use_time_mask: bool = False) -> Callable:
-    """``grads(ts, x, y[, time_mask]) -> (loss, acc, new_mstate)`` on
-    this rank's slices: each parameter leaf's ``.grad``
-    then holds the global batch's gradient (of its slice); ``loss`` and
-    ``acc`` are the global batch's.  The differentiable core of
-    :func:`make_sharded_train_step`."""
+    """``grads(ts, x, y, time_mask=None, generator=None) -> (loss, acc,
+    new_mstate)`` on this rank's slices, ``generator`` drawing its dropout
+    masks (by default :func:`dropout_generator`'s): each parameter
+    leaf's ``.grad`` then holds the global batch's gradient (of its
+    slice); ``loss`` and ``acc`` are the global batch's.  The
+    differentiable core of :func:`make_sharded_train_step`."""
     _check_layout(mesh, model)
     hooks = apply_hooks(model, mesh, shard_joints)
     sum_axes = mesh_lib.AXES if shard_joints else (AXIS_DATA, AXIS_TIME)
@@ -204,17 +213,16 @@ def make_sharded_grads(model, mesh: Mesh, *, shard_joints: bool = False,
     share = 1.0 / int(np.prod([mesh.shape[a] for a in sum_axes]))
     data_group = mesh.group(AXIS_DATA)
     d_share = 1.0 / mesh.shape[AXIS_DATA]
-    shard = _shard_index(mesh, shard_joints)
 
-    def grads(ts: TrainState, x, y, time_mask=None):
-        gen = None
-        if model.config.dropout_rate > 0:
-            gen = step_generator(ts.seed, ts.step, x.device, shard)
+    def grads(ts: TrainState, x, y, time_mask=None, generator=None):
+        if generator is None:
+            generator = dropout_generator(model, mesh, ts, x.device,
+                                          shard_joints=shard_joints)
         leaves = tree_leaves(ts.params)
         for p in leaves:
             p.grad = None
         logits, new_ms = model.apply(
-            ts.params, ts.model_state, x, train=True, generator=gen,
+            ts.params, ts.model_state, x, train=True, generator=generator,
             time_mask=time_mask if use_time_mask else None, **hooks)
         loss = M.cross_entropy(logits, y)
         (loss * share).backward()
@@ -234,14 +242,31 @@ def make_sharded_grads(model, mesh: Mesh, *, shard_joints: bool = False,
     return grads
 
 
+def dropout_generator(model, mesh: Mesh, ts: TrainState, device, *,
+                      shard_joints: bool = False):
+    """An eager sharded step's dropout generator (None without dropout):
+    the step's seed with this rank's shard coordinates."""
+    if model.config.dropout_rate > 0:
+        return step_generator(ts.seed, ts.step, device,
+                              _shard_index(mesh, shard_joints))
+    return None
+
+
 def make_sharded_train_step(model, mesh: Mesh, *, shard_joints: bool = False,
-                            use_time_mask: bool = False) -> Callable:
+                            use_time_mask: bool = False,
+                            capture: bool | None = None) -> CapturedStep:
     """Sharded ``step(ts, x, y[, time_mask]) -> {"loss", "acc"}`` on this
-    rank's slices (:func:`shard_batch`), updating ``ts`` in place.
+    rank's slices (:func:`shard_batch`), updating ``ts`` in place.  On
+    NCCL it is captured in a CUDA graph with its collectives, as the JAX
+    package jits its step (``stgcn_tpu/parallel/train.py:219``); on gloo
+    it runs eagerly (:class:`~stgcn_tpu_torch.training.graphs.
+    CapturedStep`, ``capture``).
 
     ``block_impl="fused"`` runs the data-parallel fused step
     (:mod:`.fused_dp`), which refuses a time or model axis and a time
     mask, as in the JAX package."""
+    from stgcn_tpu_torch.parallel.fused_dp import mesh_eager_reason
+
     if model.config.block_impl == "fused":
         from stgcn_tpu_torch.parallel.fused_dp import (
             check_dp_only,
@@ -252,31 +277,39 @@ def make_sharded_train_step(model, mesh: Mesh, *, shard_joints: bool = False,
         if use_time_mask:
             raise ValueError("block_impl='fused' does not support time_mask; "
                              "use block_impl='ops' for masked batches")
-        return make_fused_dp_train_step(model, mesh)
+        return make_fused_dp_train_step(model, mesh, capture=capture)
     grads = make_sharded_grads(model, mesh, shard_joints=shard_joints,
                                use_time_mask=use_time_mask)
 
-    def step(ts: TrainState, x, y, time_mask=None):
-        loss, acc, new_ms = grads(ts, x, y, time_mask)
-        ts.optimizer.step()
-        ts.model_state = new_ms
-        ts.step += 1
+    def body(ts: TrainState, x, y, time_mask=None, *, generator=None):
+        loss, acc, new_ms = grads(ts, x, y, time_mask, generator)
+        ts.optimizer.update()
+        copy_state_(ts.model_state, new_ms)
         return {"loss": loss, "acc": acc}
 
-    return step
+    eager = mesh_eager_reason(mesh) or (REMAT_EAGER if model.config.remat
+                                        else None)
+    return CapturedStep(
+        body, state_tensors=lambda ts: ts.tensors() + list(model.buffers()),
+        before=begin_train_step(model, _shard_index(mesh, shard_joints)),
+        after=end_train_step, capture=capture, eager_reason=eager,
+        name="mesh train step")
 
 
-def make_sharded_eval_step(model, mesh: Mesh, *,
-                           shard_joints: bool = False) -> Callable:
+def make_sharded_eval_step(model, mesh: Mesh, *, shard_joints: bool = False,
+                           capture: bool | None = None) -> CapturedStep:
     """Sharded ``step(ts, x, y) -> {"loss_sum", "correct", "count",
-    "cm"}``: the global batch's sums on every rank.  The logits are whole
-    over ``time`` and ``model`` after the pool, so the sums of each data
-    shard are summed over ``data``."""
+    "cm"}``: the global batch's sums on every rank, captured as
+    :func:`make_sharded_train_step` is (``stgcn_tpu/parallel/
+    train.py:263``).  The logits are whole over ``time`` and ``model``
+    after the pool, so the sums of each data shard are summed over
+    ``data``."""
+    from stgcn_tpu_torch.parallel.fused_dp import mesh_eager_reason
+
     if model.config.block_impl == "fused":
         from stgcn_tpu_torch.parallel.fused_dp import make_fused_dp_eval_step
 
-        return make_fused_dp_eval_step(model, mesh)
-    from stgcn_tpu_torch.parallel.fused_dp import eval_sums
+        return make_fused_dp_eval_step(model, mesh, capture=capture)
 
     _check_layout(mesh, model)
     hooks = apply_hooks(model, mesh, shard_joints)
@@ -284,7 +317,7 @@ def make_sharded_eval_step(model, mesh: Mesh, *,
     data_group = mesh.group(AXIS_DATA)
 
     @torch.no_grad()
-    def step(ts: TrainState, x, y):
+    def body(ts: TrainState, x, y, *, generator=None):
         logits, _ = model.apply(ts.params, ts.model_state, x, train=False,
                                 **hooks)
         sums = eval_sums(logits, y, num_classes)
@@ -292,7 +325,10 @@ def make_sharded_eval_step(model, mesh: Mesh, *,
         all_reduce_(list(sums.values()), data_group)
         return sums
 
-    return step
+    return CapturedStep(
+        body, state_tensors=lambda ts: ts.tensors() + list(model.buffers()),
+        capture=capture, eager_reason=mesh_eager_reason(mesh),
+        name="mesh eval step")
 
 
 def shard_batch(x, y, mesh: Mesh, shard_joints: bool = False,

@@ -17,6 +17,12 @@ Example::
 ``Predictor.from_checkpoint`` serves the weights and BN statistics of a
 ``.npz`` checkpoint, written by the port's or the JAX package's
 ``save_checkpoint``.
+
+The forward is a :class:`~stgcn_tpu_torch.training.graphs.CapturedStep`:
+on a CUDA device one CUDA graph per ``(padded batch, T)`` bucket, as the
+JAX ``Predictor`` compiles one program per bucket, which ``warmup()``
+captures ahead of the first request; eager on the CPU or with
+``capture=False``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from stgcn_tpu_torch.graph.skeleton import label_number_to_name
 from stgcn_tpu_torch.models.convert import state_dict_from_params
 from stgcn_tpu_torch.models.fused import fused_eval_forward
 from stgcn_tpu_torch.models.stgcn import STGCN, STGCNConfig
+from stgcn_tpu_torch.training.graphs import CapturedStep
 
 BATCH_PADS = ("max", "pow2", "none")
 
@@ -70,12 +77,16 @@ class Predictor:
     returns the whole answer (``parallel/fused_dp.fused_eval_forward_dp``).
     ``max_batch`` must divide by the data axis and ``batch_pad`` must be
     ``"max"``, so every batch does.
+
+    ``capture``: the forward's graphs (module docstring; None captures on
+    CUDA, False runs eagerly).
     """
 
     def __init__(self, model: STGCN, buckets: tuple[int, ...] | None = None,
                  max_batch: int = 64, batch_pad: str = "max",
                  use_fused: bool = True,
-                 device: str | torch.device | None = None, mesh=None):
+                 device: str | torch.device | None = None, mesh=None,
+                 capture: bool | None = None):
         if batch_pad not in BATCH_PADS:
             raise ValueError(f"batch_pad must be max|pow2|none, "
                              f"got {batch_pad!r}")
@@ -103,6 +114,15 @@ class Predictor:
         cd = model.config.compute_dtype
         self._transfer_dtype = (torch.bfloat16 if cd == torch.bfloat16
                                 else torch.float32)
+        eager = None
+        if mesh is not None and use_fused:
+            from stgcn_tpu_torch.parallel.fused_dp import mesh_eager_reason
+
+            eager = mesh_eager_reason(mesh)
+        self._step = CapturedStep(
+            _forward_body(use_fused, mesh),
+            state_tensors=lambda m: [*m.parameters(), *m.buffers()],
+            capture=capture, eager_reason=eager, name="serving forward")
 
     @classmethod
     def from_state_dict(cls, state_dict: dict, config: STGCNConfig,
@@ -147,27 +167,10 @@ class Predictor:
         return min(p, self.max_batch)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Softmax probabilities of a batch on the device: a static
+        tensor, overwritten by the next batch of the same bucket."""
         with torch.inference_mode():
-            if self.use_fused and self.mesh is not None:
-                from stgcn_tpu_torch.parallel.fused_dp import (
-                    fused_eval_forward_dp,
-                )
-
-                dp = self.mesh.shape["data"]
-                if x.shape[0] % dp:
-                    raise ValueError(
-                        f"batch {x.shape[0]} not divisible by data axis "
-                        f"{dp}")
-                local = x.chunk(dp)[self.mesh.index("data")]
-                logits = fused_eval_forward_dp(
-                    self.model, *self.model.params_and_state(), local,
-                    self.mesh)
-            elif self.use_fused:
-                logits = fused_eval_forward(
-                    self.model, *self.model.params_and_state(), x)
-            else:
-                logits = self.model(x)
-            return torch.softmax(logits, dim=-1)
+            return self._step(self.model, x)
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(np.ascontiguousarray(x, np.float32))
@@ -178,7 +181,9 @@ class Predictor:
 
     def predict_batch(self, x: np.ndarray) -> np.ndarray:
         """``(N, T, V, C)`` -> ``(N, classes)`` float32 probabilities."""
-        return self._forward(self._to_device(x)).float().cpu().numpy()
+        probs = self._forward(self._to_device(x))
+        # a copy: the forward's output is overwritten by its next call
+        return probs.to("cpu", torch.float32, copy=True).numpy()
 
     def predict_stream(self, batches: Iterable[np.ndarray],
                        depth: int = 2) -> Iterator[np.ndarray]:
@@ -188,8 +193,11 @@ class Predictor:
         pinned host memory and computed asynchronously on the current
         stream, and its result is copied back into pinned memory without
         blocking, so batch ``i+1``'s copy and compute overlap batch ``i``'s
-        readback.  Yields float32 probability arrays in input order, the
-        same values ``predict_batch`` gives.
+        readback.  The copy back is issued on the same stream right after
+        the forward, so the next batch of the same bucket, which
+        overwrites the forward's static output, runs after it.  Yields
+        float32 probability arrays in input order, the same values
+        ``predict_batch`` gives.
         """
         inflight: deque = deque()
         for x in batches:
@@ -204,7 +212,7 @@ class Predictor:
                 done.record()
                 inflight.append((host, done))
             else:
-                inflight.append((probs, None))
+                inflight.append((probs.clone(), None))
         while inflight:
             yield _finish(inflight.popleft())
 
@@ -249,13 +257,45 @@ class Predictor:
         return Prediction(probs=probs, labels=labels, label_names=names)
 
     def warmup(self, batch: int | None = None) -> None:
-        """Run every bucket once at ``batch`` (default ``max_batch``), which
-        also builds the kernel library on its first use."""
+        """Run every bucket at ``batch`` (default ``max_batch``) until its
+        graph is captured (twice on a CUDA device: the warm-up, which also
+        builds the kernel library on its first use, then the capture;
+        once where the forward runs eagerly)."""
         b = batch or self.max_batch
         c = self.model.config.c_in
         v = self.model.num_joints
         for t in self.buckets:
-            self.predict_batch(np.zeros((b, t, v, c), np.float32))
+            x = np.zeros((b, t, v, c), np.float32)
+            self.predict_batch(x)
+            if self._step.captured:
+                self.predict_batch(x)
+
+
+def _forward_body(use_fused: bool, mesh):
+    """The serving forward's device work: fused (per rank on a mesh) or
+    the op path, then the softmax.  A function of its own, not a method,
+    so that the captured step holds no reference back to its
+    ``Predictor``."""
+    def body(model: STGCN, x: torch.Tensor, *, generator=None
+             ) -> torch.Tensor:
+        if use_fused and mesh is not None:
+            from stgcn_tpu_torch.parallel.fused_dp import (
+                fused_eval_forward_dp,
+            )
+
+            dp = mesh.shape["data"]
+            if x.shape[0] % dp:
+                raise ValueError(
+                    f"batch {x.shape[0]} not divisible by data axis {dp}")
+            local = x.chunk(dp)[mesh.index("data")]
+            logits = fused_eval_forward_dp(
+                model, *model.params_and_state(), local, mesh)
+        elif use_fused:
+            logits = fused_eval_forward(model, *model.params_and_state(), x)
+        else:
+            logits = model(x)
+        return torch.softmax(logits, dim=-1)
+    return body
 
 
 def _finish(item) -> np.ndarray:

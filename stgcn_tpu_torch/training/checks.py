@@ -2,9 +2,10 @@
 ``stgcn_tpu/training/checks.py``).
 
 The JAX package asserts its invariants inside the jitted step with
-``checkify``; the port's step is eager, so the checks are explicit tests
-between the stages of the step, each raising :class:`InvariantError` with
-a message that names it:
+``checkify``; the port's checked step runs eagerly, never captured in a
+CUDA graph (each check reads a value back to the host), so the checks are
+explicit tests between the stages of the step, each raising
+:class:`InvariantError` with a message that names it:
 
 * labels are within ``[0, num_classes)`` (an out-of-range label makes the
   cross-entropy gather garbage), before the forward;

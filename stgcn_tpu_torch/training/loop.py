@@ -3,8 +3,10 @@
 
 One train step does the forward, the float32 cross-entropy, the backward and
 the optimizer update, and returns the loss and accuracy.  The JAX step is one
-jitted function; this one runs eagerly (capturing it in a CUDA graph is not
-ported yet).
+jitted function; this one is a :class:`~stgcn_tpu_torch.training.graphs.
+CapturedStep`, captured in a CUDA graph per input signature on a CUDA device
+and replayed, eager on the CPU or with ``capture=False``.  Its outputs are
+static tensors that its next call overwrites.
 
 :class:`Trainer` is the host-side epoch loop around the steps: evaluation,
 early stopping on ``val_loss``, CSV/TensorBoard logging and checkpoints
@@ -27,6 +29,7 @@ import torch
 
 from stgcn_tpu_torch import resolve_device
 from stgcn_tpu_torch.training import metrics as M
+from stgcn_tpu_torch.training.graphs import CapturedStep
 from stgcn_tpu_torch.training.checkpoint import (
     checkpoint_metadata,
     latest_checkpoint,
@@ -36,22 +39,28 @@ from stgcn_tpu_torch.training.checkpoint import (
 from stgcn_tpu_torch.training.optimizers import adam
 from stgcn_tpu_torch.training.train_state import (
     TrainState,
+    copy_state_,
     create_train_state,
     step_generator,
+    step_key,
 )
+
+REMAT_EAGER = ("remat restores the dropout generator's state for the "
+               "recompute, which a capture cannot")
 
 
 def forward_backward(model, ts: TrainState, x: torch.Tensor,
-                     y: torch.Tensor, time_mask: torch.Tensor | None = None):
+                     y: torch.Tensor, time_mask: torch.Tensor | None = None,
+                     generator: torch.Generator | None = None):
     """The forward, loss and backward of one train step, before the
     update: ``(loss, logits, new_model_state)``, each parameter leaf's
-    ``.grad`` holding the step's gradient."""
-    gen = None
-    if model.config.dropout_rate > 0:
-        gen = step_generator(ts.seed, ts.step, x.device)
+    ``.grad`` holding the step's gradient; ``generator`` draws the
+    dropout masks (by default a new one seeded for ``ts.step``)."""
+    if generator is None:
+        generator = dropout_generator(model, ts, x.device)
     ts.optimizer.zero_grad(set_to_none=True)
     logits, new_state = model.apply(ts.params, ts.model_state, x,
-                                    train=True, generator=gen,
+                                    train=True, generator=generator,
                                     time_mask=time_mask)
     loss = M.cross_entropy(logits, y)
     loss.backward()
@@ -59,15 +68,40 @@ def forward_backward(model, ts: TrainState, x: torch.Tensor,
 
 
 def apply_update(ts: TrainState, loss, logits, new_state, y) -> dict:
-    """The optimizer update of a step :func:`forward_backward` ran; returns
-    its metrics."""
+    """The optimizer update and the new BN statistics of a step
+    :func:`forward_backward` ran, eagerly; returns its metrics."""
     ts.optimizer.step()
-    ts.model_state = new_state
+    copy_state_(ts.model_state, new_state)
     ts.step += 1
     return {"loss": loss.detach(), "acc": M.accuracy(logits.detach(), y)}
 
 
-def make_train_step(model, *, use_time_mask: bool = False) -> Callable:
+def dropout_generator(model, ts: TrainState, device: torch.device):
+    """The generator of an eager step's dropout masks, or None without
+    dropout."""
+    if model.config.dropout_rate > 0:
+        return step_generator(ts.seed, ts.step, device)
+    return None
+
+
+def begin_train_step(model, shard: tuple[int, ...] = ()) -> Callable:
+    """A train step's host work before the device's: the optimizer's count
+    and scalars; returns the step's dropout seed (None without
+    dropout)."""
+    def before(ts: TrainState) -> int | None:
+        ts.optimizer.begin_step()
+        if model.config.dropout_rate > 0:
+            return step_key(ts.seed, ts.step, shard)
+        return None
+    return before
+
+
+def end_train_step(ts: TrainState) -> None:
+    ts.step += 1
+
+
+def make_train_step(model, *, use_time_mask: bool = False,
+                    capture: bool | None = None) -> CapturedStep:
     """``step(ts, x, y, time_mask=None) -> {"loss", "acc"}``.
 
     With ``use_time_mask`` the step passes an ``(N, T)`` validity mask to
@@ -76,36 +110,53 @@ def make_train_step(model, *, use_time_mask: bool = False) -> Callable:
 
     Updates ``ts`` in place: its parameters (by ``ts.optimizer``, which
     ``create_train_state`` built, so unlike the JAX step this one takes no
-    optimizer), ``model_state`` (the new BN running statistics) and
-    ``step``.  After a step each parameter leaf's ``.grad`` holds that
-    step's gradient.
+    optimizer), ``model_state`` (the new BN running statistics, written
+    into its tensors) and ``step``.  After a step each parameter leaf's
+    ``.grad`` holds that step's gradient.  ``capture``: see
+    :class:`CapturedStep`; a ``remat`` model runs eagerly.
     """
 
-    def step(ts: TrainState, x: torch.Tensor, y: torch.Tensor,
-             time_mask: torch.Tensor | None = None) -> dict:
-        out = forward_backward(model, ts, x, y,
-                               time_mask if use_time_mask else None)
-        return apply_update(ts, *out, y)
+    def body(ts: TrainState, x, y, time_mask=None, *, generator=None):
+        loss, logits, new_state = forward_backward(
+            model, ts, x, y, time_mask if use_time_mask else None,
+            generator)
+        ts.optimizer.update()
+        copy_state_(ts.model_state, new_state)
+        return {"loss": loss.detach(), "acc": M.accuracy(logits.detach(), y)}
 
-    return step
+    return CapturedStep(
+        body, state_tensors=lambda ts: ts.tensors() + list(model.buffers()),
+        before=begin_train_step(model), after=end_train_step,
+        capture=capture,
+        eager_reason=REMAT_EAGER if model.config.remat else None,
+        name="train step")
 
 
-def make_eval_step(model) -> Callable:
+def make_eval_step(model, *, capture: bool | None = None) -> CapturedStep:
     """``step(ts, x, y) -> {"loss_sum", "correct", "count", "cm"}``, the
-    per-batch sums of the eval loop, from the running statistics."""
+    per-batch sums of the eval loop, from the running statistics
+    (static tensors, see :class:`CapturedStep`)."""
     num_classes = model.config.num_classes
 
     @torch.no_grad()
-    def step(ts: TrainState, x: torch.Tensor, y: torch.Tensor) -> dict:
+    def body(ts: TrainState, x, y, *, generator=None) -> dict:
         logits, _ = model.apply(ts.params, ts.model_state, x, train=False)
-        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        nll = -logp.gather(-1, y[:, None].long())[:, 0]
-        return {"loss_sum": nll.sum(),
-                "correct": (logits.argmax(dim=-1) == y).sum(),
-                "count": torch.tensor(y.shape[0], device=x.device),
-                "cm": M.confusion_matrix(logits, y, num_classes)}
+        return eval_sums(logits, y, num_classes)
 
-    return step
+    return CapturedStep(
+        body, state_tensors=lambda ts: ts.tensors() + list(model.buffers()),
+        capture=capture, name="eval step")
+
+
+def eval_sums(logits, y, num_classes) -> dict:
+    """The eval step's sums of one batch's logits and labels."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -logp.gather(-1, y[:, None].long())[:, 0]
+    return {"loss_sum": nll.sum(),
+            "correct": (logits.argmax(dim=-1) == y).sum(),
+            "count": torch.full((), y.shape[0], dtype=torch.int64,
+                                device=logits.device),
+            "cm": M.confusion_matrix(logits, y, num_classes)}
 
 
 @dataclass
@@ -141,10 +192,13 @@ class Trainer:
 
     ``optimizer``: an optimizer factory such as ``make_optimizer(cfg)``
     (``adam(lr)`` when None).  ``device``: where the state and batches live,
-    CUDA unless ``"cpu"`` is asked for.  ``check_invariants`` runs
-    :func:`~stgcn_tpu_torch.training.checks.make_checked_train_step`;
-    ``debug_nans`` turns on autograd's anomaly detection for the duration
-    of :meth:`fit`.
+    CUDA unless ``"cpu"`` is asked for.  The steps are captured in CUDA
+    graphs there (:func:`make_train_step`), apart from these, which run
+    eagerly: ``check_invariants`` runs
+    :func:`~stgcn_tpu_torch.training.checks.make_checked_train_step`, which
+    reads values back between its stages; ``debug_nans`` turns on
+    autograd's anomaly detection for the duration of :meth:`fit`, which
+    checks each backward op's output on the host.
 
     ``mesh`` (a :class:`stgcn_tpu_torch.parallel.mesh.Mesh`) runs the
     sharded steps of :mod:`stgcn_tpu_torch.parallel.train` on this rank's
@@ -189,6 +243,13 @@ class Trainer:
         self.shard_joints = shard_joints
         self.device = mesh.device if mesh is not None else \
             resolve_device(device)
+        eager = ("check_invariants reads values back between the step's "
+                 "stages" if check_invariants else
+                 "debug_nans checks every backward op on the host"
+                 if debug_nans else None)
+        if eager and self.device.type == "cuda":
+            print(f"[graph] train step runs eagerly: {eager}", flush=True)
+        self._capture = False if debug_nans else None
         if mesh is not None:
             # built in init_state, as the JAX Trainer builds its
             self.train_step = self.eval_step = None
@@ -198,7 +259,7 @@ class Trainer:
             )
             self.train_step = make_checked_train_step(model)
         else:
-            self.train_step = make_train_step(model)
+            self.train_step = make_train_step(model, capture=self._capture)
         if mesh is None:
             self.eval_step = make_eval_step(model)
 
@@ -214,7 +275,8 @@ class Trainer:
             shard_joints=self.shard_joints)
         if self.train_step is None:
             self.train_step = ptrain.make_sharded_train_step(
-                self.model, self.mesh, shard_joints=self.shard_joints)
+                self.model, self.mesh, shard_joints=self.shard_joints,
+                capture=self._capture)
             self.eval_step = ptrain.make_sharded_eval_step(
                 self.model, self.mesh, shard_joints=self.shard_joints)
         return state
@@ -258,8 +320,9 @@ class Trainer:
         for x, y, _lens in data:
             out = self.eval_step(state, *self._put_batch(x, y))
             out["loss_sum"] = out["loss_sum"].double()
-            sums = out if sums is None else {k: sums[k] + v
-                                             for k, v in out.items()}
+            # the step's outputs are overwritten by its next call
+            sums = ({k: v.clone() for k, v in out.items()} if sums is None
+                    else {k: sums[k] + v for k, v in out.items()})
         if sums is None:
             return {"loss": 0.0, "acc": 0.0, "confusion_matrix": None,
                     "count": 0}
@@ -299,20 +362,22 @@ class Trainer:
         try:
             for epoch in range(start_epoch, epochs):
                 t0 = time.time()
-                losses, accs = [], []
+                metrics = []
                 for x, y, _lens in train_data(epoch):
                     m = self.train_step(state, *self._put_batch(x, y))
                     step_i += 1
-                    losses.append(m["loss"])
-                    accs.append(m["acc"])
+                    # a copy on the device: the step's outputs are
+                    # overwritten by its next call
+                    metrics.append(torch.stack([m["loss"], m["acc"]]))
                     if self.logger and step_i % self.log_every_steps == 0:
                         self.logger.log_dict(
                             {"step_loss": float(m["loss"]),
                              "step_acc": float(m["acc"])}, step_i)
 
                 # one device-to-host fetch an epoch
-                losses = torch.stack(losses).tolist() if losses else []
-                accs = torch.stack(accs).tolist() if accs else []
+                pairs = torch.stack(metrics).tolist() if metrics else []
+                losses = [loss for loss, _ in pairs]
+                accs = [acc for _, acc in pairs]
                 epoch_metrics = {
                     "train_loss": float(np.mean(losses)) if losses else 0.0,
                     "train_acc": float(np.mean(accs)) if accs else 0.0,

@@ -220,28 +220,96 @@ def make_optimizer(cfg) -> OptimizerSpec:
 
 class OptaxOptimizer(torch.optim.Optimizer):
     """The update of an :class:`OptimizerSpec` on a list of leaves; the
-    gradient of a leaf without ``.grad`` counts as zeros, as in optax."""
+    gradient of a leaf without ``.grad`` counts as zeros, as in optax.
+
+    :meth:`step` is :meth:`begin_step`, the host's part (the count, the
+    schedule's value and Adam's bias corrections, computed as Python
+    floats, and the moments made where they are missing), then
+    :meth:`update`, the device's part.  The update reads the per-step
+    scalars from 0-d tensors on the leaves' device, which
+    :meth:`begin_step` fills, so a CUDA graph that captured
+    :meth:`update` replays each step's values
+    (:mod:`stgcn_tpu_torch.training.graphs`)."""
 
     def __init__(self, leaves: list[torch.Tensor], spec: OptimizerSpec):
         super().__init__(list(leaves), {})
         self.spec = spec
         self.count = 0          # updates taken
+        self._host: dict[str, float] = {}
+        self._scalars: dict[str, torch.Tensor] = {}
+
+    def _params(self) -> list[torch.Tensor]:
+        return [p for group in self.param_groups for p in group["params"]]
+
+    def step(self, closure=None):
+        self.begin_step()
+        self.update()
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def begin_step(self) -> None:
+        """Advance the count and set this update's scalars: ``lr`` (the
+        schedule at the count before the update, after it for
+        ``flat_adam``), and for the Adams ``bc1``, ``bc2`` (``1 - b^t``,
+        ``t`` the count after the update; float32 arithmetic for
+        ``flat_adam``, as ``jnp.power`` of float32 operands) and each
+        leaf's ``step``."""
         spec = self.spec
-        params = [p for group in self.param_groups for p in group["params"]]
+        params = self._params()
+        host = {"lr": spec.lr(self.count)}
+        self.count += 1
+        t = self.count
+        if spec.name == "flat_adam":
+            host["bc1"], host["bc2"] = (float(np.float32(1.0) - np.power(
+                np.float32(b), np.float32(t))) for b in (spec.b1, spec.b2))
+        elif spec.name in _ADAMS:
+            host["bc1"], host["bc2"] = 1 - spec.b1 ** t, 1 - spec.b2 ** t
+        step = torch.tensor(float(t), dtype=torch.float32)
+        for p in params:
+            st = self.state[p]
+            if spec.name in _ADAMS:
+                if "exp_avg" not in st:
+                    dt = torch.float32 if spec.name == "flat_adam" else None
+                    st["exp_avg"] = torch.zeros_like(p, dtype=dt)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=dt)
+                st["step"] = step
+            elif spec.name == "momentum" and "momentum_buffer" not in st:
+                st["momentum_buffer"] = torch.zeros_like(p)
+        host["neg_lr"] = -host["lr"]
+        if not self._scalars and params:
+            # the arithmetic type of the update: float64 leaves take the
+            # values whole, as the Python floats did; flat_adam computes
+            # in float32
+            wide = (spec.name != "flat_adam"
+                    and params[0].dtype == torch.float64)
+            self._scalars = {k: torch.zeros(
+                (), dtype=torch.float64 if wide else torch.float32,
+                device=params[0].device) for k in host}
+        for k, v in host.items():
+            self._scalars[k].fill_(v)
+        self._host = host
+
+    def state_tensors(self) -> list[torch.Tensor]:
+        """The device tensors :meth:`update` reads and writes besides the
+        leaves and their gradients: the moments and the per-step
+        scalars."""
+        keys = ("exp_avg", "exp_avg_sq", "momentum_buffer")
+        return [st[k] for st in self.state.values() for k in keys
+                if k in st] + list(self._scalars.values())
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """The update of the scalars :meth:`begin_step` set, in place."""
+        spec, sc = self.spec, self._scalars
+        params = self._params()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
         if spec.clip_norm > 0:
             grads = _clip_by_global_norm(grads, spec.clip_norm)
-        lr = spec.lr(self.count)
-        self.count += 1
         if spec.name == "flat_adam":
             # -lr * mu_hat / (sqrt(nu_hat) + eps), in that order, float32
             mu_hat, denom = self._adam(params, grads)
-            updates = torch._foreach_div(torch._foreach_mul(mu_hat, -lr),
-                                         denom)
+            updates = torch._foreach_div(
+                torch._foreach_mul(mu_hat, sc["neg_lr"]), denom)
             torch._foreach_add_(params, [u.to(p.dtype) for u, p
                                          in zip(updates, params)])
             return
@@ -250,45 +318,43 @@ class OptaxOptimizer(torch.optim.Optimizer):
             if spec.name == "adamw":
                 torch._foreach_add_(updates, params, alpha=spec.weight_decay)
         elif spec.name == "momentum":
-            trace = [self.state[p].setdefault(
-                "momentum_buffer", torch.zeros_like(p)) for p in params]
+            trace = [self.state[p]["momentum_buffer"] for p in params]
             torch._foreach_mul_(trace, spec.momentum)
             torch._foreach_add_(trace, grads)
             updates = trace
         else:
             updates = grads
-        torch._foreach_add_(params, updates, alpha=-lr)
+        _add_scaled_(params, updates, sc["neg_lr"], self._host["neg_lr"])
 
     def _adam(self, params, grads):
         """Moments updated in place; returns ``mu_hat`` and
         ``sqrt(nu_hat) + eps``, the bias-corrected moments."""
-        spec, t = self.spec, self.count
-        flat = spec.name == "flat_adam"
-        if flat:
+        spec, sc = self.spec, self._scalars
+        if spec.name == "flat_adam":
             grads = [g.to(torch.float32) for g in grads]
-            # jnp.power(b1, c) of float32 operands
-            bc1, bc2 = (float(np.float32(1.0) - np.power(
-                np.float32(b), np.float32(t))) for b in (spec.b1, spec.b2))
-        else:
-            bc1, bc2 = 1 - spec.b1 ** t, 1 - spec.b2 ** t
-        step = torch.tensor(float(t), dtype=torch.float32)
-        mu, nu = [], []
-        for p, g in zip(params, grads):
-            st = self.state[p]
-            if "exp_avg" not in st:
-                st["exp_avg"] = torch.zeros_like(g)
-                st["exp_avg_sq"] = torch.zeros_like(g)
-            st["step"] = step
-            mu.append(st["exp_avg"])
-            nu.append(st["exp_avg_sq"])
+        mu = [self.state[p]["exp_avg"] for p in params]
+        nu = [self.state[p]["exp_avg_sq"] for p in params]
         torch._foreach_mul_(mu, spec.b1)
         torch._foreach_add_(mu, grads, alpha=1 - spec.b1)
         torch._foreach_mul_(nu, spec.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1 - spec.b2)
-        mu_hat = torch._foreach_div(mu, bc1)
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        mu_hat = torch._foreach_div(mu, sc["bc1"])
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, sc["bc2"]))
         torch._foreach_add_(denom, spec.eps)
         return mu_hat, denom
+
+
+def _add_scaled_(params, updates, scale: torch.Tensor, host_scale: float
+                 ) -> None:
+    """``params += scale * updates``.  On the CPU one add with the host's
+    float as ``alpha`` (a fused multiply-add there, the rounding every
+    update had before the scalars moved to the device); elsewhere the
+    multiply reads ``scale`` from the device, so a captured graph replays
+    each step's value."""
+    if params and params[0].device.type == "cpu":
+        torch._foreach_add_(params, updates, alpha=host_scale)
+    else:
+        torch._foreach_add_(params, torch._foreach_mul(updates, scale))
 
 
 def _clip_by_global_norm(grads: list[torch.Tensor], max_norm: float

@@ -7,11 +7,9 @@
   the train CLI's ``--train.profile_dir``;
 * :class:`ModelFlops`: analytic operation and edge counts per step, for the
   CLI's ``[perf]`` line;
-* :func:`param_table`: a listing of the parameter dictionaries.
-
-The JAX package's ``dump_computation`` (jaxpr and HLO text) has no
-counterpart: the nearest is the graph of the ``pt2`` program that
-``python -m stgcn_tpu_torch.cli.export --format pt2`` writes.
+* :func:`param_table`: a listing of the parameter dictionaries;
+* :func:`dump_computation`: the inspectable computation, the traced
+  program and the captured CUDA graph of a function.
 """
 
 from __future__ import annotations
@@ -19,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+from typing import Callable
 
 import torch
 
@@ -102,3 +101,55 @@ def param_table(params) -> str:
         lines.append(f"{name:60s} {str(tuple(leaf.shape)):>20s} {n:>10,d}")
     lines.append(f"{'TOTAL':60s} {'':>20s} {total:>10,d}")
     return "\n".join(lines)
+
+
+class _Function(torch.nn.Module):
+    """A function of tensors as a module, for ``torch.export``."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def dump_computation(fn: Callable, args: tuple, path_base: str
+                     ) -> tuple[str, str]:
+    """Write the traced and the compiled program of ``fn(*args)`` (port of
+    ``stgcn_tpu/utils/profiling.py:76-92``, which writes the jaxpr and the
+    optimized HLO) and return the two paths:
+
+    * ``path_base + ".export.txt"``: the ``torch.export`` graph of ``fn``
+      (non-strict, no gradients), every aten op it runs, the counterpart of
+      the jaxpr;
+    * ``path_base + ".cudagraph.txt"``: on a CUDA device, the CUDA graph of
+      one call of ``fn`` (after an eager warm-up on the capture's stream),
+      dumped by ``CUDAGraph.debug_dump`` as DOT text with a node for every
+      kernel launch and copy, the counterpart of the optimized HLO; on the
+      CPU, where nothing is captured, a line that says so.
+    """
+    traced_path = path_base + ".export.txt"
+    graph_path = path_base + ".cudagraph.txt"
+    with torch.no_grad():
+        program = torch.export.export(_Function(fn), tuple(args),
+                                      strict=False)
+    with open(traced_path, "w") as f:
+        f.write(program.graph_module.print_readable(print_output=False))
+    device = next((a.device for a in args if torch.is_tensor(a)), None)
+    if device is None or device.type != "cuda":
+        with open(graph_path, "w") as f:
+            f.write(f"no CUDA graph: fn ran on {device}, and only a CUDA "
+                    "device captures one\n")
+        return traced_path, graph_path
+    stream = torch.cuda.Stream(device=device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.no_grad():
+        with torch.cuda.stream(stream):
+            fn(*args)                   # warm-up: builds, allocates
+        graph = torch.cuda.CUDAGraph()
+        graph.enable_debug_mode()
+        with torch.cuda.graph(graph, stream=stream):
+            fn(*args)
+    graph.debug_dump(graph_path)
+    return traced_path, graph_path

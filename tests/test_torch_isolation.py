@@ -3,7 +3,7 @@
 The GPU machine the port runs on has torch, numpy, scipy, einops, pytest and
 hypothesis, and no jax, jaxlib, pandas, ml_dtypes or optax.  A subprocess
 recreates that with an import hook, serves a prediction, takes one hybrid
-train step, saves and restores a checkpoint, runs an eval step, serves
+train step (through ``training/graphs.CapturedStep``, eager on the CPU), saves and restores a checkpoint, runs an eval step, serves
 from the checkpoint and takes one sharded step of
 ``stgcn_tpu_torch.parallel`` on a one-rank gloo mesh on the CPU; a second one imports ``stgcn_tpu_torch.data``
 and runs the training CLI for one synthetic epoch on the CPU, TensorBoard
@@ -80,8 +80,13 @@ SCRIPT = HOOK + textwrap.dedent("""
     train_model = STGCN(cfg)
     ts = create_train_state(train_model, adam(1e-3), device="cpu")
     x = torch.from_numpy(rng.normal(0, 1, (2, 16, 25, 2)).astype(np.float32))
-    metrics = make_train_step(train_model)(ts, x, torch.tensor([1, 4]))
+    step = make_train_step(train_model)
+    metrics = step(ts, x, torch.tensor([1, 4]))
     assert bool(torch.isfinite(metrics["loss"])), metrics
+    # the captured step's module, eager on the CPU
+    import stgcn_tpu_torch.training.graphs as graphs
+    assert isinstance(step, graphs.CapturedStep) and not step.captured
+    assert step.signatures == 1 and step.cache_size == 0
 
     import tempfile
     from stgcn_tpu_torch.training import checkpoint
