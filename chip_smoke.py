@@ -248,8 +248,25 @@ non-zero exit code:
                    graphs and peak memory are reported.  In phase 20 the
                    one-rank NCCL ``Trainer(mesh)`` step captured (its BN
                    and gradient all-reduces in the graph) bitwise the
-                   captured unsharded step (bf16, dropout 0), both timed
-                   captured and eager in turns.
+                   captured unsharded step (bf16, dropout 0), a replay's
+                   collective counts (``parallel/collectives.COUNTS``)
+                   equal to an eager step's, both timed captured and
+                   eager in turns.
+22. bench_tools -- the measurement tools (run after 21, before 20), each
+                   through its entry point: ``bench_torch.main`` in this
+                   process, its one JSON line with ``bench.py``'s keys,
+                   finite, its fused step ms within 10% of phase 21's
+                   captured fused step, the kernels launched exactly
+                   (8/2/10 a train step, 10 ``block_eval`` a forward);
+                   ``scripts/torch_serving_bench.py`` at batches 1 and 64;
+                   ``scripts/torch_scaling_bench.py --cuda`` at B=64 (op
+                   path and fused, captured, edges/s); and
+                   ``scripts/torch_strategy_table.py --only distance
+                   --epochs 2 --block-impl fused`` as a process of its
+                   own: rc 0, finite losses, a parsed test accuracy.
+                   ``--parallel-cards`` adds ``torch_scaling_bench.py
+                   --cards N`` (strong and weak data=1, 2, 4) and
+                   ``--collectives --production`` on data=N.
 19. kernels     -- one line per kernel with its launches, error, times and
                    bound (block_eval's also with its ``split_ms``).
 
@@ -3273,6 +3290,224 @@ def graph_phase(smi: str, dev, cases=None, serving: bool = True) -> dict:
     return results
 
 
+# ---- 22. bench_tools: the measurement tools -------------------------------
+# bench.py's keys, the one JSON line of bench_torch.py too
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline",
+              "b128_sequences_per_s", "b128_vs_baseline",
+              "eval_forward_ms_fused", "serving_serial_seq_per_s",
+              "serving_pipelined_seq_per_s")
+# bench_torch's fused step against phase 21's captured fused step, the
+# same step timed over 20 steps on the host's clock against 3 by CUDA
+# events: the step is device-bound (idle under 2%, PERF.md section 5), so
+# within 10%
+BENCH_STEP_REL = 0.10
+STRATEGY_TIMEOUT_S = 300
+# each --parallel-cards tool; above the tool's own RANK_TIMEOUT_S, after
+# which it kills its ranks itself
+TOOL_TIMEOUT_S = 420
+
+
+def scripts_on_path() -> Path:
+    """The repo root and its scripts/ on ``sys.path``; returns the
+    root."""
+    root = Path(__file__).resolve().parent
+    for p in (root, root / "scripts"):
+        if str(p) not in sys.path:
+            sys.path.insert(0, str(p))
+    return root
+
+
+def call_main(main, argv: list[str]) -> tuple[int, str, str]:
+    """A tool's ``main(argv)`` in this process: its exit code, stdout and
+    stderr."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def json_lines(text: str) -> list[dict]:
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+
+
+def finite(*values) -> bool:
+    return all(isinstance(v, (int, float)) and np.isfinite(v) and v > 0
+               for v in values)
+
+
+def bench_tools_phase(smi: str, graph_results: dict, tmp: str) -> None:
+    """Phase 22 (module docstring); fails on any check."""
+    bench_torch_check(smi, graph_results["fused"]["step_ms"]["captured"])
+    memory_checkpoint("torch_serving_bench")
+    serving_bench_check(smi, tmp)
+    memory_checkpoint("torch_scaling_bench")
+    scaling_bench_check(smi)
+    memory_checkpoint("torch_strategy_table")
+    strategy_row_check(smi, tmp)
+
+
+def bench_torch_check(smi: str, graph_ms: float) -> None:
+    """``bench_torch.main`` in this process, the kernels' counts read
+    around it."""
+    from stgcn_tpu_torch.kernels.block_eval import block_eval
+
+    scripts_on_path()
+    import bench_torch
+
+    counters = {**fused_counters(), "block_eval": block_eval}
+    reset(counters)
+    start = time.perf_counter()
+    rc, out, err = call_main(bench_torch.main, [])
+    seconds = time.perf_counter() - start
+    launches = read(counters)
+    line = json_lines(out)[-1]
+    ms = {k: float(v) for k, v in re.findall(r" (\w+_ms)=([\d.]+)", err)}
+    # every train case takes 2 + STEPS steps (a warm-up and a capture
+    # first), the fused B=64 captured and eager and the B=128; every
+    # forward launches 10 block_eval: the device-resident one's 2 warm +
+    # 20 timed calls, the Predictor's 2 warm-up calls, its untimed round
+    # and its timed rounds, each serial and pipelined
+    steps = 3 * (2 + bench_torch.STEPS)
+    forwards = (2 + bench_torch.FORWARD_REPS + 2 + 2 * (
+        1 + bench_torch.SERVE_ROUNDS) * bench_torch.SERVE_BATCHES)
+    want = {"spatial_block.forward": 8 * steps,
+            "spatial_block.backward": 8 * steps,
+            "spatial_block_save.forward": 2 * steps,
+            "spatial_block_save.backward": 2 * steps,
+            "temporal_block.forward": 10 * steps,
+            "temporal_block.backward": 10 * steps,
+            "block_eval": 10 * forwards}
+    ok = (rc == 0 and tuple(line) == BENCH_KEYS
+          and line["metric"] == "train_throughput_stgcn10_b64_t304_bf16"
+          and finite(*(line[k] for k in BENCH_KEYS[1:] if k != "unit"))
+          and "captured=True" in err
+          and abs(ms["step_ms"] - graph_ms) <= BENCH_STEP_REL * graph_ms
+          and launches == want)
+    emit("bench_tools", tool="bench_torch.py", rc=rc, line=line,
+         stderr=err.strip().splitlines()[-1], step_ms=ms,
+         graph_captured_fused_step_ms=graph_ms,
+         step_vs_graph=ms["step_ms"] / graph_ms, launches=launches,
+         expected_launches=want, seconds=seconds, nvidia_smi=smi, ok=ok)
+    if not ok:
+        raise AssertionError(
+            f"bench_torch.py: rc {rc}, keys {list(line)}, step "
+            f"{ms.get('step_ms')} ms against phase graph's {graph_ms}, "
+            f"launches {launches} against {want}:\n{err[-2000:]}")
+
+
+def serving_bench_check(smi: str, tmp: str) -> None:
+    """``scripts/torch_serving_bench.py`` at batches 1 and 64."""
+    scripts_on_path()
+    import torch_serving_bench
+
+    serving_out = str(Path(tmp) / "SERVING_torch.json")
+    rc, out, err = call_main(torch_serving_bench.main,
+                             ["--batches", "1,64", "--out", serving_out])
+    doc = json.loads(Path(serving_out).read_text())
+    rows = doc["results"]
+    ok = (rc == 0 and [r["batch"] for r in rows] == [1, 64]
+          and all(finite(r["p50_ms"], r["p95_ms"], r["sequences_per_s"])
+                  for r in rows)
+          and finite(doc["interleaved"]["serial_seq_per_s_median"],
+                     doc["interleaved"]["pipelined_seq_per_s_median"])
+          and [r["forward"] for r in doc["device_resident"]] ==
+          ["op_path", "fused"]
+          and all(finite(r["device_resident_p50_ms"])
+                  for r in doc["device_resident"])
+          and doc["card"] == smi)
+    emit("bench_tools", tool="scripts/torch_serving_bench.py", rc=rc,
+         results=rows, interleaved={k: v for k, v in doc[
+             "interleaved"].items() if not k.endswith("_rounds")},
+         device_resident=doc["device_resident"], nvidia_smi=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"torch_serving_bench.py: rc {rc}:\n"
+                             f"{out[-2000:]}{err[-2000:]}")
+
+
+def scaling_bench_check(smi: str) -> None:
+    """``scripts/torch_scaling_bench.py --cuda`` at B=64."""
+    scripts_on_path()
+    import torch_scaling_bench
+
+    rc, out, err = call_main(torch_scaling_bench.main,
+                             ["--cuda", "--batches", str(B)])
+    rows = json_lines(out)
+    ok = (rc == 0 and [r["block_impl"] for r in rows] == ["ops", "fused"]
+          and all(r["captured"] and r["batch"] == B
+                  and finite(r["step_ms"], r["edges_per_s"],
+                             r["train_tflops_per_s"]) for r in rows))
+    emit("bench_tools", tool="scripts/torch_scaling_bench.py --cuda",
+         rc=rc, rows=rows, nvidia_smi=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"torch_scaling_bench.py --cuda: rc {rc}:\n"
+                             f"{out[-2000:]}{err[-2000:]}")
+
+
+def strategy_row_check(smi: str, tmp: str) -> None:
+    """``scripts/torch_strategy_table.py``'s fused distance row for two
+    epochs, as a process of its own."""
+    root = scripts_on_path()
+    table_out = Path(tmp) / "STRATEGY_TABLE_torch.json"
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(root / "scripts" / "torch_strategy_table.py"),
+         "--only", "distance", "--epochs", "2", "--block-impl", "fused",
+         "--out", str(table_out)], cwd=root, capture_output=True, text=True,
+        timeout=STRATEGY_TIMEOUT_S)
+    row = (json.loads(table_out.read_text())["results"][0]
+           if table_out.exists() else {})
+    ok = (proc.returncode == 0 and row.get("rc") == 0
+          and row.get("losses_finite") and row.get("test_acc") is not None
+          and row.get("block_impl") == "fused")
+    emit("bench_tools", tool="scripts/torch_strategy_table.py", rc=(
+        proc.returncode), row={k: v for k, v in row.items() if k != "tail"},
+         seconds=time.perf_counter() - start, nvidia_smi=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"torch_strategy_table.py: rc "
+                             f"{proc.returncode}:\n{proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+
+
+def cards_tools(smi: str, n: int) -> None:
+    """Under ``--parallel-cards``: ``torch_scaling_bench.py --cards n``
+    (strong and weak data=1, 2, 4) and ``--collectives --production`` on
+    data=n, each a process of its own that starts its ranks."""
+    root = scripts_on_path()
+    script = str(root / "scripts" / "torch_scaling_bench.py")
+    for argv in (["--cards", str(n)],
+                 ["--collectives", "--production", "--mesh", f"{n},1,1"]):
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, script, *argv], cwd=root,
+                              capture_output=True, text=True,
+                              timeout=TOOL_TIMEOUT_S)
+        rows = json_lines(proc.stdout)
+        if argv[0] == "--cards":
+            sizes = [d for d in (1, 2, 4) if d <= n]
+            ok = ([(r["mode"], r["ranks"]) for r in rows] ==
+                  [(f"cards_{m}", d) for d in sizes
+                   for m in ("strong", "weak")]
+                  and all(r["captured"] and finite(r["step_ms"])
+                          for r in rows))
+        else:
+            grads = rows[0]["by_what"].get("all-reduce/gradients", {}) \
+                if rows else {}
+            ok = (len(rows) == 1 and grads.get("bytes_per_device_per_step")
+                  == 4 * rows[0]["param_count"])
+        emit("bench_tools", tool="scripts/torch_scaling_bench.py "
+             + " ".join(argv), rc=proc.returncode, rows=rows,
+             seconds=time.perf_counter() - start, nvidia_smi=smi,
+             ok=ok and proc.returncode == 0)
+        if not ok or proc.returncode:
+            raise AssertionError(
+                f"torch_scaling_bench.py {' '.join(argv)}: rc "
+                f"{proc.returncode}:\n{proc.stdout[-2000:]}"
+                f"{proc.stderr[-3000:]}")
+
+
 # ---- 20. parallel: the mesh paths of stgcn_tpu_torch.parallel ------------
 PARALLEL_STEPS = 10   # steps of the one-rank Trainer(mesh) run
 # one rank: the sharded code sums as the unsharded does, so its float32
@@ -3523,6 +3758,17 @@ def graph_mesh_case(smi: str, dev, mesh, x, y) -> None:
     dist_ = max_distance(got, want)
     captured = (steps["mesh_captured"].captured
                 and steps["unsharded_captured"].captured)
+    # the collectives a replay counts (its capture's) against an eager
+    # step's (parallel/collectives.COUNTS)
+    from stgcn_tpu_torch.parallel import collectives
+
+    counted = {}
+    for k in ("mesh_eager", "mesh_captured"):
+        collectives.reset_counts()
+        runs[k]()
+        counted[k] = {"/".join(key): list(v) for key, v in
+                      collectives.read_counts().items()}
+    counts_equal = counted["mesh_eager"] == counted["mesh_captured"] != {}
     for k in runs:
         runs[k]()
         runs[k]()
@@ -3532,10 +3778,11 @@ def graph_mesh_case(smi: str, dev, mesh, x, y) -> None:
         times[k].append(cuda_time_ms(runs[k], reps=3, warmup=0))
     step_ms = {k: float(np.mean(v)) for k, v in times.items()}
     issued = {k: issue_ms(runs[k]) for k in runs}
-    ok = captured and bitwise
+    ok = captured and bitwise and counts_equal
     emit("graph", case="one_rank_mesh", mesh=[1, 1, 1],
          backend=mesh.backend, captured=captured,
          graphs=steps["mesh_captured"].cache_size, bitwise_equal=bitwise,
+         collectives_a_step=counted, collectives_equal=counts_equal,
          max_dist=dist_, step_ms=step_ms, step_ms_turns=times,
          issue_ms=issued, batch=B, frames=T, dtype="bfloat16", dropout=0.0,
          nvidia_smi=smi, ok=ok)
@@ -3543,8 +3790,9 @@ def graph_mesh_case(smi: str, dev, mesh, x, y) -> None:
     torch.cuda.empty_cache()
     if not ok:
         raise AssertionError("the captured one-rank mesh step is not "
-                             "captured, or not bitwise the captured "
-                             "unsharded step")
+                             "captured, not bitwise the captured "
+                             "unsharded step, or counts other collectives "
+                             f"than the eager step: {counted}")
 
 
 def spawn_ranks(suite: str, backend: str, tmp: str, world: int = 2,
@@ -4044,6 +4292,9 @@ def parallel_cards_main() -> int:
         results = run_cases("nccl", tmp, world=n, cards=True)
     report_cases("parallel_cards", results, refs, "nccl", smi, n,
                  refs["step_ms"]["fused"])
+    del refs
+    memory_checkpoint("bench_tools")
+    cards_tools(smi, n)
     emit("run", run_seconds=time.perf_counter() - start, cards=n)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4356,7 +4607,12 @@ def main() -> int:
 
     memory_checkpoint("graph")
     # ---- 21. graph: the captured steps against the eager ones -------------
-    graph_phase(smi, dev)
+    graph_results = graph_phase(smi, dev)
+
+    memory_checkpoint("bench_tools")
+    # ---- 22. bench_tools: the measurement tools ---------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        bench_tools_phase(smi, graph_results, tmp)
 
     memory_checkpoint("parallel")
     # ---- 20. parallel: the mesh paths (and phase 21's mesh case) -----------

@@ -72,7 +72,8 @@ def batch_moments(x: torch.Tensor, group=None
 
         size = group_size(group)
         mean, mean_sq = all_reduce_sum(
-            torch.stack([mean, mean_sq]) * (1.0 / size), group)
+            torch.stack([mean, mean_sq]) * (1.0 / size), group,
+            "batchnorm")
         n *= size
     return mean, mean_sq - mean.square(), n
 
@@ -112,7 +113,7 @@ def batchnorm_train(params: dict, state: dict, x: torch.Tensor, *,
         params, state = channel_slice(params, state, channel_group)
         y, new = batchnorm_train(params, state, x, momentum=momentum,
                                  eps=eps, group=group)
-        return y, {k: gather_tensor(v, channel_group, 0)
+        return y, {k: gather_tensor(v, channel_group, 0, "batchnorm")
                    for k, v in new.items()}
     sd = stat_dtype(x)
     mean, var, n = batch_moments(x, group)

@@ -68,13 +68,14 @@ def global_avg_pool(x: torch.Tensor,
         pooled = x.to(acc).mean(dim=(1, 2))
         if group is None:
             return pooled
-        return all_reduce_sum(pooled * (1.0 / group_size(group)), group)
+        return all_reduce_sum(pooled * (1.0 / group_size(group)), group,
+                              "pool")
     m = time_mask[:, :, None, None].to(acc)
     total = (x.to(acc) * m).sum(dim=(1, 2))
     count = m.sum(dim=(1, 2)) * x.shape[2]
     if group is not None:
-        total = all_reduce_sum(total, group)
-        count = sum_over(count, group)
+        total = all_reduce_sum(total, group, "pool")
+        count = sum_over(count, group, "pool")
     return total / torch.clamp(count, min=1.0)
 
 

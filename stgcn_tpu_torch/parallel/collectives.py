@@ -22,12 +22,64 @@ conventions fix what a backward must do:
 
 Every function issues its collective on any group, one rank included, so
 a one-rank mesh runs the same code as a wider one.
+
+Each collective is counted where it is issued (:data:`COUNTS`), by kind
+(``all-reduce``, ``all-gather``, ``point-to-point``) and by what it moves
+(``what``: ``gradients``, ``batchnorm``, ``time_halo``, ...), as the
+kernel wrappers count their launches: a captured step adds the counts of
+its capture again at every replay (``training/graphs.py``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+
+# (kind, what) -> [collectives issued, bytes a rank]: an all-reduce's
+# buffer, an all-gather's gathered result (the shape the JAX package's
+# scripts/scaling_bench.py reads off each collective in the compiled HLO),
+# a point-to-point send's tensor
+COUNTS: dict[tuple[str, str], list[int]] = {}
+
+
+def count(kind: str, what: str, nbytes: int) -> None:
+    """Count one collective of ``kind`` moving ``nbytes`` for ``what``."""
+    entry = COUNTS.setdefault((kind, what), [0, 0])
+    entry[0] += 1
+    entry[1] += nbytes
+
+
+def reset_counts() -> None:
+    COUNTS.clear()
+
+
+def read_counts() -> dict:
+    """``{(kind, what): (count, bytes)}`` since the last reset."""
+    return {k: tuple(v) for k, v in COUNTS.items()}
+
+
+def counts_since(before: dict) -> dict:
+    """What was counted after ``before`` (a :func:`read_counts`)."""
+    grown = {}
+    for key, (n, nbytes) in read_counts().items():
+        n0, b0 = before.get(key, (0, 0))
+        if (n, nbytes) != (n0, b0):
+            grown[key] = (n - n0, nbytes - b0)
+    return grown
+
+
+def add_counts(counts: dict) -> None:
+    """Add ``{(kind, what): (count, bytes)}`` (a replay's, or a
+    :func:`read_counts` after a reset, to restore it)."""
+    for (kind, what), (n, nbytes) in counts.items():
+        entry = COUNTS.setdefault((kind, what), [0, 0])
+        entry[0] += n
+        entry[1] += nbytes
+
+
+def nbytes_of(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def group_size(group) -> int:
@@ -38,17 +90,20 @@ def group_rank(group) -> int:
     return dist.get_rank(group)
 
 
-def sum_over(t: torch.Tensor, group) -> torch.Tensor:
+def sum_over(t: torch.Tensor, group, what: str = "sum") -> torch.Tensor:
     """``t`` summed over the group's ranks, as a new tensor (no
     autograd)."""
     out = t.contiguous().clone()
+    count("all-reduce", what, nbytes_of(out))
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
-def _all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+def _all_gather(t: torch.Tensor, group, dim: int,
+                what: str = "gather") -> torch.Tensor:
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(group_size(group))]
+    count("all-gather", what, nbytes_of(t) * len(parts))
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
 
@@ -67,13 +122,13 @@ class _AllReduceSum(torch.autograd.Function):
     ranks' gradients."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return sum_over(x, group)
+    def forward(ctx, x, group, what):
+        ctx.group, ctx.what = group, what
+        return sum_over(x, group, what)
 
     @staticmethod
     def backward(ctx, g):
-        return sum_over(g, ctx.group), None
+        return sum_over(g, ctx.group, ctx.what), None, None
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -86,7 +141,7 @@ class _CopyToGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return sum_over(g, ctx.group), None
+        return sum_over(g, ctx.group, "tensor_parallel"), None
 
 
 class _ReduceFromGroup(torch.autograd.Function):
@@ -94,7 +149,7 @@ class _ReduceFromGroup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        return sum_over(x, group)
+        return sum_over(x, group, "tensor_parallel")
 
     @staticmethod
     def backward(ctx, g):
@@ -112,7 +167,8 @@ class _ScatterToGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.group, ctx.dim), None, None
+        return (_all_gather(g, ctx.group, ctx.dim, "tensor_parallel"), None,
+                None)
 
 
 class _AllGather(torch.autograd.Function):
@@ -122,18 +178,19 @@ class _AllGather(torch.autograd.Function):
     backend runs)."""
 
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return _all_gather(x, group, dim)
+    def forward(ctx, x, group, dim, what):
+        ctx.group, ctx.dim, ctx.what = group, dim, what
+        return _all_gather(x, group, dim, what)
 
     @staticmethod
     def backward(ctx, g):
-        return (rank_slice(sum_over(g, ctx.group), ctx.group, ctx.dim),
-                None, None)
+        return (rank_slice(sum_over(g, ctx.group, ctx.what), ctx.group,
+                           ctx.dim), None, None, None)
 
 
-def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    return _AllReduceSum.apply(x, group)
+def all_reduce_sum(x: torch.Tensor, group, what: str = "sum"
+                   ) -> torch.Tensor:
+    return _AllReduceSum.apply(x, group, what)
 
 
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
@@ -148,18 +205,21 @@ def scatter_to_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return _ScatterToGroup.apply(x, group, dim)
 
 
-def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    return _AllGather.apply(x, group, dim)
+def all_gather(x: torch.Tensor, group, dim: int, what: str = "gather"
+               ) -> torch.Tensor:
+    return _AllGather.apply(x, group, dim, what)
 
 
 @torch.no_grad()
-def gather_tensor(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+def gather_tensor(x: torch.Tensor, group, dim: int, what: str = "gather"
+                  ) -> torch.Tensor:
     """:func:`all_gather` outside autograd (weights, BN statistics)."""
-    return _all_gather(x, group, dim)
+    return _all_gather(x, group, dim, what)
 
 
 @torch.no_grad()
-def all_reduce_(tensors: list[torch.Tensor], group) -> None:
+def all_reduce_(tensors: list[torch.Tensor], group, what: str = "sum"
+                ) -> None:
     """Sum each tensor over the group in place, as one flat buffer of each
     dtype (one collective a dtype, not one a tensor)."""
     by_dtype: dict = {}
@@ -167,6 +227,7 @@ def all_reduce_(tensors: list[torch.Tensor], group) -> None:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in ts])
+        count("all-reduce", what, nbytes_of(flat))
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         for t, f in zip(ts, flat.split([t.numel() for t in ts])):
             t.copy_(f.view_as(t))

@@ -61,7 +61,7 @@ def fused_eval_forward_dp(model, params, state, x: torch.Tensor,
 
     check_dp_only(mesh)
     logits = fused_eval_forward(model, params, state, x)
-    return all_gather(logits, mesh.group(AXIS_DATA), 0)
+    return all_gather(logits, mesh.group(AXIS_DATA), 0, "logits")
 
 
 def make_fused_dp_grads(model, mesh: Mesh) -> Callable:
@@ -93,7 +93,7 @@ def make_fused_dp_grads(model, mesh: Mesh) -> Callable:
             metrics = torch.stack([
                 loss.detach(),
                 M.accuracy(logits.detach(), y).to(loss.dtype)]) * share
-            all_reduce_(got + [metrics], group)
+            all_reduce_(got + [metrics], group, "gradients_and_metrics")
         for p, g in zip(leaves, got):
             p.grad = g
         return metrics[0], metrics[1], new_ms
@@ -137,7 +137,7 @@ def make_fused_dp_eval_step(model, mesh: Mesh, *,
     def body(ts: TrainState, x, y, *, generator=None):
         logits = fused_eval_forward_dp(model, ts.params, ts.model_state, x,
                                        mesh)
-        y_all = all_gather(y, group, 0)
+        y_all = all_gather(y, group, 0, "labels")
         return eval_sums(logits, y_all, num_classes)
 
     return CapturedStep(

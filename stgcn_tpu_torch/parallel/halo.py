@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from stgcn_tpu_torch.parallel.collectives import count, nbytes_of
 from stgcn_tpu_torch.parallel.mesh import AXIS_TIME, Mesh
 
 # The fewest output frames an edge strip gets.  The bf16 temporal kernels
@@ -77,11 +78,13 @@ def _exchange(left: torch.Tensor | None, right: torch.Tensor | None,
     if prev is not None:
         if left is not None:
             kept.append(left.contiguous())
+            count("point-to-point", "time_halo", nbytes_of(kept[-1]))
             ops.append(dist.P2POp(dist.isend, kept[-1], prev, group))
         ops.append(dist.P2POp(dist.irecv, from_prev, prev, group))
     if nxt is not None:
         if right is not None:
             kept.append(right.contiguous())
+            count("point-to-point", "time_halo", nbytes_of(kept[-1]))
             ops.append(dist.P2POp(dist.isend, kept[-1], nxt, group))
         ops.append(dist.P2POp(dist.irecv, from_next, nxt, group))
     works = dist.batch_isend_irecv(ops) if ops else []

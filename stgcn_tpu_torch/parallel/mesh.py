@@ -241,7 +241,7 @@ def gather_params(params, mesh: Mesh, *, replicated: bool = False):
         dim = None if replicated else sharded_dim(leaf_spec(path))
         if dim is None or mesh.shape[AXIS_MODEL] == 1:
             return leaf.detach().clone()
-        return gather_tensor(leaf.detach(), group, dim)
+        return gather_tensor(leaf.detach(), group, dim, "params")
 
     return _map_with_path(join, params)
 

@@ -24,7 +24,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from stgcn_tpu_torch.parallel.collectives import rank_slice, sum_over
+from stgcn_tpu_torch.parallel.collectives import (
+    count,
+    nbytes_of,
+    rank_slice,
+    sum_over,
+)
 from stgcn_tpu_torch.parallel.mesh import AXIS_MODEL, Mesh
 
 
@@ -119,7 +124,8 @@ class _GatherRecv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return rank_slice(sum_over(g, ctx.group), ctx.group, 2), None, None
+        return (rank_slice(sum_over(g, ctx.group, "joint_halo"), ctx.group,
+                           2), None, None)
 
 
 def make_halo_spatial_conv(mesh: Mesh, adjacency, *, dense: bool = False):
@@ -149,6 +155,7 @@ def make_halo_spatial_conv(mesh: Mesh, adjacency, *, dense: bool = False):
         # 1) the boundary exports' all-gather, issued first
         x_sel = torch.einsum("ntvc,vb->ntbc", x, sel.to(x.dtype))
         parts = [torch.empty_like(x_sel) for _ in range(n_shards)]
+        count("all-gather", "joint_halo", nbytes_of(x_sel) * n_shards)
         work = dist.all_gather(parts, x_sel.detach().contiguous(),
                                group=group, async_op=True)
         # 2) stage 1 and the diagonal block's aggregation, local only

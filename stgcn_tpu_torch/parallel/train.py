@@ -229,12 +229,12 @@ def make_sharded_grads(model, mesh: Mesh, *, shard_joints: bool = False,
         with torch.no_grad():
             got = [p.grad if p.grad is not None else torch.zeros_like(p)
                    for p in leaves]
-            all_reduce_(got, sum_group)
+            all_reduce_(got, sum_group, "gradients")
             # the logits are whole over time and model: average over data
             metrics = torch.stack([
                 loss.detach(),
                 M.accuracy(logits.detach(), y).to(loss.dtype)]) * d_share
-            all_reduce_([metrics], data_group)
+            all_reduce_([metrics], data_group, "metrics")
         for p, g in zip(leaves, got):
             p.grad = g
         return metrics[0], metrics[1], new_ms
@@ -385,7 +385,7 @@ def gather_train_state(ts: TrainState, mesh: Mesh, *,
         st = {}
         for k, v in ts.optimizer.state.get(p, {}).items():
             if dim is not None and v.shape == p.shape:
-                v = gather_tensor(v, mesh.group(AXIS_MODEL), dim)
+                v = gather_tensor(v, mesh.group(AXIS_MODEL), dim, "state")
             st[k] = v.clone()
         if st:
             opt.state[f] = st

@@ -41,8 +41,10 @@ device work ``body(state, *inputs, generator=None) -> outputs``:
   Each graph has its own dropout generator, registered with it and seeded
   before every replay, so a replay draws the eager step's masks.
 * **Launch counts.**  The kernel wrappers count launches in Python
-  (``kernels/__init__.py``), which a replay does not run: a capture's
-  increase of each count is taken back and added again at every replay.
+  (``kernels/__init__.py``), and the parallel paths their collectives
+  (``parallel/collectives.COUNTS``), which a replay does not run: a
+  capture's increase of each count is taken back and added again at every
+  replay.
 * **Eager.**  On the CPU, and with ``capture=False`` (the counterpart of
   ``jax.disable_jit()``), the body runs eagerly every call, through the
   same input and output buffers.  A step that cannot be captured names
@@ -76,6 +78,12 @@ def launch_counters() -> list[Callable]:
             if callable(f) and hasattr(f, "launches"):
                 found[id(f)] = f
     return list(found.values())
+
+
+def _collectives():
+    """The parallel paths' collective counts (imported on use: the
+    parallel package imports this module)."""
+    return importlib.import_module("stgcn_tpu_torch.parallel.collectives")
 
 
 @dataclasses.dataclass
@@ -121,6 +129,7 @@ class _Entry:
     graph: Any = None
     grads: list = dataclasses.field(default_factory=list)
     launches: list = dataclasses.field(default_factory=list)
+    collectives: dict = dataclasses.field(default_factory=dict)
 
 
 class CapturedStep:
@@ -216,6 +225,8 @@ class CapturedStep:
                 p.grad = g
             for f, n in entry.launches:
                 f.launches += n
+            if entry.collectives:
+                _collectives().add_counts(entry.collectives)
             entry.graph.replay()
             out = entry.outputs
         else:
@@ -260,6 +271,7 @@ class CapturedStep:
             graph.register_generator_state(entry.generator)
         counters = launch_counters()
         counts = [f.launches for f in counters]
+        issued = _collectives().read_counts()
         try:
             with torch.cuda.graph(graph, pool=shared.pool,
                                   stream=shared.stream):
@@ -273,6 +285,9 @@ class CapturedStep:
             grown = [f.launches - n for f, n in zip(counters, counts)]
             for f, n in zip(counters, counts):
                 f.launches = n
+            entry.collectives = _collectives().counts_since(issued)
+            _collectives().reset_counts()
+            _collectives().add_counts(issued)
         entry.launches = [(f, n) for f, n in zip(counters, grown) if n]
         entry.grads = [(t, t.grad) for t in self.state_tensors(state)
                        if t.requires_grad and t.grad is not None]

@@ -56,8 +56,8 @@ RTOL, ATOL = 1e-4, 1e-5
 
 
 def configs(plan=PLAN, **kw):
-    common = dict(plan=plan, strategy=Strategy.DISTANCE, d=1, residual=True,
-                  **kw)
+    common = {**dict(plan=plan, strategy=Strategy.DISTANCE, d=1,
+                     residual=True), **kw}
     return JaxConfig(**common), tm.STGCNConfig(**common)
 
 
@@ -132,15 +132,21 @@ def spatial_calls(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("mode,plan,ops", [
-    ("mask", PLAN, [("spatial_block_save", 256), ("spatial_block", 16)]),
-    ("reference", WIDE, [("spatial_block_save", 256)]),
+@pytest.mark.parametrize("mode,plan,ops,residual", [
+    ("mask", PLAN, [("spatial_block_save", 256), ("spatial_block", 16)],
+     True),
+    ("reference", WIDE, [("spatial_block_save", 256)], True),
     # a fixed graph needs no dA: no save at C_in = 256
-    ("fixed", WIDE, [("spatial_block", 256)])],
-    ids=["mask", "reference", "fixed"])
-def test_three_fused_steps_match_jax(rng, spatial_calls, mode, plan, ops):
+    ("fixed", WIDE, [("spatial_block", 256)], True),
+    # the post order of the non-residual block (the strategy table's
+    # ablation rows), two blocks
+    ("fixed", PLAN, [("spatial_block", 256), ("spatial_block", 16)],
+     False)],
+    ids=["mask", "reference", "fixed", "fixed_post"])
+def test_three_fused_steps_match_jax(rng, spatial_calls, mode, plan, ops,
+                                     residual):
     jcfg, tcfg = configs(plan=plan, c_in=C_IN, block_impl="fused",
-                         adjacency_mode=mode)
+                         adjacency_mode=mode, residual=residual)
     jax_model = JaxSTGCN(jcfg)
     jts = randomized_jax_state(jax_model, rng)
     x, y = batch(rng, c=C_IN)

@@ -7,8 +7,9 @@ train step (through ``training/graphs.CapturedStep``, eager on the CPU), saves a
 from the checkpoint and takes one sharded step of
 ``stgcn_tpu_torch.parallel`` on a one-rank gloo mesh on the CPU; a second one imports ``stgcn_tpu_torch.data``
 and runs the training CLI for one synthetic epoch on the CPU, TensorBoard
-hidden as well; an AST scan checks every module of the port and
-``chip_smoke.py``.
+hidden as well; a third runs ``bench_torch.py`` at a tiny size and imports
+every ``scripts/torch_*.py``; an AST scan checks every module of the port,
+``chip_smoke.py``, ``bench_torch.py`` and the ``scripts/torch_*.py`` tools.
 """
 
 import ast
@@ -22,8 +23,14 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "pandas", "ml_dtypes", "optax", "stgcn_tpu")
+TOOL_FILES = [ROOT / "bench_torch.py"] + sorted(
+    (ROOT / "scripts").glob("torch_*.py"))
 PORT_FILES = sorted((ROOT / "stgcn_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "minimal_train_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "minimal_train_torch.py",
+    *TOOL_FILES]
+# the port's scripts import each other and chip_smoke.py by module name
+LOCAL_MODULES = {p.stem for p in PORT_FILES
+                 if "stgcn_tpu_torch" not in p.relative_to(ROOT).parts}
 
 HOOK = textwrap.dedent("""
     import sys
@@ -191,6 +198,26 @@ TOOLS_SCRIPT = HOOK + textwrap.dedent("""
 """)
 
 
+# the measurement tools: bench_torch.py's whole run at a tiny size, and
+# every scripts/torch_*.py imported
+BENCH_SCRIPT = HOOK + textwrap.dedent("""
+    import importlib
+    import os
+
+    root = os.getcwd()
+    sys.path[:0] = [root, os.path.join(root, "scripts")]
+    import bench_torch
+
+    assert bench_torch.main(["--device", "cpu", "--batch", "2", "--frames",
+                             "16", "--steps", "1"]) == 0
+    for name in {scripts!r}:
+        importlib.import_module(name)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+    assert not loaded, loaded
+    print("ISOLATED-OK")
+""")
+
+
 def run_isolated(script: str, *args: str, env_extra=None):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
@@ -215,6 +242,13 @@ def test_cli_trains_without_jax_pandas_or_tensorboard(tmp_path):
 
 def test_tools_run_without_jax_pandas_or_matplotlib(tmp_path):
     run_isolated(TOOLS_SCRIPT.format(forbidden=TOOLS_BLOCKED), str(tmp_path),
+                 env_extra={"OMP_NUM_THREADS": "2"})
+
+
+def test_bench_tools_run_without_jax_pandas_or_matplotlib():
+    scripts = [p.stem for p in TOOL_FILES if p.parent.name == "scripts"]
+    run_isolated(BENCH_SCRIPT.format(forbidden=TOOLS_BLOCKED,
+                                     scripts=scripts),
                  env_extra={"OMP_NUM_THREADS": "2"})
 
 
@@ -248,7 +282,7 @@ def test_no_forbidden_import(path):
 def test_imports_only_torch_numpy_and_stdlib(path):
     # matplotlib only inside the functions that draw: the GPU machine
     # lacks it, and the tools case above runs without it
-    allowed = {"torch", "numpy", "stgcn_tpu_torch"}
+    allowed = {"torch", "numpy", "stgcn_tpu_torch"} | LOCAL_MODULES
     third_party = {r for r in imported_roots(path)
                    if r not in sys.stdlib_module_names}
     assert third_party <= allowed | {"matplotlib"}, third_party - allowed
