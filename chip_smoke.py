@@ -132,7 +132,12 @@ non-zero exit code:
                    with the JAX metadata), the same command resumed for a
                    third epoch (the step count continues), and the README
                    quick-start shape on the hybrid with bucketed batches
-                   for two epochs, reported apart.  Each epoch's steps are
+                   for two epochs, reported apart; then one fused epoch
+                   with ``--train.check_invariants`` and one route A
+                   epoch with ``--parallel.remat true`` (20 forward and
+                   10 backward launches of each conv op a step, 10
+                   forwards an eval batch), each captured and printing no
+                   ``[graph] ... runs eagerly`` line.  Each epoch's steps are
                    measured by the work they did (rows x padded frames over
                    B x T) and by CUDA events around each step; its host
                    share is the epoch time no step covers, beside a step
@@ -223,8 +228,11 @@ non-zero exit code:
                    so every phase above drives captured steps; this one
                    holds them against the eager ones.  For the fused
                    step, routes A and B, the hybrid and the op path
-                   (bench.py's step: bf16, B=64, T=304, dropout 0.5, Adam,
-                   each case's batch from a generator of its own): a
+                   (bench.py's step: bf16, B=64, T=304, dropout 0.5, Adam),
+                   route A with ``remat=True``, route B with
+                   ``remat="selective"`` and the checked fused step
+                   (``make_checked_train_step``; each case's batch from a
+                   generator of its own): a
                    captured step (a warm-up, then GRAPH_REPLAYS replays)
                    against as many eager steps and a second eager run, all
                    from the same weights, seed and batch, cuDNN
@@ -232,13 +240,27 @@ non-zero exit code:
                    gradients and losses bitwise equal where the two eager
                    runs are (else no further apart than they are); the
                    wrapper launches a replay counts (8/2/10 fused, 10/10
-                   routes, 7/0/7 hybrid, none on the op path), and the
-                   kernels a ``torch.profiler`` trace of one replay and of
-                   one eager step counts by name, equal; each step's ms
+                   routes, 7/0/7 hybrid, none on the op path, 20 forward
+                   and 10 backward of each conv op with remat) and every
+                   eager step counts, and the kernels a
+                   ``torch.profiler`` trace of one replay and of one eager
+                   step counts by name, equal (a trace short of them is
+                   taken again, at most TRACE_TRIES in all: a trace can
+                   lose a record); each step's ms
                    captured (a step captured anew with cuDNN's default
                    algorithms) and eager in turns after warm steps, the
                    host's ms to issue it (and a replay alone) and the
-                   device's idle share.  A
+                   device's idle share.  A remat case's state, gradients
+                   and losses bitwise the captured step without remat's
+                   (else its gradients within 1e-6 of the largest), its
+                   graph's pool below that step's (each alone), the
+                   three timed in turns.  The checked case: a replay with
+                   a label of 6 and one with a NaN in the input raise
+                   ``InvariantError`` naming the check (the NaN trips the
+                   gradient's on the fused kernels, whose ReLU takes it
+                   to 0), the state bitwise unchanged, the next good
+                   replay the eager checked step's; its ms within 10% of
+                   the unchecked captured step's, in turns.  A
                    ``Predictor`` with a graph a bucket (152 and 304 frames)
                    bitwise the eager one, ``predict_stream`` too, 10
                    ``block_eval`` launches a batch; serial and pipelined
@@ -251,7 +273,10 @@ non-zero exit code:
                    captured unsharded step (bf16, dropout 0), a replay's
                    collective counts (``parallel/collectives.COUNTS``)
                    equal to an eager step's, both timed captured and
-                   eager in turns.
+                   eager in turns; the mesh's route B step with
+                   ``remat="selective"`` captured, bitwise the captured
+                   unsharded remat step (dropout 0) and, with dropout
+                   0.5, the captured mesh step without remat.
 22. bench_tools -- the measurement tools (run after 21, before 20), each
                    through its entry point: ``bench_torch.main`` in this
                    process, its one JSON line with ``bench.py``'s keys,
@@ -2215,15 +2240,24 @@ CLI_HYBRID = ["--model.block_impl", "hybrid", "--model.fused_blocks",
               "bucket"]
 CLI_EPOCHS = 2
 CLI_HYBRID_EPOCHS = 2    # the second without the first's first calls
+# the captured steps that ran eagerly before: the checked fused step, and
+# route A with remat (its recompute launches each conv forward again)
+CLI_CHECKED = ["--train.check_invariants", "true"]
+CLI_REMAT = ["--model.block_impl", "ops", "--model.layout", "vntc",
+             "--parallel.remat", "true"]
+CLI_ONE_EPOCH = ["--train.epochs", "1"]
 
 
-def run_cli(argv: list[str]) -> tuple[dict, dict, dict]:
-    """``cli.train.main(argv)`` in this process with every launch count set
+def run_cli(argv: list[str], counters: dict | None = None
+            ) -> tuple[dict, dict, dict]:
+    """``cli.train.main(argv)`` in this process with every launch count
+    (``counters``: the fused kernels' and ``block_eval``'s by default) set
     to 0 just before it; returns the counts read just after, what it
-    printed (splits, epochs: the ``[epoch]`` dicts, resume line, test) and
-    its train steps: the Trainer's step wrapped to record each batch's
-    (rows, padded frames) and CUDA events around it, and the step and
-    train state it ran."""
+    printed (splits, epochs: the ``[epoch]`` dicts, resume line, test, any
+    ``[graph] ... runs eagerly`` line) and its train steps: the Trainer's
+    step (checked or not) wrapped to record each batch's (rows, padded
+    frames) and CUDA events around it, and the step and train state it
+    ran."""
     import ast
     import contextlib
     import io
@@ -2232,16 +2266,19 @@ def run_cli(argv: list[str]) -> tuple[dict, dict, dict]:
 
     from stgcn_tpu_torch.cli.train import main as train_main
     from stgcn_tpu_torch.kernels.block_eval import block_eval
-    from stgcn_tpu_torch.training import loop
+    from stgcn_tpu_torch.training import checks, loop
 
-    counters = {**fused_counters(), "block_eval": block_eval}
+    if counters is None:
+        counters = {**fused_counters(), "block_eval": block_eval}
     out = io.StringIO()
     steps: dict = {"batches": [], "losses": []}
-    make_step = loop.make_train_step
+    makers = {loop: loop.make_train_step,
+              checks: checks.make_checked_train_step}
 
-    def timed_step(model, **kw):
-        step = make_step(model, **kw)
+    def timed(make_step):
+        return lambda model, **kw: timed_step(make_step(model, **kw))
 
+    def timed_step(step):
         def wrapped(ts, x, y, *args, **kwargs):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -2258,7 +2295,8 @@ def run_cli(argv: list[str]) -> tuple[dict, dict, dict]:
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    loop.make_train_step = timed_step
+    loop.make_train_step = timed(makers[loop])
+    checks.make_checked_train_step = timed(makers[checks])
     try:
         with contextlib.redirect_stdout(out):
             rc = train_main(argv)
@@ -2266,7 +2304,8 @@ def run_cli(argv: list[str]) -> tuple[dict, dict, dict]:
         print(out.getvalue()[-6000:], file=sys.stderr)
         raise
     finally:
-        loop.make_train_step = make_step
+        loop.make_train_step = makers[loop]
+        checks.make_checked_train_step = makers[checks]
     torch.cuda.synchronize()
     steps["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -2287,6 +2326,8 @@ def run_cli(argv: list[str]) -> tuple[dict, dict, dict]:
         "resumed_from": int(resumed.group(1)) if resumed else None,
         "test": ([float(test.group(1)), float(test.group(2)),
                   int(test.group(3))] if test else None),
+        "eager_lines": re.findall(r"^\[graph\] .* runs eagerly.*$", text,
+                                  re.MULTILINE),
     }
     if rc != 0 or not splits or not test:
         print(text[-6000:], file=sys.stderr)
@@ -2335,23 +2376,26 @@ def cli_train_phase(smi: str, dev, tmp: str) -> dict:
     meta = generate_dataset(data_dir)
     generate_s = time.perf_counter() - start
     ckpt_dir = os.path.join(tmp, "ckpt")
-    common = ["--data.metadata_file", meta, "--data.dataset_dir",
-              data_dir, "--train.checkpoint_dir", ckpt_dir,
-              "--train.log_dir", os.path.join(tmp, "logs")]
+    data = ["--data.metadata_file", meta, "--data.dataset_dir", data_dir]
+    common = data + ["--train.checkpoint_dir", ckpt_dir,
+                     "--train.log_dir", os.path.join(tmp, "logs")]
     runs = {
         "fused": CLI_FLAGS + common + ["--train.epochs",
                                        str(CLI_EPOCHS)],
         "fused_resumed": CLI_FLAGS + common + [
             "--train.epochs", str(CLI_EPOCHS + 1), "--train.resume",
             "true"],
-        "hybrid_bucket": CLI_FLAGS + CLI_HYBRID + [
-            "--data.metadata_file", meta, "--data.dataset_dir",
-            data_dir, "--train.epochs", str(CLI_HYBRID_EPOCHS)],
+        "hybrid_bucket": CLI_FLAGS + CLI_HYBRID + data + [
+            "--train.epochs", str(CLI_HYBRID_EPOCHS)],
+        "fused_checked": CLI_FLAGS + CLI_CHECKED + data + CLI_ONE_EPOCH,
+        "route_A_remat": CLI_FLAGS + CLI_REMAT + data + CLI_ONE_EPOCH,
     }
     results, cli_step_ms = {}, None
     for name, argv in runs.items():
         start = time.perf_counter()
-        launches, printed, steps = run_cli(argv)
+        remat = name == "route_A_remat"
+        launches, printed, steps = run_cli(
+            argv, conv_counters() if remat else None)
         seconds = time.perf_counter() - start
         n_train, n_val, n_test = printed["splits"] or (0, 0, 0)
         batches_per_epoch = math.ceil(n_train / B)
@@ -2369,6 +2413,15 @@ def cli_train_phase(smi: str, dev, tmp: str) -> dict:
                 for d in ("forward", "backward")}
         want["block_eval"] = fused * (
             eval_batches * len(epochs) + math.ceil(n_test / B))
+        if remat:
+            # 20 forward and 10 backward launches of each conv op a train
+            # step, 10 forwards an eval batch (the eval forward's V-major
+            # route), no fused kernel
+            evals = eval_batches * len(epochs) + math.ceil(n_test / B)
+            train_steps = batches_per_epoch * len(epochs)
+            want = {f"{op}.{d}": n for op in CONV_OPS for d, n in (
+                ("forward", 2 * blocks * train_steps + blocks * evals),
+                ("backward", blocks * train_steps))}
         losses = [[e["train_loss"], e.get("val_loss")] for e in epochs]
         finite = bool(epochs) and all(
             v is not None and math.isfinite(v) for pair in losses
@@ -2396,7 +2449,7 @@ def cli_train_phase(smi: str, dev, tmp: str) -> dict:
         else:
             ckpt_ok = True      # no checkpoint directory
             epochs_ok = [e["epoch"] for e in epochs] == list(
-                range(CLI_HYBRID_EPOCHS))
+                range(CLI_HYBRID_EPOCHS if hybrid else 1))
         batches = steps["batches"]
         split_ok = bool(epochs) and len(batches) == (
             batches_per_epoch * len(epochs))
@@ -2415,7 +2468,7 @@ def cli_train_phase(smi: str, dev, tmp: str) -> dict:
         for e in per_epoch:     # the fused runs share its config
             e["host_share_vs_cli_step"] = (
                 1 - e["work_steps"] * cli_step_ms / (e["epoch_s"] * 1e3)
-                if cli_step_ms and not hybrid else None)
+                if cli_step_ms and name.startswith("fused") else None)
         # the captured step (phase 21): the Trainer's epoch loss is the
         # mean of its steps' own losses, which differ, not the last
         # step's output read again
@@ -2436,7 +2489,8 @@ def cli_train_phase(smi: str, dev, tmp: str) -> dict:
               and split_ok and launches == want
               and printed["test"] is not None
               and math.isfinite(printed["test"][0])
-              and graph["captured"] and losses_ok)
+              and graph["captured"] and losses_ok
+              and not printed["eager_lines"])
         results[name] = dict(
             seconds=seconds, splits=printed["splits"],
             batches_per_epoch=batches_per_epoch,
@@ -2444,7 +2498,8 @@ def cli_train_phase(smi: str, dev, tmp: str) -> dict:
             per_epoch=per_epoch, test=printed["test"],
             launches=launches, expected_launches=want,
             checkpoints={str(k): v for k, v in metas.items()},
-            graph=graph, step_losses_ok=losses_ok, ok=ok)
+            graph=graph, step_losses_ok=losses_ok,
+            eager_lines=printed["eager_lines"], ok=ok)
         emit("cli_train", run=name, argv=argv, **results[name])
         del steps
         if not ok:
@@ -2453,7 +2508,8 @@ def cli_train_phase(smi: str, dev, tmp: str) -> dict:
                 f"{printed['rc']}, finite {finite}, checkpoints "
                 f"{ckpt_ok}, epochs {epochs_ok}, steps {split_ok}, "
                 f"launches {launches} against {want}, captured "
-                f"{graph['captured']}, step losses {losses_ok}")
+                f"{graph['captured']}, step losses {losses_ok}, eager "
+                f"lines {printed['eager_lines']}")
 
     def column(run, key):
         return [e[key] for e in results[run]["per_epoch"]]
@@ -2965,6 +3021,8 @@ def route_options_phase(smi: str, dev) -> None:
                                  "further than the bf16 conv path's")
 
 # ---- 21. graph: the compiled step -------------------------------------------
+# (name, config over bench.py's, launches a step of each op: n each way, or
+# (forward, backward) where a recompute launches the forwards again)
 GRAPH_CASES = (("fused", dict(block_impl="fused"),
                 {"spatial_block": 8, "spatial_block_save": 2,
                  "temporal_block": 10}),
@@ -2975,10 +3033,28 @@ GRAPH_CASES = (("fused", dict(block_impl="fused"),
                ("hybrid", dict(block_impl="hybrid", fused_blocks=FUSED_BLOCKS),
                 {"spatial_block": 7, "spatial_block_save": 0,
                  "temporal_block": 7}),
-               ("ops", {}, {}))
+               ("ops", {}, {}),
+               ("route_A_remat", REMAT_CASES[0][1],
+                {"spatial_conv": (20, 10), "temporal_conv": (20, 10)}),
+               ("route_B_selective", REMAT_CASES[1][1],
+                {"spatial_conv": (20, 10), "temporal_conv": (20, 10)}),
+               ("fused_checked", dict(block_impl="fused"),
+                {"spatial_block": 8, "spatial_block_save": 2,
+                 "temporal_block": 10}))
+# a remat case's config without remat: held against it, its pool beside
+# the case's and its captured step timed beside the case's
+GRAPH_WITHOUT = {name: base for name, _, base in REMAT_CASES}
+# cases of make_checked_train_step, timed beside the unchecked step
+GRAPH_CHECKED = ("fused_checked",)
+CHECKED_STEP_REL = 0.10  # the checked step's ms over the unchecked's, less 1
 GRAPH_REPLAYS = 3        # replays held against as many eager steps
 GRAPH_SERVE_ROUNDS = 2   # rounds of captured, eager, eager, captured
 PRE_ROLL = 32            # launches that open each trace, not counted
+# traces of one call at most, until one counts the launches expected: a
+# trace can lose a kernel's record (a driver's run read one eager step's
+# trace short once, its counters and the replay's trace exact); a trace
+# that counts more than expected fails at once
+TRACE_TRIES = 3
 PRE_ROLL_KERNEL = "spin_kernel"  # torch.cuda._sleep's
 # kernels a profiler trace counts, each launched once by one op call of a
 # direction: the spatial ops' forward and t kernels, the temporal ops' dWt
@@ -3020,6 +3096,19 @@ def trace_call(fn) -> tuple[dict, float]:
             if name in ev.key:
                 counts[fam] += ev.count
     return counts, busy
+
+
+def trace_launches(fn, want: dict) -> tuple[dict, float, list]:
+    """``trace_call(fn)`` again, at most TRACE_TRIES times, until a trace
+    counts ``want`` or counts more of a kernel than it: the last trace's
+    counts and busy ms, and every trace's counts."""
+    tries = []
+    for _ in range(TRACE_TRIES):
+        counts, busy = trace_call(fn)
+        tries.append(counts)
+        if counts == want or any(counts[k] > want[k] for k in want):
+            break
+    return counts, busy, tries
 
 
 def traced_from_counters(launches: dict) -> dict:
@@ -3104,9 +3193,12 @@ def issue_ms(fn, reps: int = 3) -> float:
 
 
 def max_distance(got: list, want: list) -> float:
-    """The largest elementwise distance between two lists of tensors."""
-    return max(((a.double() - b.double()).abs().max().item()
-                if a.numel() else 0.0) for a, b in zip(got, want))
+    """The largest elementwise distance between two lists of tensors, NaN
+    where any distance is (Python's ``max`` would skip a NaN after the
+    first element)."""
+    found = [(a.double() - b.double()).abs().max().item()
+             if a.numel() else 0.0 for a, b in zip(got, want)]
+    return float("nan") if any(d != d for d in found) else max(found)
 
 
 def graph_state_tensors(ts) -> list:
@@ -3115,15 +3207,67 @@ def graph_state_tensors(ts) -> list:
     return ts.tensors() + [p.grad for p in ts.leaves()]
 
 
+def per_direction(want: dict) -> dict:
+    """GRAPH_CASES' launches of each op as ``{"op.forward": n, ...}``."""
+    out = {}
+    for op, n in want.items():
+        forward, backward = n if isinstance(n, tuple) else (n, n)
+        for d, k in (("forward", forward), ("backward", backward)):
+            if k:
+                out[f"{op}.{d}"] = k
+    return out
+
+
+def checked_trips(step, ts, x, y) -> tuple[dict, bool]:
+    """fused_checked's bad batches, each a replay of the captured checked
+    step: a label of 6 and a NaN in ``x`` must raise ``InvariantError``
+    naming the check, with no device-side assert, and leave the state
+    (parameters, moments, BN statistics, the optimizer's scalars,
+    ``step`` and the count) bitwise as it was.  The NaN trips a
+    non-finite check: on the fused kernels the gradient's, since their
+    ReLU (``fmaxf``) takes a NaN to 0 and the loss stays finite, where
+    the op path's ``torch.relu`` carries it into the loss."""
+    import torch
+
+    from stgcn_tpu_torch.training.checks import InvariantError
+
+    y_bad = y.clone()
+    y_bad[0] = 6
+    x_bad = x.clone()
+    x_bad[1, 2, 3, 0] = float("nan")
+    found, ok = {}, True
+    for case, args, check in (("label_6", (x, y_bad), "label out of range"),
+                              ("nan_x", (x_bad, y), "non-finite ")):
+        before = [t.clone() for t in ts.tensors()]
+        counts = (ts.step, ts.optimizer.count)
+        try:
+            step(ts, *args)
+            raised = None
+        except InvariantError as err:
+            raised = str(err)
+        torch.cuda.synchronize()
+        unchanged = (all(torch.equal(a, b) for a, b in
+                         zip(before, ts.tensors()))
+                     and (ts.step, ts.optimizer.count) == counts)
+        found[case] = dict(raised=raised, replayed=step.captured,
+                           state_unchanged=unchanged)
+        ok = ok and (raised is not None and check in raised
+                     and step.captured and unchanged)
+    return found, ok
+
+
 def graph_phase(smi: str, dev, cases=None, serving: bool = True) -> dict:
     """The captured steps (module docstring, phase 21), of GRAPH_CASES
     named in ``cases`` (all by default) and, with ``serving``, the
     ``Predictor``; fails on any check.  Returns each case's figures."""
+    import gc
+
     import torch
 
     from stgcn_tpu_torch.kernels.block_eval import block_eval
     from stgcn_tpu_torch.models.stgcn import STGCN
     from stgcn_tpu_torch.serving import Predictor
+    from stgcn_tpu_torch.training.checks import make_checked_train_step
     from stgcn_tpu_torch.training.graphs import capture_pool
     from stgcn_tpu_torch.training.loop import make_train_step
     from stgcn_tpu_torch.training.optimizers import adam
@@ -3139,23 +3283,43 @@ def graph_phase(smi: str, dev, cases=None, serving: bool = True) -> dict:
         x = torch.randn(B, T, V, 2, generator=gen, device=dev)
         y = torch.randint(0, 6, (B,), generator=gen, device=dev)
         model = STGCN(cfg, seed=SEED)
+        make = (make_checked_train_step if name in GRAPH_CHECKED
+                else make_train_step)
         states = {k: create_train_state(model, adam(1e-3), seed=SEED)
                   for k in ("captured", "eager", "eager_again")}
-        steps = {"captured": make_train_step(model),
-                 "eager": make_train_step(model, capture=False),
-                 "eager_again": make_train_step(model, capture=False)}
+        steps = {"captured": make(model),
+                 "eager": make(model, capture=False),
+                 "eager_again": make(model, capture=False)}
+        without = GRAPH_WITHOUT.get(name)
+        if without is not None:
+            # the captured step without remat, from the same weights
+            base_model = STGCN(bench_config(**without), seed=SEED)
+            states["without"] = create_train_state(base_model, adam(1e-3),
+                                                   seed=SEED)
+            steps["without"] = make_train_step(base_model)
         # the same steps from the same state, seed and batch; cuDNN's
         # deterministic algorithms, so that eager repeats itself
         torch.backends.cudnn.deterministic = True
         losses = {k: [] for k in steps}
-        launches = []
-        for _ in range(1 + GRAPH_REPLAYS):   # a warm-up, then replays
+        launches, eager_launches = [], []
+
+        def step_all():
             for k, step in steps.items():
                 reset(counters)
                 out = step(states[k], x, y)
                 losses[k].append(out["loss"].clone())
                 if k == "captured":
                     launches.append(read(counters))
+                elif k == "eager":
+                    eager_launches.append(read(counters))
+
+        for _ in range(1 + GRAPH_REPLAYS):   # a warm-up, then replays
+            step_all()
+        trips, trips_ok = {}, True
+        if name in GRAPH_CHECKED:
+            trips, trips_ok = checked_trips(steps["captured"],
+                                            states["captured"], x, y)
+            step_all()      # the next good replay against the eager step
         torch.backends.cudnn.deterministic = False
         step = steps["captured"]
         captured, graphs = step.captured, step.cache_size
@@ -3167,11 +3331,44 @@ def graph_phase(smi: str, dev, cases=None, serving: bool = True) -> dict:
         graph_dist = max_distance(got, ref)
         bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
         per_step = {k: n for k, n in launches[-1].items() if n}
-        expected = {f"{op}.{d}": n for op, n in want.items()
-                    for d in ("forward", "backward") if n}
+        expected = per_direction(want)
+        eager_per_step = [{k: n for k, n in c.items() if n}
+                          for c in eager_launches]
+        remat, remat_ok = {}, True
+        if without is not None:
+            # remat against none: the state, gradients and losses bitwise,
+            # else the gradients within REMAT_GRAD_REL of the largest
+            base = graph_state_tensors(states["without"]) + \
+                losses["without"]
+            grads = [p.grad for p in states["captured"].leaves()]
+            base_grads = [p.grad for p in states["without"].leaves()]
+            scale = max(g.abs().max().item() for g in base_grads)
+            remat = dict(bitwise_equal_without=all(
+                torch.equal(a, b) for a, b in zip(got, base)),
+                max_dist_vs_without=max_distance(got, base),
+                grad_max_abs_err_vs_without=max_distance(grads, base_grads),
+                grad_max_abs=scale, tolerance=(
+                    f"bitwise, else grad max_abs_err <= {REMAT_GRAD_REL} "
+                    "* max|grad|"))
+            remat_ok = (remat["bitwise_equal_without"] or
+                        remat["grad_max_abs_err_vs_without"]
+                        <= REMAT_GRAD_REL * scale)
+            del steps["without"], base, grads, base_grads
         # timing: a step captured with cuDNN's default algorithms (the one
         # above holds its deterministic ones), two warm calls of each
-        step = steps["captured"] = make_train_step(model)
+        step = steps["captured"] = make(model)
+        gc.collect()    # the graphs above gone, the pool released
+        memory = {}
+        if without is not None:
+            # the pool of the captured step without remat, alone
+            probe = make_train_step(base_model)
+            for _ in range(2):
+                probe(states["without"], x, y)
+            memory["pool_reserved_mib_without"], \
+                memory["pool_allocated_mib_without"] = \
+                pool_mib(capture_pool(dev))
+            del probe
+            gc.collect()
         runs = {k: (lambda k=k: steps[k](states[k], x, y))
                 for k in ("captured", "eager")}
         for k in runs:
@@ -3184,53 +3381,92 @@ def graph_phase(smi: str, dev, cases=None, serving: bool = True) -> dict:
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - start
         runs["eager"]()
+        # memory: the graph's pool, alone
+        memory["pool_reserved_mib"], memory["pool_allocated_mib"] = \
+            pool_mib(capture_pool(dev))
+        if without is not None:
+            memory["pool_ratio_vs_without"] = (
+                memory["pool_reserved_mib"]
+                / memory["pool_reserved_mib_without"])
+            steps["without"] = make_train_step(base_model)
+            runs["without"] = lambda: steps["without"](states["without"],
+                                                       x, y)
+        if name in GRAPH_CHECKED:
+            # the unchecked captured step of the same config
+            states["unchecked"] = create_train_state(model, adam(1e-3),
+                                                     seed=SEED)
+            steps["unchecked"] = make_train_step(model)
+            runs["unchecked"] = lambda: steps["unchecked"](
+                states["unchecked"], x, y)
+        for k in ("without", "unchecked"):
+            if k in runs:
+                runs[k]()
+                runs[k]()
         # one replay and one eager step traced: launches by kernel name
-        replay_trace, replay_busy = trace_call(runs["captured"])
-        eager_trace, eager_busy = trace_call(runs["eager"])
         want_trace = traced_from_counters(expected)
+        replay_trace, replay_busy, replay_tries = trace_launches(
+            runs["captured"], want_trace)
+        eager_trace, eager_busy, eager_tries = trace_launches(
+            runs["eager"], want_trace)
         times = {k: [] for k in runs}
-        for k in ("captured", "eager", "eager", "captured"):
+        order = list(runs)
+        for k in order + order[::-1]:
             times[k].append(cuda_time_ms(runs[k], reps=3, warmup=0))
         step_ms = {k: float(np.mean(v)) for k, v in times.items()}
-        issued = {k: issue_ms(runs[k]) for k in runs}
+        issued = {k: issue_ms(runs[k]) for k in ("captured", "eager")}
         # the host's ms of the replay alone, without the step's host work
         graph = next(e.graph for e in step._entries.values())
         issued["replay_only"] = issue_ms(graph.replay)
         busy = {"captured": replay_busy, "eager": eager_busy}
-        idle = {k: 1 - busy[k] / step_ms[k] for k in runs}
-        # memory: the eager step's peak, the graph's pool
-        memory = {"eager_peak_mib": peak_mib(runs["eager"])}
-        memory["pool_reserved_mib"], memory["pool_allocated_mib"] = \
-            pool_mib(capture_pool(dev))
+        idle = {k: 1 - busy[k] / step_ms[k] for k in busy}
+        memory["eager_peak_mib"] = peak_mib(runs["eager"])
+        checked_ok = True
+        if name in GRAPH_CHECKED:
+            trips["ms_over_unchecked"] = (step_ms["captured"]
+                                          / step_ms["unchecked"])
+            checked_ok = trips["ms_over_unchecked"] <= 1 + CHECKED_STEP_REL
         ok = (captured and graphs == 1
               and (bitwise if eager_dist == 0 else graph_dist <= eager_dist)
               and all(launches[i] == launches[0] for i in range(1, len(
                   launches)))
-              and per_step == expected and replay_trace == want_trace
-              and eager_trace == want_trace)
+              and per_step == expected
+              and all(c == expected for c in eager_per_step)
+              and replay_trace == want_trace
+              and eager_trace == want_trace and remat_ok and trips_ok
+              and checked_ok
+              and (without is None or memory["pool_ratio_vs_without"] < 1))
         results[name] = dict(step_ms=step_ms, issue_ms=issued,
-                             idle_share=idle)
+                             idle_share=idle, memory=memory)
         emit("graph", case=name, captured=captured, graphs=graphs,
              bitwise_equal=bitwise,
              max_dist_vs_eager=graph_dist, eager_vs_eager=eager_dist,
              losses=[float(v) for v in losses["captured"]],
              eager_losses=[float(v) for v in losses["eager"]],
              launches_per_call=launches, expected_per_step=expected,
+             eager_launches_per_step=eager_per_step,
              replay_trace=replay_trace, eager_trace=eager_trace,
-             expected_trace=want_trace, step_ms=step_ms,
+             expected_trace=want_trace, replay_traces=replay_tries,
+             eager_traces=eager_tries, step_ms=step_ms,
              step_ms_turns=times, issue_ms=issued, device_busy_ms=busy,
              idle_share=idle, memory=memory, capture_s=capture_s,
-             batch=B, frames=T,
+             remat=remat, checks=trips, batch=B, frames=T,
              dtype="bfloat16",
              dropout=cfg.dropout_rate, nvidia_smi=smi, ok=ok)
         del states, steps, model, runs, step, graph
+        if without is not None:
+            del base_model
+        gc.collect()
         torch.cuda.empty_cache()
         if not ok:
             raise AssertionError(
-                f"the captured {name} step: captured {captured}, "
-                f"replays not the eager step's ({graph_dist} against "
-                f"eager-vs-eager {eager_dist}), or launches {per_step} / "
-                f"trace {replay_trace} against {expected} / {want_trace}")
+                f"the captured {name} step: captured {captured}, graphs "
+                f"{graphs}, bitwise {bitwise} ({graph_dist} against "
+                f"eager-vs-eager {eager_dist}), launches a call "
+                f"{launches}, a replay {per_step} against {expected}, "
+                f"eager steps {eager_per_step}, traces replay "
+                f"{replay_tries} eager {eager_tries} against "
+                f"{want_trace}, remat against none {remat}, "
+                f"checks {trips}, memory {memory}")
 
     if not serving:
         return results
@@ -3708,6 +3944,7 @@ def parallel_one_rank(smi: str, dev) -> dict:
                              "Predictor")
     del trainer, ts, model, serve
     graph_mesh_case(smi, dev, mesh, x, y)
+    graph_mesh_remat_case(smi, dev, mesh, x, y)
     dist.destroy_process_group()
     torch.cuda.empty_cache()
     return {"launches_per_step": per_step, "step_ms": step_ms,
@@ -3793,6 +4030,105 @@ def graph_mesh_case(smi: str, dev, mesh, x, y) -> None:
                              "captured, not bitwise the captured "
                              "unsharded step, or counts other collectives "
                              f"than the eager step: {counted}")
+
+
+def graph_mesh_remat_case(smi: str, dev, mesh, x, y) -> None:
+    """Phase 21's mesh remat case, on phase 20's one-rank NCCL mesh: route
+    B with ``remat="selective"`` (the op chain the mesh runs), its
+    recompute inside the captured mesh step.  Without dropout (the mesh
+    seeds its masks with the rank's data index), a warm-up and
+    GRAPH_REPLAYS replays bitwise the captured unsharded remat step's
+    (gradients, parameters, moments, BN statistics, losses); with dropout
+    0.5 the captured mesh remat step bitwise the captured mesh step
+    without remat.  20/10 conv launches a replay; the step ms of the
+    captured mesh remat step, the eager one and the captured unsharded
+    one in turns."""
+    import torch
+
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.parallel.train import (
+        create_sharded_train_state,
+        make_sharded_train_step,
+        shard_batch,
+    )
+    from stgcn_tpu_torch.training.loop import make_train_step
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import create_train_state
+
+    name, kw, base_kw = REMAT_CASES[1]
+    counters = conv_counters()
+    batch = shard_batch(x, y, mesh)
+
+    models = {}
+
+    def mesh_step(cfg):
+        model = models[cfg] = STGCN(cfg)
+        ts, _ = create_sharded_train_state(model, adam(1e-3), mesh,
+                                           seed=SEED)
+        return make_sharded_train_step(model, mesh), ts
+
+    def plain_step(cfg):
+        model = STGCN(cfg).to(dev)
+        return make_train_step(model), create_train_state(model, adam(1e-3),
+                                                          seed=SEED)
+
+    no_drop = bench_config(dropout_rate=0.0, **kw)
+    runs = {"mesh_remat": mesh_step(no_drop),
+            "unsharded_remat": plain_step(no_drop),
+            "mesh_remat_dropout": mesh_step(bench_config(**kw)),
+            "mesh_dropout": mesh_step(bench_config(**base_kw))}
+    torch.backends.cudnn.deterministic = True
+    losses = {k: [] for k in runs}
+    launches = []
+    for _ in range(1 + GRAPH_REPLAYS):
+        for k, (step, ts) in runs.items():
+            reset(counters)
+            losses[k].append(step(ts, *batch)["loss"].clone())
+            if k == "mesh_remat":
+                launches.append(read(counters))
+    torch.backends.cudnn.deterministic = False
+
+    def compare(a, b):
+        got = graph_state_tensors(runs[a][1]) + losses[a]
+        want = graph_state_tensors(runs[b][1]) + losses[b]
+        return (all(torch.equal(u, v) for u, v in zip(got, want)),
+                max_distance(got, want))
+
+    bitwise, dist_ = compare("mesh_remat", "unsharded_remat")
+    dropout_bitwise, dropout_dist = compare("mesh_remat_dropout",
+                                            "mesh_dropout")
+    captured = all(step.captured and step.cache_size == 1
+                   for step, _ in runs.values())
+    expected = per_direction({"spatial_conv": (20, 10),
+                              "temporal_conv": (20, 10)})
+    per_step = {k: n for k, n in launches[-1].items() if n}
+    # time: the captured mesh remat step, its eager step and the captured
+    # unsharded remat step, in turns after two warm calls of the new one
+    runs["mesh_remat_eager"] = (make_sharded_train_step(
+        models[no_drop], mesh, capture=False), runs["mesh_remat"][1])
+    order = ["mesh_remat", "mesh_remat_eager", "unsharded_remat"]
+    calls = {k: (lambda k=k: runs[k][0](runs[k][1], *batch)) for k in order}
+    times = {k: [] for k in order}
+    for k in order + order[::-1]:
+        times[k].append(cuda_time_ms(calls[k], reps=3))
+    step_ms = {k: float(np.mean(v)) for k, v in times.items()}
+    ok = (captured and bitwise and dropout_bitwise and per_step == expected
+          and all(n == launches[0] for n in launches))
+    emit("graph", case="one_rank_mesh_remat", config=kw, mesh=[1, 1, 1],
+         backend=mesh.backend, captured=captured, bitwise_equal=bitwise,
+         max_dist=dist_, vs="the captured unsharded remat step, dropout 0",
+         dropout_bitwise_equal_without_remat=dropout_bitwise,
+         dropout_max_dist=dropout_dist, launches_per_call=launches,
+         expected_per_step=expected, step_ms=step_ms, step_ms_turns=times,
+         losses=[float(v) for v in losses["mesh_remat_dropout"]],
+         batch=B, frames=T, dtype="bfloat16", nvidia_smi=smi, ok=ok)
+    del runs, calls, models
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(
+            "the one-rank mesh remat step is not captured, not bitwise the "
+            "captured unsharded remat step or the mesh step without remat, "
+            f"or launched {per_step} against {expected}")
 
 
 def spawn_ranks(suite: str, backend: str, tmp: str, world: int = 2,

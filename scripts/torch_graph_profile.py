@@ -4,12 +4,14 @@ against the eager one (bitwise state, launches a replay from the counters
 and from a ``torch.profiler`` trace, step ms captured and eager in turns,
 the host's ms to issue a step, the device's idle share), the captured
 ``Predictor`` against the eager one (bitwise, seq/s in alternating
-rounds) and the one-rank NCCL mesh step captured against the captured
-unsharded step.
+rounds), the one-rank NCCL mesh step captured against the captured
+unsharded step, and the mesh's remat step against the captured unsharded
+remat step and the mesh step without remat.
 
     python3 scripts/torch_graph_profile.py [case ...]
 
-Cases: fused, route_A, route_B, hybrid, ops, serving, mesh (all when none
+Cases: fused, route_A, route_B, hybrid, ops, route_A_remat,
+route_B_selective, fused_checked, serving, mesh, mesh_remat (all when none
 is named).  Builds the kernel library first; prints ``chip_smoke.py``'s
 JSON lines and exits non-zero on a failed check.  Imports nothing of JAX.
 """
@@ -36,8 +38,9 @@ def main(argv: list[str]) -> int:
     from stgcn_tpu_torch.parallel.mesh import make_mesh
 
     names = [name for name, _, _ in cs.GRAPH_CASES]
-    wanted = argv or names + ["serving", "mesh"]
-    unknown = set(wanted) - set(names) - {"serving", "mesh"}
+    extra = ["serving", "mesh", "mesh_remat"]
+    wanted = argv or names + extra
+    unknown = set(wanted) - set(names) - set(extra)
     if unknown:
         print(f"unknown cases {sorted(unknown)}", file=sys.stderr)
         return 2
@@ -53,10 +56,13 @@ def main(argv: list[str]) -> int:
     dev = torch.device("cuda")
     cs.graph_phase(smi, dev, cases=[c for c in wanted if c in names],
                    serving="serving" in wanted)
-    if "mesh" in wanted:
+    if "mesh" in wanted or "mesh_remat" in wanted:
         mesh = make_mesh(1, 1, 1)
         x, y = cs.parallel_batch(cs.bench_config(block_impl="fused"))
-        cs.graph_mesh_case(smi, dev, mesh, x, y)
+        if "mesh" in wanted:
+            cs.graph_mesh_case(smi, dev, mesh, x, y)
+        if "mesh_remat" in wanted:
+            cs.graph_mesh_remat_case(smi, dev, mesh, x, y)
         dist.destroy_process_group()
     print(smi, flush=True)
     return 0

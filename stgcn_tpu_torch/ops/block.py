@@ -38,6 +38,8 @@ both convs run as the V-major kernels.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -149,8 +151,14 @@ def block_forward_train(params: dict, state: dict, x: torch.Tensor,
     recomputed in the backward (a conv kernel's forward launches again).
     """
     a = effective_adjacency(params, adjacency)
-    run = ((lambda fn, *args: checkpointed(fn, generator, *args))
-           if selective_remat else (lambda fn, *args: fn(*args)))
+
+    def run(fn, *args, draws=False):
+        # only the stretch with the dropout draws: the others recompute
+        # without a generator state of their own
+        if not selective_remat:
+            return fn(*args)
+        return checkpointed(fn, generator if draws else None, *args)
+
     spatial, temporal = _conv_fns(
         params, a, stride=stride, compute_dtype=compute_dtype,
         spatial_impl=spatial_impl, temporal_impl=temporal_impl,
@@ -180,7 +188,7 @@ def block_forward_train(params: dict, state: dict, x: torch.Tensor,
             return _relu_dropout(h + shortcut, dropout_rate, generator,
                                  dropout_impl)
 
-        return run(tail, h, x), new_state
+        return run(tail, h, x, draws=True), new_state
     h = run(temporal, h)                        # temporal_in is spatial_out
 
     def tail(h):
@@ -188,34 +196,130 @@ def block_forward_train(params: dict, state: dict, x: torch.Tensor,
                                  group=bn_group)
         return _relu_dropout(out, dropout_rate, generator, dropout_impl), s
 
-    out, new_state["bn2"] = run(tail, h)
+    out, new_state["bn2"] = run(tail, h, draws=True)
     return out, new_state
+
+
+class RecomputeStates:
+    """Where the recomputes of one step draw their dropout masks on a CUDA
+    device (:func:`checkpointed`).
+
+    A recompute must draw the forward's masks: the step's seed at the
+    philox offset its stretch started from.  An eager step clones the
+    generator's state as each drawing stretch starts (``clone_state``),
+    records that offset, and its recompute switches the generator to the
+    clone and back (``graphsafe_set_state``).  A CUDA graph takes no new
+    generator state while it captures, so a captured step draws each
+    recompute from a state of its own made before the capture
+    (:meth:`capture_states`), registered with the graph and set before
+    every replay to the step's seed at the offset its warm-up recorded
+    (:meth:`seed`): the warm-up and the capture run the same stretches in
+    the same order, so each draws from the same offset.
+    """
+
+    def __init__(self):
+        self.offsets: list[int] = []    # the last eager call's stretches
+        self.states: list[torch.Generator] = []     # the capture's
+        self._taken = 0
+
+    def begin_eager(self) -> None:
+        """An eager call of the step begins: record its stretches anew."""
+        self.offsets = []
+
+    def capture_states(self, device: torch.device) -> list:
+        """Before a capture: one new state a stretch the warm-up drew in,
+        for the capture to register with its graph."""
+        self.states = [torch.Generator(device=device) for _ in self.offsets]
+        self._taken = 0
+        return self.states
+
+    def fork(self, generator: torch.Generator) -> torch.Generator:
+        """A generator state at ``generator``'s position, for the
+        recompute of the stretch that starts now."""
+        if not torch.cuda.is_current_stream_capturing():
+            self.offsets.append(generator.get_offset())
+            return generator.clone_state()
+        if self._taken == len(self.states):
+            raise RuntimeError(
+                "the captured step reached more drawing stretches than its "
+                f"warm-up ({len(self.states)})")
+        self._taken += 1
+        return self.states[self._taken - 1]
+
+    def finish(self) -> None:
+        """After a capture: it drew from every state it registered."""
+        if self._taken != len(self.states):
+            raise RuntimeError(
+                f"the captured step reached {self._taken} drawing stretches, "
+                f"its warm-up {len(self.states)}")
+
+    def seed(self, key: int) -> None:
+        """Before a replay: each state at the step's seed and its
+        stretch's offset."""
+        for state, offset in zip(self.states, self.offsets):
+            state.manual_seed(key)
+            state.set_offset(offset)
+
+
+class DropoutGenerator(torch.Generator):
+    """A step's dropout generator with the :class:`RecomputeStates` of its
+    recomputes (``recompute``), which
+    :class:`~stgcn_tpu_torch.training.graphs.CapturedStep` makes one a
+    graph; any other generator's recomputes draw from eager clones."""
+
+    def __init__(self, device: torch.device):
+        super().__init__()      # torch.Generator.__new__ took the device
+        self.recompute = RecomputeStates()
 
 
 def checkpointed(fn, generator: torch.Generator | None, *args):
     """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): the
     backward keeps ``args`` and recomputes the rest by calling ``fn``
     again.  The checkpoint restores only the global RNGs, not an explicit
-    generator, so ``generator``'s state is taken before the first call and
-    put back for the recompute (and the later state restored after it):
-    the recompute draws the forward's dropout mask.  Nothing here draws
-    from the global RNGs, so the checkpoint does not save them.  What the
-    recompute returns besides the saved tensors, such as new BN running
-    statistics, is dropped: the caller keeps the first call's."""
-    saved = generator.get_state() if generator is not None else None
+    generator, so a stretch that draws from ``generator`` passes it here
+    and its recompute draws from the state the first call started from:
+    on the CPU ``get_state`` taken before the first call and put back for
+    the recompute (the later state restored after it); on CUDA a state of
+    :class:`RecomputeStates` switched in with ``graphsafe_set_state``,
+    which a CUDA graph can capture.  A stretch that draws nothing passes
+    None and keeps no state.  Nothing here draws from the global RNGs, so
+    the checkpoint does not save them.  What the recompute returns
+    besides the saved tensors, such as new BN running statistics, is
+    dropped: the caller keeps the first call's."""
+    if generator is None:
+        restore = None
+    elif generator.device.type == "cpu":
+        saved = generator.get_state()
+
+        @contextlib.contextmanager
+        def restore():
+            later = generator.get_state()
+            generator.set_state(saved)
+            try:
+                yield
+            finally:
+                generator.set_state(later)
+    else:
+        states = getattr(generator, "recompute", None) or RecomputeStates()
+        fork = states.fork(generator)
+
+        @contextlib.contextmanager
+        def restore():
+            own = generator.graphsafe_get_state()
+            generator.graphsafe_set_state(fork)
+            try:
+                yield
+            finally:
+                generator.graphsafe_set_state(own)
     calls = 0
 
     def run(*inner):
         nonlocal calls
         calls += 1
-        if calls == 1 or generator is None:
+        if calls == 1 or restore is None:
             return fn(*inner)
-        later = generator.get_state()
-        generator.set_state(saved)
-        try:
+        with restore():
             return fn(*inner)
-        finally:
-            generator.set_state(later)
 
     return checkpoint(run, *args, use_reentrant=False,
                       preserve_rng_state=False)

@@ -52,7 +52,6 @@ from stgcn_tpu_torch.parallel.mesh import (
 from stgcn_tpu_torch.training import metrics as M
 from stgcn_tpu_torch.training.graphs import CapturedStep
 from stgcn_tpu_torch.training.loop import (
-    REMAT_EAGER,
     begin_train_step,
     end_train_step,
     eval_sums,
@@ -287,12 +286,11 @@ def make_sharded_train_step(model, mesh: Mesh, *, shard_joints: bool = False,
         copy_state_(ts.model_state, new_ms)
         return {"loss": loss, "acc": acc}
 
-    eager = mesh_eager_reason(mesh) or (REMAT_EAGER if model.config.remat
-                                        else None)
     return CapturedStep(
         body, state_tensors=lambda ts: ts.tensors() + list(model.buffers()),
         before=begin_train_step(model, _shard_index(mesh, shard_joints)),
-        after=end_train_step, capture=capture, eager_reason=eager,
+        after=end_train_step, capture=capture,
+        eager_reason=mesh_eager_reason(mesh),
         name="mesh train step")
 
 

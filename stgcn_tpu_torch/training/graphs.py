@@ -37,9 +37,21 @@ device work ``body(state, *inputs, generator=None) -> outputs``:
   same signature overwrites: clone what you keep.
 * **Host work.**  ``before(state)`` runs ahead of the device work on every
   call (the optimizer's count and per-step scalars) and returns the
-  dropout seed or None; ``after(state)`` runs after it (the step count).
-  Each graph has its own dropout generator, registered with it and seeded
-  before every replay, so a replay draws the eager step's masks.
+  dropout seed or None; ``check(state, outputs)`` runs after the device
+  work, eager or replayed, and returns what the call returns: it may read
+  a small output tensor and raise, taking back what ``before`` did (the
+  checked step, :mod:`stgcn_tpu_torch.training.checks`); ``after(state)``
+  runs last (the step count).  Each graph has its own dropout generator,
+  registered with it and seeded before every replay, so a replay draws
+  the eager step's masks.
+* **Recompute.**  A ``remat`` step's backward recomputes its blocks and
+  draws their dropout masks again (:func:`stgcn_tpu_torch.ops.block.
+  checkpointed`), each from a generator state of its own (the
+  :class:`~stgcn_tpu_torch.ops.block.RecomputeStates` that the graph's
+  :class:`~stgcn_tpu_torch.ops.block.DropoutGenerator` carries): the
+  capture registers one a drawing stretch beside the dropout generator,
+  and each is set to the step's seed at its stretch's offset before every
+  replay.
 * **Launch counts.**  The kernel wrappers count launches in Python
   (``kernels/__init__.py``), and the parallel paths their collectives
   (``parallel/collectives.COUNTS``), which a replay does not run: a
@@ -48,9 +60,11 @@ device work ``body(state, *inputs, generator=None) -> outputs``:
 * **Eager.**  On the CPU, and with ``capture=False`` (the counterpart of
   ``jax.disable_jit()``), the body runs eagerly every call, through the
   same input and output buffers.  A step that cannot be captured names
-  its reason (``eager_reason``: gloo collectives, remat's generator
-  restore) and runs eagerly, saying so once on a CUDA device;
-  ``capture=True`` with a reason, or on the CPU, raises.
+  its reason (``eager_reason``: a gloo mesh's collectives, which run on
+  the host) and runs eagerly, saying so once on a CUDA device;
+  ``capture=True`` with a reason, or on the CPU, raises.  The training
+  loop's ``debug_nans`` (autograd's anomaly mode, checked on the host
+  after every backward op) runs its step with ``capture=False``.
 """
 
 from __future__ import annotations
@@ -62,6 +76,7 @@ from typing import Any, Callable
 
 import torch
 
+from stgcn_tpu_torch.ops.block import DropoutGenerator
 from stgcn_tpu_torch.tree import tree_leaves, tree_map
 
 # the kernel modules whose wrappers count their launches
@@ -123,7 +138,7 @@ class _Entry:
     """One input signature: its buffers and, once captured, its graph."""
 
     inputs: list
-    generator: torch.Generator | None = None
+    generator: DropoutGenerator | None = None
     outputs: Any = None
     warm: bool = False
     graph: Any = None
@@ -138,14 +153,15 @@ class CapturedStep:
 
     ``body(state, *inputs, generator=None)``: the device work, in place on
     ``state``; ``state_tensors(state)``: every tensor it reads or writes
-    in place, whose addresses a graph keeps; ``before``/``after``: the
-    host's work around it; ``capture``: None (capture on CUDA), True
-    (capture or raise) or False (eager); ``eager_reason``: why this step
-    cannot be captured, if it cannot.
+    in place, whose addresses a graph keeps; ``before``/``check``/
+    ``after``: the host's work around it; ``capture``: None (capture on
+    CUDA), True (capture or raise) or False (eager); ``eager_reason``: why
+    this step cannot be captured, if it cannot.
     """
 
     def __init__(self, body: Callable, *, state_tensors: Callable,
                  before: Callable | None = None,
+                 check: Callable | None = None,
                  after: Callable | None = None,
                  capture: bool | None = None,
                  eager_reason: str | None = None, name: str = "step"):
@@ -154,6 +170,7 @@ class CapturedStep:
         self.body = body
         self.state_tensors = state_tensors
         self.before = before
+        self.check = check
         self.after = after
         self.capture = capture
         self.eager_reason = eager_reason
@@ -218,8 +235,9 @@ class CapturedStep:
         key = self.before(state) if self.before is not None else None
         if key is not None:
             if entry.generator is None:
-                entry.generator = torch.Generator(device=device)
+                entry.generator = DropoutGenerator(device)
             entry.generator.manual_seed(key)
+            entry.generator.recompute.seed(key)
         if entry.graph is not None:
             for p, g in entry.grads:
                 p.grad = g
@@ -235,6 +253,8 @@ class CapturedStep:
                 entry.warm = True
                 self._addresses = tuple(
                     t.data_ptr() for t in self.state_tensors(state))
+        if self.check is not None:
+            out = self.check(state, out)
         if self.after is not None:
             self.after(state)
         return tree_map(lambda t: t, out)    # new containers, same tensors
@@ -242,6 +262,8 @@ class CapturedStep:
     def _eager(self, state, entry: _Entry, warm_up: bool, device):
         """The body, eagerly, its outputs copied into the static ones; a
         warm-up runs on the side stream that the capture will use."""
+        if entry.generator is not None:
+            entry.generator.recompute.begin_eager()
         if warm_up:
             side = _captures(device).stream
             main = torch.cuda.current_stream(device)
@@ -267,8 +289,15 @@ class CapturedStep:
             # a released pool cannot take a new graph: start another
             shared.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        recompute = None
         if entry.generator is not None:
-            graph.register_generator_state(entry.generator)
+            # its state as a plain torch.Generator, the type the binding
+            # takes (graphsafe_get_state shares the state, not a copy)
+            graph.register_generator_state(
+                entry.generator.graphsafe_get_state())
+            recompute = entry.generator.recompute
+            for state_ in recompute.capture_states(device):
+                graph.register_generator_state(state_)
         counters = launch_counters()
         counts = [f.launches for f in counters]
         issued = _collectives().read_counts()
@@ -277,6 +306,8 @@ class CapturedStep:
                                   stream=shared.stream):
                 outputs = self.body(state, *entry.inputs,
                                     generator=entry.generator)
+                if recompute is not None:
+                    recompute.finish()
         except Exception as err:
             raise RuntimeError(
                 f"capturing {self.name} in a CUDA graph failed; "

@@ -45,10 +45,6 @@ from stgcn_tpu_torch.training.train_state import (
     step_key,
 )
 
-REMAT_EAGER = ("remat restores the dropout generator's state for the "
-               "recompute, which a capture cannot")
-
-
 def forward_backward(model, ts: TrainState, x: torch.Tensor,
                      y: torch.Tensor, time_mask: torch.Tensor | None = None,
                      generator: torch.Generator | None = None):
@@ -113,7 +109,8 @@ def make_train_step(model, *, use_time_mask: bool = False,
     optimizer), ``model_state`` (the new BN running statistics, written
     into its tensors) and ``step``.  After a step each parameter leaf's
     ``.grad`` holds that step's gradient.  ``capture``: see
-    :class:`CapturedStep`; a ``remat`` model runs eagerly.
+    :class:`CapturedStep` (a ``remat`` model's recompute is captured
+    too).
     """
 
     def body(ts: TrainState, x, y, time_mask=None, *, generator=None):
@@ -127,9 +124,7 @@ def make_train_step(model, *, use_time_mask: bool = False,
     return CapturedStep(
         body, state_tensors=lambda ts: ts.tensors() + list(model.buffers()),
         before=begin_train_step(model), after=end_train_step,
-        capture=capture,
-        eager_reason=REMAT_EAGER if model.config.remat else None,
-        name="train step")
+        capture=capture, name="train step")
 
 
 def make_eval_step(model, *, capture: bool | None = None) -> CapturedStep:
@@ -193,12 +188,13 @@ class Trainer:
     ``optimizer``: an optimizer factory such as ``make_optimizer(cfg)``
     (``adam(lr)`` when None).  ``device``: where the state and batches live,
     CUDA unless ``"cpu"`` is asked for.  The steps are captured in CUDA
-    graphs there (:func:`make_train_step`), apart from these, which run
-    eagerly: ``check_invariants`` runs
-    :func:`~stgcn_tpu_torch.training.checks.make_checked_train_step`, which
-    reads values back between its stages; ``debug_nans`` turns on
-    autograd's anomaly detection for the duration of :meth:`fit`, which
-    checks each backward op's output on the host.
+    graphs there (:func:`make_train_step`), ``remat`` models too;
+    ``check_invariants`` runs
+    :func:`~stgcn_tpu_torch.training.checks.make_checked_train_step`,
+    captured as well, which reads its three flags back once a step and
+    raises on a trip.  ``debug_nans`` turns on autograd's anomaly
+    detection for the duration of :meth:`fit`, which checks each backward
+    op's output on the host: its step runs eagerly and says so.
 
     ``mesh`` (a :class:`stgcn_tpu_torch.parallel.mesh.Mesh`) runs the
     sharded steps of :mod:`stgcn_tpu_torch.parallel.train` on this rank's
@@ -243,12 +239,9 @@ class Trainer:
         self.shard_joints = shard_joints
         self.device = mesh.device if mesh is not None else \
             resolve_device(device)
-        eager = ("check_invariants reads values back between the step's "
-                 "stages" if check_invariants else
-                 "debug_nans checks every backward op on the host"
-                 if debug_nans else None)
-        if eager and self.device.type == "cuda":
-            print(f"[graph] train step runs eagerly: {eager}", flush=True)
+        if debug_nans and self.device.type == "cuda":
+            print("[graph] train step runs eagerly: debug_nans checks every "
+                  "backward op on the host", flush=True)
         self._capture = False if debug_nans else None
         if mesh is not None:
             # built in init_state, as the JAX Trainer builds its
@@ -257,7 +250,8 @@ class Trainer:
             from stgcn_tpu_torch.training.checks import (
                 make_checked_train_step,
             )
-            self.train_step = make_checked_train_step(model)
+            self.train_step = make_checked_train_step(model,
+                                                      capture=self._capture)
         else:
             self.train_step = make_train_step(model, capture=self._capture)
         if mesh is None:

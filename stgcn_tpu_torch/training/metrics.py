@@ -1,8 +1,8 @@
-"""Classification metrics (port of ``stgcn_tpu/training/metrics.py:16-39``).
+"""Classification metrics (port of ``stgcn_tpu/training/metrics.py:16-41``).
 
 Cross-entropy with ``torch.nn.functional.cross_entropy`` semantics (mean over
 the batch) computed in float32 whatever the logits' dtype, argmax accuracy,
-and the confusion matrix of the eval step.
+the confusion matrix of the eval step and top-k accuracy.
 """
 
 from __future__ import annotations
@@ -31,3 +31,11 @@ def confusion_matrix(logits: torch.Tensor, labels: torch.Tensor,
     cm.index_add_(0, labels.long() * num_classes + pred,
                   torch.ones_like(pred))
     return cm.view(num_classes, num_classes)
+
+
+def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                  k: int = 1) -> torch.Tensor:
+    """Fraction of rows whose label is among the ``k`` largest logits, as
+    a float32 scalar."""
+    idx = logits.topk(k, dim=-1).indices
+    return (idx == labels[:, None]).any(dim=-1).to(torch.float32).mean()

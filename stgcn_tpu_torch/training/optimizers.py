@@ -255,15 +255,9 @@ class OptaxOptimizer(torch.optim.Optimizer):
         leaf's ``step``."""
         spec = self.spec
         params = self._params()
-        host = {"lr": spec.lr(self.count)}
         self.count += 1
-        t = self.count
-        if spec.name == "flat_adam":
-            host["bc1"], host["bc2"] = (float(np.float32(1.0) - np.power(
-                np.float32(b), np.float32(t))) for b in (spec.b1, spec.b2))
-        elif spec.name in _ADAMS:
-            host["bc1"], host["bc2"] = 1 - spec.b1 ** t, 1 - spec.b2 ** t
-        step = torch.tensor(float(t), dtype=torch.float32)
+        host = self._step_values(self.count)
+        step = torch.tensor(float(self.count), dtype=torch.float32)
         for p in params:
             st = self.state[p]
             if spec.name in _ADAMS:
@@ -274,7 +268,6 @@ class OptaxOptimizer(torch.optim.Optimizer):
                 st["step"] = step
             elif spec.name == "momentum" and "momentum_buffer" not in st:
                 st["momentum_buffer"] = torch.zeros_like(p)
-        host["neg_lr"] = -host["lr"]
         if not self._scalars and params:
             # the arithmetic type of the update: float64 leaves take the
             # values whole, as the Python floats did; flat_adam computes
@@ -284,9 +277,37 @@ class OptaxOptimizer(torch.optim.Optimizer):
             self._scalars = {k: torch.zeros(
                 (), dtype=torch.float64 if wide else torch.float32,
                 device=params[0].device) for k in host}
+        self._set_scalars(host)
+
+    def _step_values(self, t: int) -> dict[str, float]:
+        """The host's scalars of update ``t`` (from 1)."""
+        spec = self.spec
+        host = {"lr": spec.lr(t - 1)}
+        if spec.name == "flat_adam":
+            host["bc1"], host["bc2"] = (float(np.float32(1.0) - np.power(
+                np.float32(b), np.float32(t))) for b in (spec.b1, spec.b2))
+        elif spec.name in _ADAMS:
+            host["bc1"], host["bc2"] = 1 - spec.b1 ** t, 1 - spec.b2 ** t
+        host["neg_lr"] = -host["lr"]
+        return host
+
+    def _set_scalars(self, host: dict[str, float]) -> None:
         for k, v in host.items():
             self._scalars[k].fill_(v)
         self._host = host
+
+    @torch.no_grad()
+    def revert_step(self) -> None:
+        """Take back the last :meth:`begin_step`, for a step whose update
+        did not land (the checked step's trip): the count, each leaf's
+        ``step`` and the per-step scalars are the last update's again."""
+        self.count -= 1
+        step = torch.tensor(float(self.count), dtype=torch.float32)
+        for st in self.state.values():
+            if "step" in st:
+                st["step"] = step
+        if self.count:
+            self._set_scalars(self._step_values(self.count))
 
     def state_tensors(self) -> list[torch.Tensor]:
         """The device tensors :meth:`update` reads and writes besides the

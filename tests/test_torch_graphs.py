@@ -19,8 +19,9 @@ input from a numpy seed:
   Python-float update it replaced.
 * **The cache.**  One entry per input signature: a new T, a new batch
   size and a time mask each add one; the same signature adds none.
-* **Refusals.**  ``capture=True`` on the CPU, with ``remat`` and with a
-  reason (a gloo mesh) raises.
+* **Refusals.**  ``capture=True`` on the CPU and with a reason (a gloo
+  mesh) raises; a ``remat`` step has no reason and builds with
+  ``capture=True``.
 * **Trainer.fit.**  Its epoch loss is the mean of the per-step losses, not
   the last step's output read again.
 * **Predictor.predict_stream.**  Over distinct batches of two buckets at
@@ -244,10 +245,14 @@ def test_capture_refusals(rng):
     ts, _ = state_pair(model, opt.adam(1e-3))
     with pytest.raises(ValueError, match="needs a CUDA device"):
         make_train_step(model, capture=True)(ts, x, y)
+    # remat's recompute is captured: no reason, and capture=True builds
+    # (and, on the CPU, refuses to run as every step does)
     remat = tm.STGCN(config(remat=True))
-    with pytest.raises(ValueError, match="remat"):
-        make_train_step(remat, capture=True)
-    assert make_train_step(remat).eager_reason is not None
+    assert make_train_step(remat).eager_reason is None
+    captured = make_train_step(remat, capture=True)
+    assert captured.capture and captured.eager_reason is None
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        captured(ts, x, y)
     gloo = types.SimpleNamespace(backend="gloo")
     reason = mesh_eager_reason(gloo)
     assert "gloo" in reason
