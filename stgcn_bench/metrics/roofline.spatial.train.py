@@ -1,0 +1,22 @@
+"""The spatial train ops' share of their roofline: the least time of a
+step's graph-conv work (each unit's spatial op, forward and backward, from
+its shapes: ``shapes.spatial_bound_ms``) times the window's steps, over the
+device time of the kernels that ``roofline.spatial.train.d`` names."""
+
+from stgcn_bench import shapes
+from stgcn_bench.metrics import _kernels
+
+NAME = "roofline.spatial.train"
+
+
+def claims(ctx):
+    return _kernels.claimed(ctx, NAME)
+
+
+def read(ctx):
+    if "steps" not in ctx:
+        return None
+    bound = shapes.spatial_bound_ms(ctx["cell"].config,
+                                    ctx["batch"] // ctx["chips"],
+                                    ctx["frames"], shapes.peaks(ctx))
+    return _kernels.roofline(ctx, NAME, bound * ctx["steps"])

@@ -1,0 +1,26 @@
+"""Tests of the benchmark: on the CPU at small sizes, against the
+program's plain versions; those marked ``card`` need a CUDA card and skip
+without one (decided in the ``card`` fixture, never at import)."""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[2]
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers",
+                            "card: needs a CUDA card; skips without one")
+
+
+@pytest.fixture
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
