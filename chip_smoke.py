@@ -297,6 +297,20 @@ non-zero exit code:
 
 ``{"phase": "run"}`` gives the whole run's seconds.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+
+``python3 chip_smoke.py --trace [--parallel-cards]`` checks the phase
+marks of the captured train step alone (``utils/profiling.py``), on one
+card or data parallel over the machine's cards (up to 4, NCCL, one rank
+a card): three steps of the fused step at the KTH cell's width from one
+state, with tracing off (the plain graph) and under ``torch.profiler``
+(the marked graph, captured beside the plain one), whose loss,
+parameters and BN statistics must be bitwise equal; the marked replays'
+marks in the declared order; the phases' kernel ms summing to the
+replays' non-NCCL kernel ms; every kernel that ``stgcn_bench``'s roofline
+patterns claim inside its own phase (spatial or temporal).  Its
+``{"phase": "trace"}`` line gives the per-phase ms a step, the markers'
+device us a step and each call's host ms (the second captures both
+graphs).
 """
 
 from __future__ import annotations
@@ -4356,6 +4370,8 @@ def parallel_rank_main(suite: str, backend: str, rank: int, world: int,
                 json.dump(out, f)
         dist.barrier()
         return 0
+    if suite == "trace":
+        return trace_rank(dev, tmp)
     results = {}
     for kind, fn in PARALLEL_CASES:
         name = case_name(kind, world)
@@ -4635,6 +4651,270 @@ def parallel_cards_main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---- --trace: the phase marks of the captured train step -------------------
+
+TRACE_STEPS = 3
+PHASE_MARK = re.compile(r"\bstgcn_phase_mark<stgcn_phase::(\w+)>")
+# the benchmark's pattern files, read as data
+BENCH_METRICS = Path(__file__).resolve().parent / "stgcn_bench" / "metrics"
+
+
+def trace_kernels(path) -> list:
+    """``(name, start, end, stream)`` of every kernel of a Chrome trace
+    that ``torch.profiler`` wrote, in start order (microseconds)."""
+    events = json.loads(Path(path).read_text()).get("traceEvents", [])
+    found = [(e["name"], float(e["ts"]),
+              float(e["ts"]) + float(e.get("dur", 0.0)), e.get("tid"))
+             for e in events
+             if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    return sorted(found, key=lambda k: k[1])
+
+
+def metric_patterns(metric: str) -> tuple[list, list]:
+    """The ``match`` and ``after`` expressions of a benchmark metric's
+    pattern files (``stgcn_bench/metrics/<metric>.d/*.txt``)."""
+    match, after = [], []
+    for f in sorted((BENCH_METRICS / f"{metric}.d").glob("*.txt")):
+        for line in f.read_text().splitlines():
+            kind, _, rx = line.strip().partition(" ")
+            if kind in ("match", "after"):
+                (match if kind == "match" else after).append(
+                    re.compile(rx.strip()))
+    return match, after
+
+
+def pattern_claimed(kernels: list, metric: str) -> list:
+    """The kernels a metric's patterns claim, as the benchmark reads
+    them: a ``match`` anywhere, an ``after`` right behind a claimed
+    kernel on its stream."""
+    match, after = metric_patterns(metric)
+    last_on, out = {}, []
+    for k in kernels:
+        hit = any(p.search(k[0]) for p in match) or (
+            last_on.get(k[3], False) and any(p.search(k[0]) for p in after))
+        last_on[k[3]] = hit
+        if hit:
+            out.append(k)
+    return out
+
+
+def kernels_ms(kernels: list) -> float:
+    return sum(e - s for _, s, e, _ in kernels) / 1e3
+
+
+def expected_marks(n_units: int, mesh: bool) -> list:
+    """The marks of one fused train step: the input, each unit's five
+    phases forward, the head, each unit's five backward, last unit first
+    (unit 0's input has no gradient, so its entry marks nothing there),
+    then the gradient exchange on a mesh and the optimizer."""
+    fwd = ["bn_stats", "spatial", "bn_stats", "temporal", "tail"]
+    bwd = ["tail", "temporal", "bn_stats", "spatial", "bn_stats"]
+    return (["input"] + fwd * n_units + ["head"] + bwd * n_units
+            + (["grad_sync"] if mesh else []) + ["optimizer"])
+
+
+def trace_check(dev, mesh=None) -> dict:
+    """Three steps of the captured fused step (the KTH cell's width, B=64
+    a card, T=304, dropout 0.5) from one state, twice: with tracing off
+    (the plain graph) and under ``torch.profiler`` (the marked graph,
+    captured beside the plain one).  Loss, parameters and BN
+    statistics must be bitwise equal; the marked replays' marks must come
+    in the declared order; the phases' kernel ms must sum to the
+    replays' non-NCCL kernel ms; every kernel that a roofline pattern of
+    ``stgcn_bench`` claims must lie in its own phase (spatial or
+    temporal).  Reports the per-phase ms, the markers' device us a step
+    and each call's host ms (the second holds both captures)."""
+    import torch
+
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.parallel.train import make_sharded_train_step
+    from stgcn_tpu_torch.training.loop import make_train_step
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import train_state_from
+    from stgcn_tpu_torch.tree import tree_leaves
+
+    cfg = bench_config(block_impl="fused")
+    model = STGCN(cfg).to(dev)
+    params, state = model.init_params(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    batches = [(torch.randn((B, T, V, 2), generator=gen, device=dev),
+                torch.randint(0, 6, (B,), generator=gen, device=dev))
+               for _ in range(2 + TRACE_STEPS)]
+
+    def run(traced: bool):
+        ts = train_state_from(params, state, adam(1e-3), SEED, dev)
+        step = (make_train_step(model) if mesh is None
+                else make_sharded_train_step(model, mesh))
+        setup_ms = []
+        for x, y in batches[:2]:        # the warm-up, the captures
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(ts, x, y)
+            torch.cuda.synchronize()
+            setup_ms.append((time.perf_counter() - t0) * 1e3)
+        losses, call_ms = [], []
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        prof = torch.profiler.profile(activities=acts) if traced else None
+        if prof is not None:
+            prof.__enter__()
+        try:
+            for x, y in batches[2:]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(ts, x, y)
+                torch.cuda.synchronize()
+                call_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(out["loss"].clone())
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+        got = {"losses": [float(v) for v in losses],
+               "tensors": [t.detach().cpu() for t in
+                           tree_leaves(ts.params)
+                           + tree_leaves(ts.model_state)],
+               "graphs": step.cache_size, "marked": step.marked_graphs,
+               "setup_ms": setup_ms, "call_ms": call_ms}
+        if prof is not None:
+            with tempfile.NamedTemporaryFile(suffix=".json") as f:
+                prof.export_chrome_trace(f.name)
+                got["kernels"] = trace_kernels(f.name)
+        del step, ts
+        torch.cuda.synchronize()
+        return got
+
+    plain, marked = run(False), run(True)
+    bitwise = (plain["losses"] == marked["losses"] and all(
+        torch.equal(a, b) for a, b in zip(plain["tensors"],
+                                          marked["tensors"])))
+    kernels = marked["kernels"]
+    nccl = {id(k) for k in pattern_claimed(kernels, "nccl_ms.train")}
+    marks, kinds, phase_of, phases, current = [], [], {}, {}, None
+    for k in kernels:       # a kernel is in the latest mark's phase
+        m = PHASE_MARK.search(k[0])
+        if m:
+            current = m.group(1)
+            marks.append(k)
+            kinds.append(current)
+            phases.setdefault(current, [])
+        elif current is not None and id(k) not in nccl:
+            phases[current].append(k)
+        phase_of[id(k)] = current
+    want = expected_marks(len(cfg.plan), mesh is not None) * TRACE_STEPS
+    first = kernels.index(marks[0]) if marks else len(kernels)
+    work = [k for k in kernels[first:] if not PHASE_MARK.search(k[0])
+            and id(k) not in nccl]
+    by_phase = {name: kernels_ms(found) / TRACE_STEPS
+                for name, found in phases.items()}
+    misplaced = {}
+    for metric, home in (("roofline.spatial.train", "spatial"),
+                         ("roofline.temporal.train", "temporal")):
+        claimed = pattern_claimed(kernels, metric)
+        wrong = sorted({f"{phase_of[id(k)]}: {k[0][:80]}" for k in claimed
+                        if phase_of[id(k)] != home})
+        misplaced[metric] = {"claimed": len(claimed), "outside": wrong[:8]}
+    unclaimed = {id(k) for k in kernels} - {
+        id(k) for metric in ("roofline.spatial.train",
+                             "roofline.temporal.train", "nccl_ms.train")
+        for k in pattern_claimed(kernels, metric)}
+    rest = {name: kernels_ms([k for k in found if id(k) in unclaimed])
+            / TRACE_STEPS for name, found in phases.items()}
+    marker_us = sum(k[2] - k[1] for k in marks) / TRACE_STEPS
+    out = {
+        "bitwise": bitwise, "losses": marked["losses"],
+        "plain_graphs": [plain["graphs"], plain["marked"]],
+        "traced_graphs": [marked["graphs"], marked["marked"]],
+        "marks_a_step": len(marks) / TRACE_STEPS,
+        "marks_in_order": kinds == want,
+        "phase_ms": by_phase,
+        "phase_rest_ms": rest,
+        "phases_ms_sum": sum(by_phase.values()),
+        "replay_kernel_ms": kernels_ms(work) / TRACE_STEPS,
+        "kernels_before_first_mark": first,
+        "marker_us_a_step": marker_us,
+        "roofline_kernels": misplaced,
+        "warm_up_and_capture_ms": plain["setup_ms"],
+        "plain_call_ms": plain["call_ms"],
+        "traced_call_ms": marked["call_ms"],
+    }
+    out["ok"] = bool(
+        bitwise and out["marks_in_order"]
+        and plain["graphs"] == marked["graphs"] == 1
+        and plain["marked"] == marked["marked"] == 1
+        and abs(out["phases_ms_sum"] - out["replay_kernel_ms"])
+        <= 1e-6 * out["replay_kernel_ms"]
+        and all(m["claimed"] and not m["outside"]
+                for m in misplaced.values()))
+    if not out["marks_in_order"]:
+        out["kinds_head"] = kinds[:12]
+        out["want_head"] = want[:12]
+    return out
+
+
+def trace_main(cards: bool) -> int:
+    """``python3 chip_smoke.py --trace [--parallel-cards]``: the phase
+    marks' check (:func:`trace_check`) on one card, or with
+    ``--parallel-cards`` data parallel over the machine's cards (up to 4)
+    on NCCL, one rank a card (the ranks' results on rank 0's line)."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import _build
+
+    start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    _build.build()
+    _build.load_library()
+    if not cards:
+        result = trace_check(torch.device("cuda", 0))
+    else:
+        n = min(torch.cuda.device_count(), 4)
+        if n < 2:
+            print("--trace --parallel-cards needs two CUDA devices or more",
+                  file=sys.stderr)
+            return 1
+        with tempfile.TemporaryDirectory() as tmp:
+            codes, outs = spawn_ranks("trace", "nccl", tmp, world=n,
+                                      cards=True)
+            path = Path(tmp) / "trace.json"
+            if any(codes) or not path.exists():
+                for r, (c, o) in enumerate(zip(codes, outs)):
+                    print(f"rank {r} exit {c}:\n{o[-4000:]}", flush=True)
+                return 1
+            result = json.loads(path.read_text())
+    emit("trace", cards=cards, **result)
+    emit("run", run_seconds=time.perf_counter() - start)
+    return 0 if result["ok"] else 1
+
+
+def trace_rank(dev, tmp: str) -> int:
+    """One rank of ``--trace --parallel-cards``: the check on the data
+    mesh over every rank; rank 0 writes every rank's result."""
+    import torch.distributed as dist
+
+    from stgcn_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=dist.get_world_size(), device=dev)
+    mine = trace_check(dev, mesh)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if dist.get_rank() == 0:
+        first = dict(every[0])
+        first["ranks"] = [{k: r[k] for k in ("ok", "bitwise",
+                                            "marks_in_order",
+                                            "marks_a_step")}
+                          for r in every]
+        first["ok"] = all(r["ok"] for r in every)
+        (Path(tmp) / "trace.json").write_text(json.dumps(first))
+    dist.barrier()
     return 0
 
 
@@ -5020,6 +5300,8 @@ if __name__ == "__main__":
         sys.exit(parallel_rank_main(sys.argv[2], sys.argv[3],
                                     int(sys.argv[4]), int(sys.argv[5]),
                                     sys.argv[6], sys.argv[7] == "1"))
+    if sys.argv[1:2] == ["--trace"]:
+        sys.exit(trace_main("--parallel-cards" in sys.argv[2:]))
     if sys.argv[1:2] == ["--parallel-cards"]:
         sys.exit(parallel_cards_main())
     sys.exit(main())

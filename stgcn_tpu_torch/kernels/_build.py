@@ -66,6 +66,8 @@ TEMPORAL_MMA_BWD_ARGTYPES = [_P] * 10 + [_I] * 20 + [_P]
 SPATIAL_MMA_FWD_ARGTYPES = [_P] * 8 + [_I] * 13 + [_P]
 # spatial_mma_bwd_launch(16 pointers, 25 ints, stream), bf16
 SPATIAL_MMA_BWD_ARGTYPES = [_P] * 16 + [_I] * 25 + [_P]
+# phase_mark_launch(kind, stream): the empty marker kernel of a phase
+PHASE_MARK_ARGTYPES = [_I, _P]
 # every C entry point and its argument kinds; each returns a cudaError_t
 ENTRY_POINTS = {
     "block_eval_launch": BLOCK_EVAL_ARGTYPES,
@@ -84,6 +86,7 @@ ENTRY_POINTS = {
     "temporal_mma_bwd_launch": TEMPORAL_MMA_BWD_ARGTYPES,
     "spatial_mma_fwd_launch": SPATIAL_MMA_FWD_ARGTYPES,
     "spatial_mma_bwd_launch": SPATIAL_MMA_BWD_ARGTYPES,
+    "phase_mark_launch": PHASE_MARK_ARGTYPES,
 }
 
 

@@ -54,6 +54,7 @@ from stgcn_tpu_torch.ops.block import (
 )
 from stgcn_tpu_torch.ops.common import dropout, linear
 from stgcn_tpu_torch.models.stgcn import _cast_tree
+from stgcn_tpu_torch.utils.profiling import boundary, mark
 
 
 def fused_block_args(bp: dict, bs: dict, adjacency: torch.Tensor, *,
@@ -200,14 +201,20 @@ def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
                               ) -> tuple[torch.Tensor, dict]:
     """One train-mode block on V-major ``(V, N, T, C_in)``: the spatial and
     temporal ops, BN statistics (over ``bn_group``'s ranks with one),
-    shortcut, ReLU and dropout.  Returns ``(out, new_state)``."""
+    shortcut, ReLU and dropout.  Returns ``(out, new_state)``.
+
+    While a profiler records, the tensors between the phases pass through
+    :func:`~stgcn_tpu_torch.utils.profiling.boundary`, which marks
+    ``bn_stats``, ``spatial``, ``bn_stats``, ``temporal`` and ``tail`` in
+    the forward and the same in reverse in the backward; each weight is
+    cast in the phase that uses it."""
     cd = x.dtype
-    a = effective_adjacency(bp, adjacency).to(cd)
-    wt = bp["temporal"]["w"][:, 0].to(cd)
-    bt = bp["temporal"]["b"].to(torch.float32)
     new_state = {}
+    x = boundary("bn_stats", "tail", x)
     s1, t1, new_state["bn1"] = bn_affine_train(bp["bn1"], bs["bn1"], x,
                                                group=bn_group)
+    s1, t1 = boundary("spatial", "bn_stats", s1, t1)
+    a = effective_adjacency(bp, adjacency).to(cd)
     # a fixed graph has no trained adjacency: skip the backward's y_k pass
     need_da = "A" in bp or "mask" in bp
     w, b = bp["spatial"]["w"].to(cd), bp["spatial"]["b"].to(cd)
@@ -220,9 +227,14 @@ def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
                           need_da=need_da)
     acc = stat_dtype(x)
     if residual:
+        z = boundary("bn_stats", "spatial", z)
         s2, t2, new_state["bn2"] = bn_affine_train(bp["bn2"], bs["bn2"], z,
                                                    group=bn_group)
+        s2, t2 = boundary("temporal", "bn_stats", s2, t2)
+        wt = bp["temporal"]["w"][:, 0].to(cd)
+        bt = bp["temporal"]["b"].to(torch.float32)
         u = temporal_block(z, s2, t2, wt, bt, stride=stride, relu2=True)
+        u = boundary("tail", "temporal", u)
         if "residual_proj" in bp:
             rp = bp["residual_proj"]
             xs = x[:, :, ::stride] if stride != 1 else x
@@ -232,12 +244,17 @@ def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
             short = x
         out = torch.relu(u.to(acc) + short.to(acc)).to(cd)
     else:
+        z = boundary("temporal", "spatial", z)
+        wt = bp["temporal"]["w"][:, 0].to(cd)
+        bt = bp["temporal"]["b"].to(torch.float32)
         c_out = wt.shape[-1]
         ident_s = torch.ones(c_out, dtype=torch.float32, device=x.device)
         u = temporal_block(z, ident_s, torch.zeros_like(ident_s), wt, bt,
                            stride=stride, relu2=False)
+        u = boundary("bn_stats", "temporal", u)
         out, new_state["bn2"] = batchnorm_train(bp["bn2"], bs["bn2"], u,
                                                 group=bn_group)
+        out = boundary("tail", "bn_stats", out)
         out = torch.relu(out)
     if dropout_rate > 0.0:
         if generator is None:
@@ -261,6 +278,7 @@ def _train_forward(model, params: dict, state: dict, x: torch.Tensor,
                    ) -> tuple[torch.Tensor, dict]:
     cfg = model.config
     cd = cfg.compute_dtype
+    mark("input", x.device)
     h, layout = x.to(cd or cfg.dtype), "ntvc"
     new_blocks = []
     for i, (_, stride) in enumerate(cfg.plan):
@@ -282,6 +300,7 @@ def _train_forward(model, params: dict, state: dict, x: torch.Tensor,
                 spatial_impl=cfg.spatial_impl,
                 temporal_impl=cfg.temporal_impl, bn_group=bn_group)
         new_blocks.append(s)
+    h = boundary("head", "tail", h)
     logits = _pool_head(cfg, params, h, (0, 2) if layout == "vntc"
                         else (1, 2))
     return logits, {"blocks": new_blocks}

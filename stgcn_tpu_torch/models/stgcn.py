@@ -52,6 +52,7 @@ from stgcn_tpu_torch.ops.common import DROPOUT_IMPLS, global_avg_pool, linear
 from stgcn_tpu_torch.ops.spatial_conv import SPATIAL_IMPLS
 from stgcn_tpu_torch.ops.temporal_conv import TEMPORAL_IMPLS
 from stgcn_tpu_torch.tree import tree_map
+from stgcn_tpu_torch.utils.profiling import boundary, mark
 
 # (c_out, temporal stride) per block.
 DEFAULT_PLAN: tuple[tuple[int, int], ...] = (
@@ -464,6 +465,8 @@ class STGCN(nn.Module):
                                             time_mask=time_mask), state
         if train and cfg.dropout_rate > 0 and generator is None:
             raise ValueError("training with dropout needs a generator")
+        if train:
+            mark("input", x.device)
         cd = cfg.compute_dtype
         if cd is not None:
             params = _cast_tree(params, cd)
@@ -504,6 +507,8 @@ class STGCN(nn.Module):
                 if stride != 1:
                     time_mask = time_mask[:, ::stride]
                 h = h * time_mask[:, :, None, None].to(h.dtype)
+        if train:
+            h = boundary("head", "tail", h)
         pooled = global_avg_pool(h, time_mask, group=pool_group)
         logits = linear(params["fc"], pooled)
         if cfg.final_softmax:
@@ -550,6 +555,8 @@ class STGCN(nn.Module):
                 if stride != 1:
                     time_mask = time_mask[:, ::stride]
                 h = h * time_mask[None, :, :, None].to(h.dtype)
+        if train:
+            h = boundary("head", "tail", h)
         acc = stat_dtype(h)
         if time_mask is None:
             pooled = h.to(acc).mean(dim=(0, 2))

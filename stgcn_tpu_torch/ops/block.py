@@ -53,6 +53,7 @@ from stgcn_tpu_torch.ops.batchnorm import (
 from stgcn_tpu_torch.ops.common import dropout
 from stgcn_tpu_torch.ops.spatial_conv import spatial_conv
 from stgcn_tpu_torch.ops.temporal_conv import pointwise_conv, temporal_conv
+from stgcn_tpu_torch.utils.profiling import boundary
 
 ADJACENCY_MODES = ("reference", "mask", "fixed")
 
@@ -173,11 +174,17 @@ def block_forward_train(params: dict, state: dict, x: torch.Tensor,
         return (torch.relu(h) if residual else h), s
 
     new_state = {}
+    # the phases between the stretches, marked while a profiler records
+    x = boundary("bn_stats", "tail", x)
     h, new_state["bn1"] = run(lambda h: bn_relu("bn1", h), x)  # spatial_in
+    h = boundary("spatial", "bn_stats", h)
     h = run(spatial, h)                                         # spatial_out
     if residual:
+        h = boundary("bn_stats", "spatial", h)
         h, new_state["bn2"] = run(lambda h: bn_relu("bn2", h), h)
+        h = boundary("temporal", "bn_stats", h)
         h = run(temporal, h)                                    # temporal_out
+        h = boundary("tail", "temporal", h)
 
         def tail(h, x):
             if "residual_proj" in params:
@@ -189,11 +196,14 @@ def block_forward_train(params: dict, state: dict, x: torch.Tensor,
                                  dropout_impl)
 
         return run(tail, h, x, draws=True), new_state
+    h = boundary("temporal", "spatial", h)
     h = run(temporal, h)                        # temporal_in is spatial_out
+    h = boundary("bn_stats", "temporal", h)
 
     def tail(h):
         out, s = batchnorm_train(params["bn2"], state["bn2"], h,
                                  group=bn_group)
+        out = boundary("tail", "bn_stats", out)
         return _relu_dropout(out, dropout_rate, generator, dropout_impl), s
 
     out, new_state["bn2"] = run(tail, h, draws=True)
@@ -226,10 +236,15 @@ class RecomputeStates:
         """An eager call of the step begins: record its stretches anew."""
         self.offsets = []
 
-    def capture_states(self, device: torch.device) -> list:
-        """Before a capture: one new state a stretch the warm-up drew in,
-        for the capture to register with its graph."""
-        self.states = [torch.Generator(device=device) for _ in self.offsets]
+    def capture_states(self, device: torch.device, fresh: bool = True
+                       ) -> list:
+        """Before a capture: one state a stretch the warm-up drew in, for
+        the capture to register with its graph; new ones with ``fresh``,
+        else those of the last capture, so that two graphs of one step
+        draw from the same states."""
+        if fresh or len(self.states) != len(self.offsets):
+            self.states = [torch.Generator(device=device)
+                           for _ in self.offsets]
         self._taken = 0
         return self.states
 
@@ -352,6 +367,8 @@ def block_forward_vm(params: dict, state: dict, x: torch.Tensor,
     the layout.  ``train`` uses the batch statistics and dropout; returns
     ``(out, new_state)``, ``state`` itself in eval.
     """
+    if train:
+        x = boundary("bn_stats", "tail", x)
     a = effective_adjacency(params, adjacency)
     v, n, t, _ = x.shape
 

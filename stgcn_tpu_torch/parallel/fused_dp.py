@@ -42,6 +42,7 @@ from stgcn_tpu_torch.training.loop import (
     eval_sums,
 )
 from stgcn_tpu_torch.training.train_state import TrainState, copy_state_
+from stgcn_tpu_torch.utils.profiling import mark
 
 
 def check_dp_only(mesh: Mesh, what: str = "block_impl='fused'") -> None:
@@ -87,6 +88,7 @@ def make_fused_dp_grads(model, mesh: Mesh) -> Callable:
                                              bn_group=group)
         loss = M.cross_entropy(logits, y)
         (loss * share).backward()
+        mark("grad_sync", x.device)
         with torch.no_grad():
             got = [p.grad if p.grad is not None else torch.zeros_like(p)
                    for p in leaves]
@@ -113,6 +115,7 @@ def make_fused_dp_train_step(model, mesh: Mesh, *,
     def body(ts: TrainState, x, y, *, generator=None):
         loss, acc, new_ms = sharded_grads(ts.params, ts.model_state,
                                           generator, x, y)
+        mark("optimizer", x.device)
         ts.optimizer.update()
         copy_state_(ts.model_state, new_ms)
         return {"loss": loss, "acc": acc}
@@ -121,7 +124,8 @@ def make_fused_dp_train_step(model, mesh: Mesh, *,
         body, state_tensors=lambda ts: ts.tensors() + list(model.buffers()),
         before=begin_train_step(model, (mesh.index(AXIS_DATA),)),
         after=end_train_step, capture=capture,
-        eager_reason=mesh_eager_reason(mesh), name="fused mesh train step")
+        eager_reason=mesh_eager_reason(mesh), marks=True,
+        name="fused mesh train step")
 
 
 def make_fused_dp_eval_step(model, mesh: Mesh, *,

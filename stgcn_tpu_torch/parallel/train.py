@@ -63,6 +63,7 @@ from stgcn_tpu_torch.training.train_state import (
     train_state_from,
 )
 from stgcn_tpu_torch.tree import tree_leaves
+from stgcn_tpu_torch.utils.profiling import mark
 
 
 def create_sharded_train_state(model, optimizer, mesh: Mesh, seed: int = 0,
@@ -225,6 +226,7 @@ def make_sharded_grads(model, mesh: Mesh, *, shard_joints: bool = False,
             time_mask=time_mask if use_time_mask else None, **hooks)
         loss = M.cross_entropy(logits, y)
         (loss * share).backward()
+        mark("grad_sync", x.device)
         with torch.no_grad():
             got = [p.grad if p.grad is not None else torch.zeros_like(p)
                    for p in leaves]
@@ -282,6 +284,7 @@ def make_sharded_train_step(model, mesh: Mesh, *, shard_joints: bool = False,
 
     def body(ts: TrainState, x, y, time_mask=None, *, generator=None):
         loss, acc, new_ms = grads(ts, x, y, time_mask, generator)
+        mark("optimizer", x.device)
         ts.optimizer.update()
         copy_state_(ts.model_state, new_ms)
         return {"loss": loss, "acc": acc}
@@ -290,7 +293,7 @@ def make_sharded_train_step(model, mesh: Mesh, *, shard_joints: bool = False,
         body, state_tensors=lambda ts: ts.tensors() + list(model.buffers()),
         before=begin_train_step(model, _shard_index(mesh, shard_joints)),
         after=end_train_step, capture=capture,
-        eager_reason=mesh_eager_reason(mesh),
+        eager_reason=mesh_eager_reason(mesh), marks=True,
         name="mesh train step")
 
 

@@ -23,6 +23,11 @@ on a CUDA device one CUDA graph per ``(padded batch, T)`` bucket, as the
 JAX ``Predictor`` compiles one program per bucket, which ``warmup()``
 captures ahead of the first request; eager on the CPU or with
 ``capture=False``.
+
+While a profiler records, a request's host work shows in spans
+(:func:`stgcn_tpu_torch.utils.profiling.span`): ``serve.bucket``,
+``serve.collate`` (two a chunk), ``serve.forward``, ``serve.sync`` and
+``serve.gather``.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from stgcn_tpu_torch.models.convert import state_dict_from_params
 from stgcn_tpu_torch.models.fused import fused_eval_forward
 from stgcn_tpu_torch.models.stgcn import STGCN, STGCNConfig
 from stgcn_tpu_torch.training.graphs import CapturedStep
+from stgcn_tpu_torch.utils.profiling import span
 
 BATCH_PADS = ("max", "pow2", "none")
 
@@ -200,21 +206,34 @@ class Predictor:
         ``predict_batch`` gives.
         """
         inflight: deque = deque()
-        for x in batches:
+        batches = iter(batches)
+        while True:
+            # the chunk's assembly (predict's generator), then its cast,
+            # pinning and copy: two collate spans a chunk
+            with span("serve.collate"):
+                x = next(batches, None)
+            if x is None:
+                break
             if len(inflight) >= depth:
                 yield _finish(inflight.popleft())
-            probs = self._forward(self._to_device(x)).float()
-            if self.device.type == "cuda":
-                host = torch.empty(probs.shape, dtype=probs.dtype,
-                                   pin_memory=True)
-                host.copy_(probs, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-                inflight.append((host, done))
-            else:
-                inflight.append((probs.clone(), None))
+            with span("serve.collate"):
+                x = self._to_device(x)
+            with span("serve.forward"):
+                inflight.append(self._issue(x))
         while inflight:
             yield _finish(inflight.popleft())
+
+    def _issue(self, x: torch.Tensor) -> tuple:
+        """The forward of a batch on the device and its result's copy
+        back, issued without waiting: ``(result, event or None)``."""
+        probs = self._forward(x).float()
+        if self.device.type != "cuda":
+            return probs.clone(), None
+        host = torch.empty(probs.shape, dtype=probs.dtype, pin_memory=True)
+        host.copy_(probs, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
 
     def predict(self, sequences: list[np.ndarray]) -> Prediction:
         """Variable-length ``(T, V, C)`` sequences -> class probabilities.
@@ -226,9 +245,10 @@ class Predictor:
         num_classes = self.model.config.num_classes
         probs = np.zeros((n, num_classes), np.float32)
         by_bucket: dict[int, list[int]] = {}
-        for i, seq in enumerate(sequences):
-            b = bucket_length(seq.shape[0], self.buckets)
-            by_bucket.setdefault(b, []).append(i)
+        with span("serve.bucket"):
+            for i, seq in enumerate(sequences):
+                b = bucket_length(seq.shape[0], self.buckets)
+                by_bucket.setdefault(b, []).append(i)
 
         chunks: deque[list[int]] = deque()
 
@@ -248,12 +268,15 @@ class Predictor:
                     yield x
 
         for out in self.predict_stream(batches()):
-            chunk = chunks.popleft()
-            probs[chunk] = out[:len(chunk)]
+            with span("serve.gather"):
+                chunk = chunks.popleft()
+                probs[chunk] = out[:len(chunk)]
 
-        labels = probs.argmax(axis=1)
-        names = [label_number_to_name(int(lab))
-                 if num_classes == 6 else str(int(lab)) for lab in labels]
+        with span("serve.gather"):
+            labels = probs.argmax(axis=1)
+            names = [label_number_to_name(int(lab))
+                     if num_classes == 6 else str(int(lab))
+                     for lab in labels]
         return Prediction(probs=probs, labels=labels, label_names=names)
 
     def warmup(self, batch: int | None = None) -> None:
@@ -300,6 +323,7 @@ def _forward_body(use_fused: bool, mesh):
 
 def _finish(item) -> np.ndarray:
     out, done = item
-    if done is not None:
-        done.synchronize()
-    return out.numpy()
+    with span("serve.sync"):
+        if done is not None:
+            done.synchronize()
+        return out.numpy()

@@ -43,6 +43,7 @@ from stgcn_tpu_torch.training.loop import (
     forward_backward,
 )
 from stgcn_tpu_torch.training.train_state import TrainState, copy_state_
+from stgcn_tpu_torch.utils.profiling import mark
 
 
 class InvariantError(RuntimeError):
@@ -85,6 +86,7 @@ def make_checked_train_step(model, *, capture: bool | None = None
         labels_ok = ((y >= 0) & (y < num_classes)).all()
         loss, logits, new_state = forward_backward(
             model, ts, x, y.clamp(0, num_classes - 1), generator=generator)
+        mark("optimizer", x.device)
         grads = [p.grad for p in ts.leaves() if p.grad is not None]
         grads_ok = torch.stack([torch.isfinite(_flat(g)).all()
                                 for g in _by_dtype(grads)]).all()
@@ -112,5 +114,5 @@ def make_checked_train_step(model, *, capture: bool | None = None
     return CapturedStep(
         body, state_tensors=lambda ts: ts.tensors() + list(model.buffers()),
         before=begin_train_step(model), check=check, after=end_train_step,
-        capture=capture, name="checked train step")
+        capture=capture, marks=True, name="checked train step")
 

@@ -113,6 +113,7 @@ class TrainSection:
     check_invariants: bool = False    # label-range / finite-loss /
                                       # finite-gradient checks each step
     profile_dir: str = ""             # write a torch.profiler trace here
+                                      # (FLAG_HELP)
 
 
 @dataclasses.dataclass
@@ -170,6 +171,17 @@ def _str2bool(v: str) -> bool:
     raise argparse.ArgumentTypeError(f"not a boolean: {v!r}")
 
 
+# what a flag's name does not say
+FLAG_HELP = {
+    "train.profile_dir": (
+        "write a torch.profiler trace of three warm train steps to "
+        "DIR/trace.json; it carries the step's phase marks (kernels named "
+        "stgcn_phase_mark<stgcn_phase::KIND>, a phase running from its "
+        "mark to the next) and the program's host spans (graph.capture); "
+        "open it in Perfetto (ui.perfetto.dev)"),
+}
+
+
 def build_argument_parser() -> argparse.ArgumentParser:
     """Flat ``--section.key value`` CLI over the dataclass tree."""
     parser = argparse.ArgumentParser(
@@ -191,7 +203,9 @@ def build_argument_parser() -> argparse.ArgumentParser:
                 parser.add_argument(arg, type=str, default=None,
                                     help="comma-separated list")
             else:
-                parser.add_argument(arg, type=type(default), default=None)
+                parser.add_argument(
+                    arg, type=type(default), default=None,
+                    help=FLAG_HELP.get(f"{section_name}.{f.name}"))
     return parser
 
 

@@ -57,6 +57,23 @@ device work ``body(state, *inputs, generator=None) -> outputs``:
   (``parallel/collectives.COUNTS``), which a replay does not run: a
   capture's increase of each count is taken back and added again at every
   replay.
+* **Phase marks.**  A train step's body marks its phases while a
+  profiler records (:mod:`stgcn_tpu_torch.utils.profiling`).  A step
+  made with ``marks=True`` captures two graphs of each signature, one
+  after the other: the plain one, without marks whether or not a
+  profiler records, then a *marked* one, in the same pool, on the
+  signature's input buffers and with its dropout generator states (so it
+  draws the same masks; it holds the gradients and outputs of one more
+  graph).  A call replays the
+  marked graph while tracing is on, else the plain one.  The marked graph
+  is captured beside the plain one, and not at the first traced call,
+  because a graph made while the profiler records reports its
+  device-to-device copies as copies where one made before reports them
+  as a kernel (``memcpy128``), so a traced replay would leave those
+  copies out of the kernels that a reader of the trace counts (1.8 ms of
+  the fused step's 58 on an H100); and no capture then falls inside a
+  traced window.  Each warm-up and capture
+  runs in a ``graph.capture`` span.
 * **Eager.**  On the CPU, and with ``capture=False`` (the counterpart of
   ``jax.disable_jit()``), the body runs eagerly every call, through the
   same input and output buffers.  A step that cannot be captured names
@@ -78,6 +95,7 @@ import torch
 
 from stgcn_tpu_torch.ops.block import DropoutGenerator
 from stgcn_tpu_torch.tree import tree_leaves, tree_map
+from stgcn_tpu_torch.utils.profiling import forced_marks, span, tracing
 
 # the kernel modules whose wrappers count their launches
 _KERNEL_MODULES = ("block_eval", "spatial_block", "spatial_conv",
@@ -134,17 +152,28 @@ def capture_pool(device: torch.device) -> tuple | None:
 
 
 @dataclasses.dataclass
+class _Graph:
+    """A captured graph and what its replays restore: its static outputs,
+    the gradients it writes, the launch and collective counts of its
+    capture."""
+
+    graph: Any
+    outputs: Any
+    grads: list
+    launches: list
+    collectives: dict
+
+
+@dataclasses.dataclass
 class _Entry:
-    """One input signature: its buffers and, once captured, its graph."""
+    """One input signature: its buffers and, once captured, its graphs
+    (``graphs[marked]``: the plain one, and the one with phase marks)."""
 
     inputs: list
     generator: DropoutGenerator | None = None
     outputs: Any = None
     warm: bool = False
-    graph: Any = None
-    grads: list = dataclasses.field(default_factory=list)
-    launches: list = dataclasses.field(default_factory=list)
-    collectives: dict = dataclasses.field(default_factory=dict)
+    graphs: dict = dataclasses.field(default_factory=dict)
 
 
 class CapturedStep:
@@ -156,7 +185,9 @@ class CapturedStep:
     in place, whose addresses a graph keeps; ``before``/``check``/
     ``after``: the host's work around it; ``capture``: None (capture on
     CUDA), True (capture or raise) or False (eager); ``eager_reason``: why
-    this step cannot be captured, if it cannot.
+    this step cannot be captured, if it cannot; ``marks``: whether the
+    body places phase marks, so that a marked graph is captured beside
+    the plain one and replayed while tracing (module docstring).
     """
 
     def __init__(self, body: Callable, *, state_tensors: Callable,
@@ -164,7 +195,8 @@ class CapturedStep:
                  check: Callable | None = None,
                  after: Callable | None = None,
                  capture: bool | None = None,
-                 eager_reason: str | None = None, name: str = "step"):
+                 eager_reason: str | None = None, marks: bool = False,
+                 name: str = "step"):
         if capture and eager_reason:
             raise ValueError(f"{name} cannot be captured: {eager_reason}")
         self.body = body
@@ -174,6 +206,7 @@ class CapturedStep:
         self.after = after
         self.capture = capture
         self.eager_reason = eager_reason
+        self.marks = marks
         self.name = name
         self.captured = False       # whether the last call captured/replayed
         self._entries: dict = {}
@@ -182,8 +215,14 @@ class CapturedStep:
 
     @property
     def cache_size(self) -> int:
-        """The number of captured graphs (jit's cache size)."""
-        return sum(e.graph is not None for e in self._entries.values())
+        """The number of signatures with a captured graph (jit's cache
+        size; a signature's marked graph is not counted apart)."""
+        return sum(bool(e.graphs) for e in self._entries.values())
+
+    @property
+    def marked_graphs(self) -> int:
+        """The number of graphs captured with phase marks."""
+        return sum(True in e.graphs for e in self._entries.values())
 
     @property
     def signatures(self) -> int:
@@ -230,29 +269,37 @@ class CapturedStep:
         for buf, x in zip(entry.inputs, inputs):
             if x is not None:
                 buf.copy_(x, non_blocking=True)
-        if capturing and entry.warm and entry.graph is None:
-            self._capture(state, entry, device)
+        if capturing and entry.warm and not entry.graphs:
+            with span("graph.capture"):
+                with forced_marks(False):
+                    self._capture(state, entry, device, False)
+                if self.marks:
+                    with forced_marks(True):
+                        self._capture(state, entry, device, True)
         key = self.before(state) if self.before is not None else None
         if key is not None:
             if entry.generator is None:
                 entry.generator = DropoutGenerator(device)
             entry.generator.manual_seed(key)
             entry.generator.recompute.seed(key)
-        if entry.graph is not None:
-            for p, g in entry.grads:
+        captured = entry.graphs.get(self.marks and tracing())
+        if captured is not None:
+            for p, g in captured.grads:
                 p.grad = g
-            for f, n in entry.launches:
+            for f, n in captured.launches:
                 f.launches += n
-            if entry.collectives:
-                _collectives().add_counts(entry.collectives)
-            entry.graph.replay()
-            out = entry.outputs
+            if captured.collectives:
+                _collectives().add_counts(captured.collectives)
+            captured.graph.replay()
+            out = captured.outputs
+        elif capturing:
+            with span("graph.capture"):
+                out = self._eager(state, entry, True, device)
+            entry.warm = True
+            self._addresses = tuple(
+                t.data_ptr() for t in self.state_tensors(state))
         else:
-            out = self._eager(state, entry, capturing, device)
-            if capturing:
-                entry.warm = True
-                self._addresses = tuple(
-                    t.data_ptr() for t in self.state_tensors(state))
+            out = self._eager(state, entry, False, device)
         if self.check is not None:
             out = self.check(state, out)
         if self.after is not None:
@@ -283,7 +330,7 @@ class CapturedStep:
                     dst.copy_(src)
         return entry.outputs
 
-    def _capture(self, state, entry: _Entry, device) -> None:
+    def _capture(self, state, entry: _Entry, device, marked: bool) -> None:
         shared = _captures(device)
         if not shared.graphs:
             # a released pool cannot take a new graph: start another
@@ -296,7 +343,9 @@ class CapturedStep:
             graph.register_generator_state(
                 entry.generator.graphsafe_get_state())
             recompute = entry.generator.recompute
-            for state_ in recompute.capture_states(device):
+            # a signature's second graph draws from its first one's states
+            for state_ in recompute.capture_states(device,
+                                                   fresh=not entry.graphs):
                 graph.register_generator_state(state_)
         counters = launch_counters()
         counts = [f.launches for f in counters]
@@ -316,11 +365,13 @@ class CapturedStep:
             grown = [f.launches - n for f, n in zip(counters, counts)]
             for f, n in zip(counters, counts):
                 f.launches = n
-            entry.collectives = _collectives().counts_since(issued)
+            collectives = _collectives().counts_since(issued)
             _collectives().reset_counts()
             _collectives().add_counts(issued)
-        entry.launches = [(f, n) for f, n in zip(counters, grown) if n]
-        entry.grads = [(t, t.grad) for t in self.state_tensors(state)
-                       if t.requires_grad and t.grad is not None]
-        entry.graph, entry.outputs = graph, outputs
+        entry.graphs[marked] = _Graph(
+            graph=graph, outputs=outputs,
+            grads=[(t, t.grad) for t in self.state_tensors(state)
+                   if t.requires_grad and t.grad is not None],
+            launches=[(f, n) for f, n in zip(counters, grown) if n],
+            collectives=collectives)
         shared.graphs.add(graph)

@@ -44,6 +44,7 @@ from stgcn_tpu_torch.training.train_state import (
     step_generator,
     step_key,
 )
+from stgcn_tpu_torch.utils.profiling import mark
 
 def forward_backward(model, ts: TrainState, x: torch.Tensor,
                      y: torch.Tensor, time_mask: torch.Tensor | None = None,
@@ -117,6 +118,7 @@ def make_train_step(model, *, use_time_mask: bool = False,
         loss, logits, new_state = forward_backward(
             model, ts, x, y, time_mask if use_time_mask else None,
             generator)
+        mark("optimizer", x.device)
         ts.optimizer.update()
         copy_state_(ts.model_state, new_state)
         return {"loss": loss.detach(), "acc": M.accuracy(logits.detach(), y)}
@@ -124,7 +126,7 @@ def make_train_step(model, *, use_time_mask: bool = False,
     return CapturedStep(
         body, state_tensors=lambda ts: ts.tensors() + list(model.buffers()),
         before=begin_train_step(model), after=end_train_step,
-        capture=capture, name="train step")
+        capture=capture, marks=True, name="train step")
 
 
 def make_eval_step(model, *, capture: bool | None = None) -> CapturedStep:

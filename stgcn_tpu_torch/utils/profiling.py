@@ -5,23 +5,74 @@
   kernels when CUDA is present), written as a Chrome trace
   (``<log_dir>/trace.json``, viewable in Perfetto or ``chrome://tracing``);
   the train CLI's ``--train.profile_dir``;
+* :func:`span`, :func:`mark` and :func:`boundary`: the program's own
+  tracing (below), the counterpart of the JAX package's ``annotate``;
 * :class:`ModelFlops`: analytic operation and edge counts per step, for the
   CLI's ``[perf]`` line;
 * :func:`param_table`: a listing of the parameter dictionaries;
 * :func:`dump_computation`: the inspectable computation, the traced
   program and the captured CUDA graph of a function.
+
+**Tracing is on while a** ``torch.profiler`` **records** (the profiler's
+own flag, ``torch.autograd.profiler._is_profiler_enabled``); there is no
+other switch.  Off, a span costs one read of that flag and a mark two
+(the flag and :func:`forced_marks`'s), and a captured step replays the
+graph it would replay without this module.  On:
+
+* **Host spans** (:func:`span`) are ``record_function`` ranges: inside
+  ``Predictor.predict`` ``serve.bucket`` (grouping the clips by bucket),
+  ``serve.collate`` (a chunk's wrap-pad, stack and batch pad, then its
+  host cast, pinning and copy), ``serve.forward`` (the captured
+  forward's call and its readback), ``serve.sync`` (the wait on a
+  batch's result) and ``serve.gather`` (scattering the results, the
+  argmax, the names); in ``CapturedStep``, ``graph.capture`` around each
+  warm-up and capture.
+* **Device phase marks** (:func:`mark`, :func:`boundary`): an empty
+  kernel per phase of the train step, ``void stgcn_phase_mark<
+  stgcn_phase::<kind>>()`` (``kernels/csrc/phase_mark.cu``), launched
+  where the phase begins, forward and backward, and captured into the
+  step's graph: a replayed step is one ``cudaGraphLaunch``, so no host
+  range can say which phase a kernel belongs to, but a mark on the device
+  timeline can.  A kernel belongs to the phase of the latest mark that
+  started before it.  The kinds (:data:`PHASES`): ``input`` (the cast and
+  layout of ``x``), per unit ``bn_stats`` (the batch moments, the affine,
+  the running update), ``spatial`` (the spatial op and its weight casts),
+  ``temporal`` (the temporal op and its weight casts) and ``tail`` (the
+  shortcut, the casts, the ReLU and dropout), then ``head`` (pool,
+  classifier, loss), ``grad_sync`` (on a mesh, from the end of the
+  backward to the end of the gradient all-reduce) and ``optimizer`` (the
+  update, the BN statistics' copy, the step's metrics).  A captured train
+  step holds a marked graph of each signature beside its plain one and
+  replays it while tracing is on (``training/graphs.py``).  On the CPU a
+  mark appends its kind to :data:`MARK_LOG` instead.
+
+Reading them: open ``trace.json`` in Perfetto (ui.perfetto.dev).  The
+spans sit on the host thread's track, nested under the caller's; the
+marks are empty kernels on the GPU stream's track, and a phase runs
+from its mark to the next one (the SQL query ``select name,
+ts from slice where name like '%stgcn_phase_mark%'`` lists them).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import os
 from typing import Callable
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
+from stgcn_tpu_torch.kernels.phase_mark import KINDS as PHASES
+from stgcn_tpu_torch.kernels.phase_mark import phase_mark
 from stgcn_tpu_torch.tree import tree_items
+
+# the kinds of the marks placed on the CPU while tracing, newest last
+MARK_LOG: collections.deque = collections.deque(maxlen=1 << 16)
+_NO_SPAN = contextlib.nullcontext()
+# marks on (True) or off (False) whatever the profiler: forced_marks
+_FORCED: bool | None = None
 
 
 @contextlib.contextmanager
@@ -36,6 +87,86 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def tracing() -> bool:
+    """Whether a ``torch.profiler`` records (module docstring)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """A host span: ``record_function(name)`` while tracing, else a
+    context that does nothing.  Names take a prefix (``serve.``,
+    ``graph.``); ``window``, ``step`` and ``predict`` are left to the
+    callers that time the program."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+@contextlib.contextmanager
+def forced_marks(on: bool):
+    """Place the phase marks (``on``) or none, whether or not a profiler
+    records: a captured step captures its plain and its marked graph
+    (``training/graphs.py``)."""
+    global _FORCED
+    _FORCED = on
+    try:
+        yield
+    finally:
+        _FORCED = None
+
+
+def _marking() -> bool:
+    if _FORCED is None:
+        return _autograd_profiler._is_profiler_enabled
+    return _FORCED
+
+
+def mark(kind: str, device: torch.device) -> None:
+    """While tracing, mark the start of phase ``kind`` (one of
+    :data:`PHASES`) on ``device``: the marker kernel on its current
+    stream, or on the CPU an entry in :data:`MARK_LOG`."""
+    if _marking():
+        _mark(kind, device)
+
+
+def _mark(kind: str, device: torch.device) -> None:
+    if device.type == "cuda":
+        phase_mark(kind, device)
+    elif kind in PHASES:
+        MARK_LOG.append(kind)
+    else:
+        raise ValueError(f"no phase {kind!r}; the phases are {PHASES}")
+
+
+class _Boundary(torch.autograd.Function):
+    """Identity on its tensors: the forward marks ``forward_kind``, the
+    backward ``backward_kind`` (:func:`boundary`)."""
+
+    @staticmethod
+    def forward(ctx, forward_kind, backward_kind, *tensors):
+        _mark(forward_kind, tensors[0].device)
+        ctx.backward_kind = backward_kind
+        ctx.device = tensors[0].device
+        return tensors
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _mark(ctx.backward_kind, ctx.device)
+        return (None, None, *grads)
+
+
+def boundary(forward_kind: str, backward_kind: str, *tensors):
+    """The tensors where one phase of the train step ends and the next
+    begins: while tracing, through an identity ``autograd.Function`` whose
+    forward marks ``forward_kind`` (the phase starting here) and whose
+    backward, run once every gradient of the tensors has arrived, marks
+    ``backward_kind`` (the phase whose backward starts there); else the
+    tensors themselves.  Returns one tensor for one, else a tuple."""
+    if _marking():
+        tensors = _Boundary.apply(forward_kind, backward_kind, *tensors)
+    return tensors[0] if len(tensors) == 1 else tensors
 
 
 def spatial_conv_flops(n: int, t: int, v: int, c_in: int, c_out: int,
