@@ -49,6 +49,10 @@ non-zero exit code:
                    an odd width (C=40, T=37; the temporal op at strides 1
                    and 2, and at C=36, whose weights TMA cannot read;
                    the spatial op at C=36 too, whose rows take plain loads).
+   Then ``bn_moments``: the BatchNorm statistics op's kernels at the
+                   cells' BatchNorm shapes (bf16 and float32) and at small
+                   odd ones (float64 too) against float64 and the plain
+                   versions, each twice bitwise, timed beside the bound.
 7. train        -- ``bench.py``'s train step through ``make_train_step``:
                    full-width DEFAULT_PLAN, bf16, dropout 0.5, the hybrid
                    with blocks 0-6 fused, Adam 1e-3, B=64, T=304; 28 op
@@ -309,8 +313,15 @@ marks in the declared order; the phases' kernel ms summing to the
 replays' non-NCCL kernel ms; every kernel that ``stgcn_bench``'s roofline
 patterns claim inside its own phase (spatial or temporal).  Its
 ``{"phase": "trace"}`` line gives the per-phase ms a step, the markers'
-device us a step and each call's host ms (the second captures both
-graphs).
+device us a step, each call's host ms (the second captures both
+graphs) and the BatchNorm statistics op's launches a replay, which must
+be 2 a unit forward and one fewer backward.
+
+``python3 chip_smoke.py --bn-moments`` checks that op alone
+(``kernels/bn_moments.py``): its kernels as in phase 6, the plain
+formula's device operations by the aten op that launched them, its
+launches a replay of the captured KTH and NTU train steps (20 + 19,
+18 + 17), two runs of each bitwise, and none in a serving request.
 """
 
 from __future__ import annotations
@@ -3975,6 +3986,7 @@ def graph_mesh_case(smi: str, dev, mesh, x, y) -> None:
     bitwise equal.  Then each step's ms, captured and eager, in turns."""
     import torch
 
+    from stgcn_tpu_torch.kernels import bn_moments as bm
     from stgcn_tpu_torch.models.stgcn import STGCN
     from stgcn_tpu_torch.parallel.train import make_sharded_train_step
     from stgcn_tpu_torch.training.loop import Trainer, make_train_step
@@ -4654,6 +4666,300 @@ def parallel_cards_main() -> int:
     return 0
 
 
+# ---- --bn-moments: the BatchNorm statistics op -------------------------------
+# ((N, T, V) rows, C) of the cells' BatchNorms at B=64: KTH's first unit
+# (C_in 2) and the widths 64 / 128 / 256 at T 304 / 152 / 76, NTU's C_in 3
+# at T 300
+BN_SHAPES = (((64, 304, 25), 2), ((64, 304, 25), 64), ((64, 152, 25), 128),
+             ((64, 76, 25), 256), ((64, 300, 25), 3))
+# small cases off the cells: a vector width (40) and one with a channel
+# tail (36), channel chunks of 257 vector units and of 2050 single
+# elements, fewer rows than a CTA's pass, float64 (the op path's oracle
+# dtype)
+BN_ODD = (((4, 37, 25), 40), ((4, 37, 25), 36), ((2, 8, 25), 2056),
+          ((2, 8, 25), 2050), ((5,), 64), ((4, 37, 25), 64))
+# the kernels' float32 sums of up to 5e5 rows against the float64 plain
+# version: within 1e-5 of the largest |moment| (PyTorch's own float32
+# reduction is reported beside them)
+BN_MOMENT_REL = 1e-5
+# the backward against the plain version on the same input: both round
+# g_mean / n + (g_sq / n) * 2x, summed in float32 (float64 for float64),
+# to x's dtype, the kernel perhaps with a fused multiply-add; so within
+# one ulp of x's dtype plus the sum's own rounding, 4 eps of the terms'
+# magnitude (the quotients, the product and the sum each round once),
+# elementwise.  Against float64 autograd within one ulp of the
+# largest |dx| (bf16 2^-7; float32 and float64 far inside)
+BN_GRAD_REL = {"bfloat16": 2.0 ** -7, "float32": 1e-6, "float64": 1e-12}
+BN_TIME_REPS = 20
+
+
+def beyond_rounding(got, want, terms) -> int:
+    """Elements of ``got`` further from ``want`` than one ulp of its dtype
+    plus four eps of the accumulation at the magnitude ``terms``."""
+    import torch
+
+    bits = {torch.bfloat16: 8, torch.float32: 24, torch.float64: 53}
+    acc = torch.promote_types(want.dtype, torch.float32)
+    _, exp = torch.frexp(want.double())
+    tol = (torch.pow(2.0, (exp - bits[want.dtype]).double())
+           + 2.0 ** (3 - bits[acc]) * terms)
+    return int(((got.double() - want.double()).abs() > tol).sum().item())
+
+
+def graph_time_ms(fn, reps: int = BN_TIME_REPS) -> float:
+    """Device ms of a call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed, so the host's time to issue a call is left out
+    (a captured step replays the op's kernels the same way)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_time_ms(graph.replay, reps=3, warmup=1) / reps
+
+
+def bn_moments_case(gen, shape, c, dt, dev, timed: bool) -> dict:
+    """The op's two kernels on one input against the plain versions and
+    against float64; each kernel twice, bitwise; with ``timed`` the
+    kernels' and the plain version's CUDA-event ms beside the bound."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import bn_moments as bm
+
+    x = (torch.randn((*shape, c), generator=gen, device=dev) * 1.5
+         + 0.4).to(dt)
+    if shape == (5,):     # a contiguous view off the 16-byte boundary
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+    g = [torch.randn(c, generator=gen, device=dev) for _ in range(2)]
+    want = bm.bn_moments_forward_reference(x.double())
+    got = bm.bn_moments_forward(x)
+    again = bm.bn_moments_forward(x)
+    plain = bm.bn_moments_forward_reference(x)
+    case = {"rows": list(shape), "c": c,
+            "dtype": str(dt).removeprefix("torch."),
+            "vector_width": bm.vector_width(x)}
+    out = dict(case)
+    scale = [w.abs().max().item() for w in want]
+    out["moment_rel_err"] = max((a.double() - w).abs().max().item() / s
+                                for a, w, s in zip(got, want, scale))
+    out["plain_moment_rel_err"] = max(
+        (a.double() - w).abs().max().item() / s
+        for a, w, s in zip(plain, want, scale))
+    xd = x.double().requires_grad_()
+    (want_dx,) = torch.autograd.grad(
+        bm.bn_moments_forward_reference(xd), [xd], [t.double() for t in g])
+    dx = bm.bn_moments_backward(x, *g)
+    dx_again = bm.bn_moments_backward(x, *g)
+    plain_dx = bm.bn_moments_backward_reference(x, *g)
+    n = x.numel() // c
+    terms = (g[0].double() / n).abs() + (g[1].double() / n).abs() * 2 * (
+        x.double().abs())
+    out["dx_beyond_rounding"] = beyond_rounding(dx, plain_dx, terms)
+    out["dx_rel_err_vs_f64"] = ((dx.double() - want_dx).abs().max().item()
+                                / want_dx.abs().max().item())
+    out["bitwise_repeat"] = (all(torch.equal(a, b)
+                                 for a, b in zip(got, again))
+                             and torch.equal(dx, dx_again))
+    out["ok"] = bool(out["moment_rel_err"] <= BN_MOMENT_REL
+                     and out["dx_beyond_rounding"] == 0
+                     and out["dx_rel_err_vs_f64"]
+                     <= BN_GRAD_REL[case["dtype"]]
+                     and out["bitwise_repeat"])
+    if timed:
+        nbytes = x.numel() * x.element_size()
+        out["fwd_ms"] = graph_time_ms(lambda: bm.bn_moments_forward(x))
+        out["bwd_ms"] = graph_time_ms(lambda: bm.bn_moments_backward(x, *g))
+        out["fwd_bound_ms"] = nbytes / PEAKS["H100 SXM"][1] * 1e3
+        out["bwd_bound_ms"] = 2 * nbytes / PEAKS["H100 SXM"][1] * 1e3
+        xg = x.detach().requires_grad_()
+
+        def plain_both():
+            m = bm.bn_moments_forward_reference(xg)
+            torch.autograd.grad(m, [xg], g)
+
+        out["plain_fwd_ms"] = graph_time_ms(
+            lambda: bm.bn_moments_forward_reference(x))
+        out["plain_fwd_bwd_ms"] = cuda_time_ms(plain_both, reps=BN_TIME_REPS)
+    return out
+
+
+def plain_moments_profile(dev) -> dict:
+    """The plain formula's forward and autograd backward at KTH's widest
+    activation (64x304x25x64 bf16), eagerly under ``torch.profiler``:
+    each device operation's ms under the op that launched it and up to
+    two of that op's parents (an autograd node by its name)."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import bn_moments as bm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    x = torch.randn((B, T, V, 64), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    g = [torch.randn(64, generator=gen, device=dev) for _ in range(2)]
+    for _ in range(2):
+        torch.autograd.grad(bm.bn_moments_forward_reference(x), [x], g)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.autograd.grad(bm.bn_moments_forward_reference(x), [x], g)
+        torch.cuda.synchronize()
+    by_op: dict = {}
+    for e in prof.events():
+        chain, up = [e.name], e.cpu_parent
+        while up is not None and len(chain) < 3:
+            chain.insert(0, up.name.removeprefix(
+                "autograd::engine::evaluate_function: "))
+            up = up.cpu_parent
+        for k in e.kernels:
+            key = f"{' > '.join(chain)} -> {k.name[:60]}"
+            by_op[key] = by_op.get(key, 0.0) + k.duration / 1e3
+    return dict(sorted(by_op.items(), key=lambda kv: -kv[1]))
+
+
+def bn_step_launches(dev, cfg, c_in: int, classes: int, steps: int = 3
+                     ) -> dict:
+    """The op's launches a replay of the captured fused train step at
+    B=64, T=304 (after the warm-up and the capture), and the same steps
+    from fresh objects a second time: the loss, parameters and BN
+    statistics bitwise equal."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import bn_moments as bm
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.training.loop import make_train_step
+    from stgcn_tpu_torch.training.optimizers import adam
+    from stgcn_tpu_torch.training.train_state import train_state_from
+    from stgcn_tpu_torch.tree import tree_leaves
+
+    model = STGCN(cfg).to(dev)
+    params, state = model.init_params(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    batches = [(torch.randn((B, T, V, c_in), generator=gen, device=dev),
+                torch.randint(0, classes, (B,), generator=gen, device=dev))
+               for _ in range(2 + steps)]
+
+    def run():
+        ts = train_state_from(params, state, adam(1e-3), SEED, dev)
+        step = make_train_step(model)
+        for x, y in batches[:2]:
+            step(ts, x, y)
+        torch.cuda.synchronize()
+        before = (bm.bn_moments_forward.launches,
+                  bm.bn_moments_backward.launches)
+        losses = [step(ts, x, y)["loss"].clone() for x, y in batches[2:]]
+        torch.cuda.synchronize()
+        counts = (bm.bn_moments_forward.launches - before[0],
+                  bm.bn_moments_backward.launches - before[1])
+        tensors = [t.detach().clone() for t in tree_leaves(ts.params)
+                   + tree_leaves(ts.model_state)]
+        return losses, tensors, counts, step.cache_size
+
+    first, second = run(), run()
+    units = len(cfg.plan)
+    out = {"units": units, "replays": steps,
+           "fwd_a_replay": first[2][0] / steps,
+           "bwd_a_replay": first[2][1] / steps,
+           "graphs": first[3],
+           "bitwise_two_runs": (
+               all(torch.equal(a, b) for a, b in zip(first[0], second[0]))
+               and all(torch.equal(a, b) for a, b in zip(first[1],
+                                                         second[1])))}
+    # unit 0's first BatchNorm reads the batch, which takes no gradient
+    out["ok"] = bool(out["fwd_a_replay"] == 2 * units
+                     and out["bwd_a_replay"] == 2 * units - 1
+                     and first[3] == 1 and out["bitwise_two_runs"])
+    return out
+
+
+def bn_serving_launches(dev) -> dict:
+    """A serving request at the KTH width: no BatchNorm statistics."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import bn_moments as bm
+    from stgcn_tpu_torch.models.stgcn import STGCN
+    from stgcn_tpu_torch.serving import Predictor
+
+    model = STGCN(bench_config(block_impl="fused"), seed=SEED)
+    pred = Predictor(model.to(dev), buckets=(152, T), max_batch=B)
+    pred.warmup()
+    rng = np.random.default_rng(SEED + 42)
+    seqs = [rng.normal(0, 1, (int(t), V, 2)).astype(np.float32)
+            for t in rng.integers(40, T + 1, 100)]
+    before = (bm.bn_moments_forward.launches,
+              bm.bn_moments_backward.launches)
+    pred.predict(seqs)
+    torch.cuda.synchronize()
+    counts = [bm.bn_moments_forward.launches - before[0],
+              bm.bn_moments_backward.launches - before[1]]
+    return {"clips": len(seqs), "launches": counts, "ok": counts == [0, 0]}
+
+
+def bn_moments_phase(dev) -> None:
+    """The op's kernels at the cells' shapes (bf16 and float32, timed) and
+    at the small odd cases (float64 among them); raises on a failure."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    failed = []
+    for cases, timed in ((BN_SHAPES, True), (BN_ODD, False)):
+        for shape, c in cases:
+            for dt in ((torch.bfloat16, torch.float32) if timed else
+                       (torch.bfloat16, torch.float32, torch.float64)):
+                line = bn_moments_case(gen, shape, c, dt, dev, timed)
+                emit("bn_moments", **line)
+                if not line["ok"]:
+                    failed.append(line)
+    if failed:
+        raise AssertionError(f"bn_moments: {len(failed)} cases failed, "
+                             f"first {failed[0]}")
+
+
+def bn_moments_main() -> int:
+    """``python3 chip_smoke.py --bn-moments``: the BatchNorm statistics
+    op alone: its kernels at the cells' shapes against float64 and the
+    plain versions, each twice bitwise, timed beside the bound; the plain
+    formula's device operations by aten op; its launches a replay of the
+    captured KTH and NTU train steps (20 + 19, 18 + 17), two runs of each
+    bitwise; none in a serving request."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import _build
+    from stgcn_tpu_torch.models.stgcn import PLAN_9
+
+    start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    emit("device", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda)
+    lib_path, build_s = _build.build()
+    _build.load_library()
+    emit("build", library=lib_path.name, seconds=build_s)
+    bn_moments_phase(dev)
+    emit("bn_plain_profile", ms_by_op=plain_moments_profile(dev))
+    ok = True
+    for name, cfg, c_in, classes in (
+            ("kth", bench_config(block_impl="fused"), 2, 6),
+            ("ntu", bench_config(block_impl="fused", plan=PLAN_9, c_in=3,
+                                 num_classes=60), 3, 60)):
+        line = bn_step_launches(dev, cfg, c_in, classes)
+        emit("bn_step", cell=name, **line)
+        ok &= line["ok"]
+    line = bn_serving_launches(dev)
+    emit("bn_serve", **line)
+    ok &= line["ok"]
+    emit("run", run_seconds=time.perf_counter() - start, ok=bool(ok))
+    return 0 if ok else 1
+
+
 # ---- --trace: the phase marks of the captured train step -------------------
 
 TRACE_STEPS = 3
@@ -4729,6 +5035,7 @@ def trace_check(dev, mesh=None) -> dict:
     and each call's host ms (the second holds both captures)."""
     import torch
 
+    from stgcn_tpu_torch.kernels import bn_moments as bm
     from stgcn_tpu_torch.models.stgcn import STGCN
     from stgcn_tpu_torch.parallel.train import make_sharded_train_step
     from stgcn_tpu_torch.training.loop import make_train_step
@@ -4756,6 +5063,8 @@ def trace_check(dev, mesh=None) -> dict:
             torch.cuda.synchronize()
             setup_ms.append((time.perf_counter() - t0) * 1e3)
         losses, call_ms = [], []
+        bn_before = (bm.bn_moments_forward.launches,
+                     bm.bn_moments_backward.launches)
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         prof = torch.profiler.profile(activities=acts) if traced else None
@@ -4777,7 +5086,12 @@ def trace_check(dev, mesh=None) -> dict:
                            tree_leaves(ts.params)
                            + tree_leaves(ts.model_state)],
                "graphs": step.cache_size, "marked": step.marked_graphs,
-               "setup_ms": setup_ms, "call_ms": call_ms}
+               "setup_ms": setup_ms, "call_ms": call_ms,
+               "bn_moments_a_step": [
+                   (bm.bn_moments_forward.launches - bn_before[0])
+                   / TRACE_STEPS,
+                   (bm.bn_moments_backward.launches - bn_before[1])
+                   / TRACE_STEPS]}
         if prof is not None:
             with tempfile.NamedTemporaryFile(suffix=".json") as f:
                 prof.export_chrome_trace(f.name)
@@ -4823,6 +5137,14 @@ def trace_check(dev, mesh=None) -> dict:
     rest = {name: kernels_ms([k for k in found if id(k) in unclaimed])
             / TRACE_STEPS for name, found in phases.items()}
     marker_us = sum(k[2] - k[1] for k in marks) / TRACE_STEPS
+    by_kernel = {}      # the largest kernels of the phases outside the ops
+    for name in ("bn_stats", "tail"):
+        sums: dict = {}
+        for k in phases.get(name, []):
+            short = k[0][:72]
+            sums[short] = sums.get(short, 0.0) + (k[2] - k[1]) / 1e3
+        top = sorted(sums.items(), key=lambda kv: -kv[1])[:10]
+        by_kernel[name] = {n: v / TRACE_STEPS for n, v in top}
     out = {
         "bitwise": bitwise, "losses": marked["losses"],
         "plain_graphs": [plain["graphs"], plain["marked"]],
@@ -4831,6 +5153,7 @@ def trace_check(dev, mesh=None) -> dict:
         "marks_in_order": kinds == want,
         "phase_ms": by_phase,
         "phase_rest_ms": rest,
+        "phase_top_kernels_ms": by_kernel,
         "phases_ms_sum": sum(by_phase.values()),
         "replay_kernel_ms": kernels_ms(work) / TRACE_STEPS,
         "kernels_before_first_mark": first,
@@ -4839,7 +5162,12 @@ def trace_check(dev, mesh=None) -> dict:
         "warm_up_and_capture_ms": plain["setup_ms"],
         "plain_call_ms": plain["call_ms"],
         "traced_call_ms": marked["call_ms"],
+        # the BatchNorm statistics op: forward and backward launches a
+        # replay, plain and marked (unit 0's first BN takes no gradient)
+        "bn_moments_a_step": [plain["bn_moments_a_step"],
+                              marked["bn_moments_a_step"]],
     }
+    units = len(cfg.plan)
     out["ok"] = bool(
         bitwise and out["marks_in_order"]
         and plain["graphs"] == marked["graphs"] == 1
@@ -4847,7 +5175,9 @@ def trace_check(dev, mesh=None) -> dict:
         and abs(out["phases_ms_sum"] - out["replay_kernel_ms"])
         <= 1e-6 * out["replay_kernel_ms"]
         and all(m["claimed"] and not m["outside"]
-                for m in misplaced.values()))
+                for m in misplaced.values())
+        and all(n == [2 * units, 2 * units - 1]
+                for n in out["bn_moments_a_step"]))
     if not out["marks_in_order"]:
         out["kinds_head"] = kinds[:12]
         out["want_head"] = want[:12]
@@ -5189,6 +5519,7 @@ def main() -> int:
     memory_checkpoint("train_kernel")
     # ---- 6. train_kernel ----------------------------------------------------
     train_errors = train_kernel_phase(dev, gen, odd_gen)
+    bn_moments_phase(dev)
 
     memory_checkpoint("train")
     # ---- 7. train, 8. train_time: the train path ---------------------------
@@ -5302,6 +5633,8 @@ if __name__ == "__main__":
                                     sys.argv[6], sys.argv[7] == "1"))
     if sys.argv[1:2] == ["--trace"]:
         sys.exit(trace_main("--parallel-cards" in sys.argv[2:]))
+    if sys.argv[1:2] == ["--bn-moments"]:
+        sys.exit(bn_moments_main())
     if sys.argv[1:2] == ["--parallel-cards"]:
         sys.exit(parallel_cards_main())
     sys.exit(main())

@@ -45,6 +45,11 @@ forward and backward)  ``(N, T, V, C)``, and
                        ``temporal_conv_fused_vm`` (``_shiftsum_kernel``,
                        ``_make_dw_kernel``) on V-major ``(V*N, T, C)``: both
                        compute the standalone gamma x 1 temporal conv
+``bn_moments``         no Pallas kernel: XLA's fused reduction of the
+(``csrc/bn_moments.cu``, ``jnp.mean`` calls in ``stgcn_tpu/models/fused.py``
+forward and backward)  ``_bn_affine_train`` (and in ``stgcn_tpu/ops/
+                       batchnorm.py`` ``batchnorm``): the per-channel mean
+                       and mean of squares of a train BatchNorm
 =====================  =====================================================
 
 The bfloat16 kernels of every op run on Hopper's tensor cores:
@@ -75,6 +80,11 @@ The bfloat16 kernels of every op run on Hopper's tensor cores:
   tensor), a dx GEMM over x's rows with depth K * C_out (t and W^T by TMA;
   its epilogue also writes h for the next kernel) and a dW GEMM split over
   the rows (h and t by TMA), their partial slices summed in order.
+
+``bn_moments`` is memory-bound and runs on the CUDA cores in every dtype:
+the forward reads ``x`` once with 16-byte loads into per-thread float32
+sums (float64 for float64), per-CTA partial sums added in a fixed order by
+a second kernel; the backward is one elementwise pass over ``x``.
 
 Their bounds and what each design does about them are in the notes at the
 head of each source.  The float32 kernels stay on the CUDA cores (float32

@@ -68,6 +68,10 @@ SPATIAL_MMA_FWD_ARGTYPES = [_P] * 8 + [_I] * 13 + [_P]
 SPATIAL_MMA_BWD_ARGTYPES = [_P] * 16 + [_I] * 25 + [_P]
 # phase_mark_launch(kind, stream): the empty marker kernel of a phase
 PHASE_MARK_ARGTYPES = [_I, _P]
+# bn_moments_fwd_launch(4 pointers, 5 ints, stream), any dtype it takes
+BN_MOMENTS_FWD_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
+# bn_moments_bwd_launch(4 pointers, 5 ints, stream)
+BN_MOMENTS_BWD_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
 # every C entry point and its argument kinds; each returns a cudaError_t
 ENTRY_POINTS = {
     "block_eval_launch": BLOCK_EVAL_ARGTYPES,
@@ -87,6 +91,8 @@ ENTRY_POINTS = {
     "spatial_mma_fwd_launch": SPATIAL_MMA_FWD_ARGTYPES,
     "spatial_mma_bwd_launch": SPATIAL_MMA_BWD_ARGTYPES,
     "phase_mark_launch": PHASE_MARK_ARGTYPES,
+    "bn_moments_fwd_launch": BN_MOMENTS_FWD_ARGTYPES,
+    "bn_moments_bwd_launch": BN_MOMENTS_BWD_ARGTYPES,
 }
 
 

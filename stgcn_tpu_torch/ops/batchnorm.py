@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from stgcn_tpu_torch.kernels.bn_moments import bn_moments
+
 
 def stat_dtype(x: torch.Tensor) -> torch.dtype:
     """The dtype statistics and accumulations run in: at least float32."""
@@ -58,11 +60,10 @@ def batch_moments(x: torch.Tensor, group=None
                   ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Per-channel ``(mean, biased variance, count)`` of ``(..., C)`` in at
     least float32, as ``E[x^2] - E[x]^2``; with ``group``, of the whole
-    batch its ranks hold in equal shards."""
-    xf = x.to(stat_dtype(x))
-    axes = tuple(range(x.dim() - 1))
-    mean = xf.mean(dim=axes)
-    mean_sq = xf.square().mean(dim=axes)
+    batch its ranks hold in equal shards.  The moments are the
+    :func:`~stgcn_tpu_torch.kernels.bn_moments.bn_moments` op's: one read
+    of ``x`` on CUDA, the plain reductions on the CPU."""
+    mean, mean_sq = bn_moments(x)
     n = x.numel() // x.shape[-1]
     if group is not None:
         from stgcn_tpu_torch.parallel.collectives import (
