@@ -5626,6 +5626,233 @@ def main() -> int:
     return 0
 
 
+# ---- --agcn: 2s-AGCN's adaptive graph and per-sample aggregation -------------
+# (NM, T, C_in, C_out) of the train-agcn-ntu-b64 cell's units (64 clips x 2
+# bodies): C_in 3 at T 300, the widths 64 / 128 / 256 at T 300 / 150 / 75
+# and the two widening units; then C_in 3 and an odd width (40, T 37) off
+# the cell
+AGCN_SHAPES = ((128, 300, 3, 64), (128, 300, 64, 64), (128, 300, 64, 128),
+               (128, 150, 128, 128), (128, 150, 128, 256),
+               (128, 75, 256, 256))
+AGCN_ODD = ((4, ODD_T, 3, 64), (6, ODD_T, ODD_C, ODD_C))
+AGCN_K = 3
+# launches of a replay of the captured AGCN step: each op once a unit, each
+# way (the tail op twice: before the GCN's ReLU and the unit's);
+# bn_moments 26 forward (data_bn, BN_g and BN_t of ten units, three down
+# and two res BatchNorms) and 25 backward (data_bn's input takes no
+# gradient)
+AGCN_STEP_LAUNCHES = {"adaptive_graph": (10, 10), "sample_aggregate": (10, 10),
+                      "temporal_block": (10, 10), "affine_relu": (20, 20),
+                      "bn_moments": (26, 25)}
+
+
+def agcn_case(gen, nm, t, c_in, c_out, dev, timed: bool) -> list:
+    """The two ops' kernels against their plain versions on the same bf16
+    inputs (check_tight's rule; the float32 outputs C, dW, db and dA within
+    TIGHT_GRAD_REL of the largest), the forward against float64, and with
+    ``timed`` each way's device ms beside its bound.  Returns the failed
+    checks' messages."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import adaptive_graph as ag
+
+    k, ce = AGCN_K, c_out // 4
+    case = dict(nm=nm, t=t, c_in=c_in, c_out=c_out)
+    x = torch.randn((V, nm, t, c_in), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = torch.randn((c_in, 2 * k * ce), generator=gen, device=dev) \
+        * c_in ** -0.5
+    b = 0.1 * torch.randn((2 * k * ce,), generator=gen, device=dev)
+    failed = []
+
+    def tight(name, direction, got, want):
+        try:
+            check_tight(name, direction, got, want, "agcn_kernel",
+                        share=SPATIAL_TIGHT_SHARE, **case)
+        except AssertionError as err:
+            failed.append(str(err))
+
+    c, e = ag.adaptive_graph_forward(x, w, b, k)
+    tight("adaptive_graph", "forward", (e, c),
+          ag.adaptive_graph_forward_reference(x, w, b, k)[::-1])
+    c64, _ = ag.adaptive_graph_forward_reference(x.double(), w.double(),
+                                                 b.double(), k)
+    err64 = float((c.double() - c64).abs().max())
+    dc = torch.randn(c.shape, generator=gen, device=dev)
+    got = ag.adaptive_graph_backward(x, w, e, c, dc, k)
+    tight("adaptive_graph", "backward", got,
+          ag.adaptive_graph_backward_reference(x, w, e, c, dc, k))
+    again = ag.adaptive_graph_backward(x, w, e, c, dc, k)
+    a = (c + 0.1 * torch.rand(c.shape, generator=gen, device=dev)).float()
+    z = ag.sample_aggregate_forward(x, a)
+    tight("sample_aggregate", "forward", z,
+          ag.sample_aggregate_forward_reference(x, a))
+    dz = torch.randn(z.shape, generator=gen, device=dev).to(torch.bfloat16)
+    got_a = ag.sample_aggregate_backward(x, a, dz)
+    tight("sample_aggregate", "backward", got_a,
+          ag.sample_aggregate_backward_reference(x, a, dz))
+    if c_in == c_out:
+        # the tail op on the unit's shape: BN_g(g) + x, then ReLU
+        from stgcn_tpu_torch.kernels import affine_relu as ar
+
+        gx = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+        sa, t_, sb = (torch.randn((c_in,), generator=gen, device=dev)
+                      for _ in range(3))
+        out = ar.affine_relu_forward(gx, sa, t_, x, sb)
+        tight("affine_relu", "forward", out,
+              ar.affine_relu_forward_reference(gx, sa, t_, x, sb))
+        dout = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+        tight("affine_relu", "backward",
+              ar.affine_relu_backward(gx, sa, out, dout, x, sb),
+              ar.affine_relu_backward_reference(gx, sa, out, dout, x, sb))
+        if timed:
+            tail_ms = {
+                "fwd": graph_time_ms(lambda: ar.affine_relu_forward(
+                    gx, sa, t_, x, sb)),
+                "bwd": graph_time_ms(lambda: ar.affine_relu_backward(
+                    gx, sa, out, dout, x, sb))}
+    bitwise = all(torch.equal(p, q) for p, q in zip(got, again))
+    line = dict(case, c_vs_float64=err64, backward_bitwise=bitwise)
+    if not bitwise:
+        failed.append(f"adaptive_graph backward not bitwise at {case}")
+    if timed:
+        _, peak_flops, peak_bytes = card_peaks(torch.cuda.get_device_name())
+        n2, agg = 2 * k * ce, 2 * nm * t * k * V * V * c_in
+        embed, gram = 2 * nm * t * V * c_in * n2, 2 * nm * k * V * V * ce * t
+        # as stgcn_bench/costs/agcn.py counts them (weights left out):
+        # x in and C out forward, x and dC in and dx out backward; x and A
+        # in, z (K wide) out, and the same with dz and dA backward
+        x_b, a_b = nm * t * V * c_in * 2, nm * k * V * V * 4
+        bounds = {
+            "adaptive_fwd": max((embed + gram) / peak_flops,
+                                (x_b + a_b) / peak_bytes),
+            "adaptive_bwd": max(2 * (embed + gram) / peak_flops,
+                                (2 * x_b + a_b) / peak_bytes),
+            "aggregate_fwd": max(agg / peak_flops,
+                                 ((1 + k) * x_b + a_b) / peak_bytes),
+            "aggregate_bwd": max(2 * agg / peak_flops,
+                                 ((2 + k) * x_b + 2 * a_b) / peak_bytes)}
+        line["ms"] = {
+            "adaptive_fwd": graph_time_ms(
+                lambda: ag.adaptive_graph_forward(x, w, b, k)),
+            "adaptive_bwd": graph_time_ms(
+                lambda: ag.adaptive_graph_backward(x, w, e, c, dc, k)),
+            "aggregate_fwd": graph_time_ms(
+                lambda: ag.sample_aggregate_forward(x, a)),
+            "aggregate_bwd": graph_time_ms(
+                lambda: ag.sample_aggregate_backward(x, a, dz))}
+        line["bound_ms"] = {n: v * 1e3 for n, v in bounds.items()}
+        if c_in == c_out:
+            # three activations in and one out forward, four in two out
+            # backward
+            line["affine_relu_ms"] = tail_ms
+            line["affine_relu_bound_ms"] = {
+                "fwd": 3 * x_b / peak_bytes * 1e3,
+                "bwd": 6 * x_b / peak_bytes * 1e3}
+        line["plain_ms"] = {
+            "adaptive_fwd": graph_time_ms(
+                lambda: ag.adaptive_graph_forward_reference(x, w, b, k)),
+            "aggregate_fwd": graph_time_ms(
+                lambda: ag.sample_aggregate_forward_reference(x, a))}
+    emit("agcn_case", **line)
+    return failed
+
+
+def agcn_step(dev, steps: int = 3) -> dict:
+    """The captured AGCN train step at the cell's shape (64 clips x 2
+    bodies x 300 frames, bf16 kernels, Nesterov SGD with weight decay):
+    each counted op's launches a replay, the step's device ms, peak memory
+    and the losses."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import adaptive_graph as ag
+    from stgcn_tpu_torch.kernels import affine_relu as ar
+    from stgcn_tpu_torch.kernels import bn_moments as bm
+    from stgcn_tpu_torch.kernels import temporal_block as tb
+    from stgcn_tpu_torch.models.agcn import AGCN, AGCNConfig
+    from stgcn_tpu_torch.training.loop import make_train_step
+    from stgcn_tpu_torch.training.optimizers import OptimizerSpec
+    from stgcn_tpu_torch.training.train_state import train_state_from
+
+    counters = {"adaptive_graph": (ag.adaptive_graph_forward,
+                                   ag.adaptive_graph_backward),
+                "sample_aggregate": (ag.sample_aggregate_forward,
+                                     ag.sample_aggregate_backward),
+                "temporal_block": (tb.temporal_block_forward,
+                                   tb.temporal_block_backward),
+                "affine_relu": (ar.affine_relu_forward,
+                                ar.affine_relu_backward),
+                "bn_moments": (bm.bn_moments_forward,
+                               bm.bn_moments_backward)}
+    model = AGCN(AGCNConfig(block_impl="kernels",
+                            compute_dtype=torch.bfloat16)).to(dev)
+    params, state = model.init_params(SEED)
+    spec = OptimizerSpec("momentum", 0.1, momentum=0.9, weight_decay=1e-4,
+                         nesterov=True)
+    ts = train_state_from(params, state, spec, SEED, dev)
+    step = make_train_step(model)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    batches = [(torch.randn((B, 2, 300, V, 3), generator=gen, device=dev),
+                torch.randint(0, 60, (B,), generator=gen, device=dev))
+               for _ in range(2 + steps)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [float(step(ts, x, y)["loss"]) for x, y in batches[:2]]
+    torch.cuda.synchronize()
+    before = {n: (f.launches, g.launches) for n, (f, g) in counters.items()}
+    losses += [float(step(ts, x, y)["loss"]) for x, y in batches[2:]]
+    torch.cuda.synchronize()
+    launches = {n: [(f.launches - before[n][0]) / steps,
+                    (g.launches - before[n][1]) / steps]
+                for n, (f, g) in counters.items()}
+    x, y = batches[-1]
+    ms = cuda_time_ms(lambda: step(ts, x, y), reps=10, warmup=1)
+    out = {"launches_a_replay": launches, "step_ms": ms,
+           "clips_per_s": B / ms * 1e3, "losses": losses,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "graphs": step.cache_size}
+    out["ok"] = bool(all(tuple(v) == AGCN_STEP_LAUNCHES[n]
+                         for n, v in launches.items())
+                     and all(np.isfinite(v) for v in losses))
+    return out
+
+
+def agcn_main() -> int:
+    """``python3 chip_smoke.py --agcn``: 2s-AGCN's adaptive graph and
+    per-sample aggregation kernels against their plain versions at every
+    unit shape of the train-agcn-ntu-b64 cell and two small odd cases,
+    timed beside their bounds; then the captured train step's launches a
+    replay, step time and peak memory."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import _build
+
+    start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    emit("device", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda)
+    lib_path, build_s = _build.build()
+    _build.load_library()
+    emit("build", library=lib_path.name, seconds=build_s)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    failed = []
+    for cases, timed in ((AGCN_ODD, False), (AGCN_SHAPES, True)):
+        for shape in cases:
+            failed += agcn_case(gen, *shape, dev, timed)
+            torch.cuda.empty_cache()
+    line = agcn_step(dev)
+    emit("agcn_step", **line)
+    ok = line["ok"] and not failed
+    emit("run", run_seconds=time.perf_counter() - start, ok=bool(ok),
+         failed=failed[:5])
+    return 0 if ok else 1
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank_main(sys.argv[2], sys.argv[3],
@@ -5635,6 +5862,8 @@ if __name__ == "__main__":
         sys.exit(trace_main("--parallel-cards" in sys.argv[2:]))
     if sys.argv[1:2] == ["--bn-moments"]:
         sys.exit(bn_moments_main())
+    if sys.argv[1:2] == ["--agcn"]:
+        sys.exit(agcn_main())
     if sys.argv[1:2] == ["--parallel-cards"]:
         sys.exit(parallel_cards_main())
     sys.exit(main())

@@ -50,6 +50,14 @@ forward and backward)  ``(N, T, V, C)``, and
 forward and backward)  ``_bn_affine_train`` (and in ``stgcn_tpu/ops/
                        batchnorm.py`` ``batchnorm``): the per-channel mean
                        and mean of squares of a train BatchNorm
+``adaptive_graph``     no Pallas kernel: the JAX package has no 2s-AGCN.
+(``csrc/adaptive_graph. 2s-AGCN's adaptive graph (the theta/phi
+cu``, two ops,         embeddings, the Gram over (t, c), the column
+forward and backward)  softmax) and its aggregation through one adjacency
+                       a sample, returning dA a sample
+``affine_relu``        no Pallas kernel: 2s-AGCN's post-activation tail,
+(``csrc/affine_relu.   ``relu(a sa + b sb + t)``, one pass each way
+cu``)
 =====================  =====================================================
 
 The bfloat16 kernels of every op run on Hopper's tensor cores:
@@ -80,6 +88,13 @@ The bfloat16 kernels of every op run on Hopper's tensor cores:
   tensor), a dx GEMM over x's rows with depth K * C_out (t and W^T by TMA;
   its epilogue also writes h for the next kernel) and a dW GEMM split over
   the rows (h and t by TMA), their partial slices summed in order.
+
+``adaptive_graph``'s embedding GEMM (forward, dx, dW) runs on the tensor
+cores (WMMA ``mma.sync``, two cp.async stages); its Gram, softmax,
+their backward and the aggregation run on the CUDA cores with 16-byte
+shared-memory reads (bf16 only; float32 and float64 take the plain
+versions).  ``affine_relu`` is memory-bound, 16-byte loads, its channel
+sums in per-CTA partial slices added in order.
 
 ``bn_moments`` is memory-bound and runs on the CUDA cores in every dtype:
 the forward reads ``x`` once with 16-byte loads into per-thread float32

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 BUILD_TIMEOUT_S = 300
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # block_eval_launch(14 pointers, 16 ints, stream) -> cudaError_t, float32
 BLOCK_EVAL_ARGTYPES = [_P] * 14 + [_I] * 16 + [_P]
 # block_eval_mma_launch(15 pointers, 23 ints, stream), bf16
@@ -72,6 +73,20 @@ PHASE_MARK_ARGTYPES = [_I, _P]
 BN_MOMENTS_FWD_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
 # bn_moments_bwd_launch(4 pointers, 5 ints, stream)
 BN_MOMENTS_BWD_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
+# agcn_gemm_launch(4 pointers, 8 ints, stream), bf16
+AGCN_GEMM_ARGTYPES = [_P] * 4 + [_I] * 8 + [_P]
+# agcn_gram_launch(p, 3 ints, q, 8 ints, scale, softmax, splits, partial,
+# out, stream)
+AGCN_GRAM_ARGTYPES = ([_P] + [_I] * 3 + [_P] + [_I] * 8 + [_F, _I, _I]
+                      + [_P] * 3)
+# agcn_gram_bwd_launch(4 pointers, 6 ints, scale, splits, stream)
+AGCN_GRAM_BWD_ARGTYPES = [_P] * 4 + [_I] * 6 + [_F, _I, _P]
+# agcn_agg_launch(3 pointers, 6 ints, stream)
+AGCN_AGG_ARGTYPES = [_P] * 3 + [_I] * 6 + [_P]
+# affine_relu_fwd_launch(6 pointers, elements, 3 ints, stream)
+AFFINE_RELU_FWD_ARGTYPES = [_P] * 6 + [_L] + [_I] * 3 + [_P]
+# affine_relu_bwd_launch(10 pointers, rows, 3 ints, stream)
+AFFINE_RELU_BWD_ARGTYPES = [_P] * 10 + [_L] + [_I] * 3 + [_P]
 # every C entry point and its argument kinds; each returns a cudaError_t
 ENTRY_POINTS = {
     "block_eval_launch": BLOCK_EVAL_ARGTYPES,
@@ -93,6 +108,12 @@ ENTRY_POINTS = {
     "phase_mark_launch": PHASE_MARK_ARGTYPES,
     "bn_moments_fwd_launch": BN_MOMENTS_FWD_ARGTYPES,
     "bn_moments_bwd_launch": BN_MOMENTS_BWD_ARGTYPES,
+    "agcn_gemm_launch": AGCN_GEMM_ARGTYPES,
+    "agcn_gram_launch": AGCN_GRAM_ARGTYPES,
+    "agcn_gram_bwd_launch": AGCN_GRAM_BWD_ARGTYPES,
+    "agcn_agg_launch": AGCN_AGG_ARGTYPES,
+    "affine_relu_fwd_launch": AFFINE_RELU_FWD_ARGTYPES,
+    "affine_relu_bwd_launch": AFFINE_RELU_BWD_ARGTYPES,
 }
 
 

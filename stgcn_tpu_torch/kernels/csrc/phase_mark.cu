@@ -20,6 +20,7 @@ struct tail {};
 struct head {};
 struct grad_sync {};
 struct optimizer {};
+struct adaptive {};
 }  // namespace stgcn_phase
 
 template <typename Kind>
@@ -43,6 +44,7 @@ extern "C" int phase_mark_launch(int kind, void* stream) {
     case 5: return launch<stgcn_phase::head>(s);
     case 6: return launch<stgcn_phase::grad_sync>(s);
     case 7: return launch<stgcn_phase::optimizer>(s);
+    case 8: return launch<stgcn_phase::adaptive>(s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -11,7 +11,7 @@ import torch
 
 # the kinds in the order of phase_mark_launch's switch
 KINDS = ("input", "bn_stats", "spatial", "temporal", "tail", "head",
-         "grad_sync", "optimizer")
+         "grad_sync", "optimizer", "adaptive")
 
 
 def phase_mark(kind: str, device: torch.device) -> None:

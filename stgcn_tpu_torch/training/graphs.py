@@ -98,8 +98,9 @@ from stgcn_tpu_torch.tree import tree_leaves, tree_map
 from stgcn_tpu_torch.utils.profiling import forced_marks, span, tracing
 
 # the kernel modules whose wrappers count their launches
-_KERNEL_MODULES = ("block_eval", "bn_moments", "spatial_block",
-                   "spatial_conv", "temporal_block", "temporal_conv")
+_KERNEL_MODULES = ("adaptive_graph", "affine_relu", "block_eval",
+                   "bn_moments", "spatial_block", "spatial_conv",
+                   "temporal_block", "temporal_conv")
 
 
 def launch_counters() -> list[Callable]:

@@ -29,7 +29,11 @@ schedule's value:
 * ``flat_adam``: adam's numerics in float32 whatever the parameters' dtype
   (the JAX package keeps its moments as float32 vectors);
 * ``sgd``: ``p += -lr·g``; ``momentum``: ``trace = g + momentum·trace``,
-  ``p += -lr·trace``;
+  ``p += -lr·trace``; with ``weight_decay`` and ``nesterov``, in
+  ``torch.optim.SGD``'s form (dampening 0): ``g += weight_decay·p``, then
+  the trace, then ``p += -lr·(g + momentum·trace)`` with Nesterov (both
+  off by default; :func:`make_optimizer` passes the config's decay to
+  ``adamw`` only, as the JAX package does);
 * with ``clip_norm > 0`` the gradient first goes through optax's
   ``clip_by_global_norm``: with ``n = sqrt(Σ g²)`` over every leaf, ``g``
   is kept when ``n < clip_norm`` and becomes ``g / n · clip_norm``
@@ -177,6 +181,7 @@ class OptimizerSpec:
     weight_decay: float = 0.0
     momentum: float = 0.9
     clip_norm: float = 0.0
+    nesterov: bool = False
 
     def __post_init__(self):
         if self.name not in OPTIMIZERS:
@@ -213,9 +218,10 @@ def make_optimizer(cfg) -> OptimizerSpec:
     ``weight_decay``, ``momentum``, ``grad_clip_norm`` and the schedule's
     fields), as the JAX package's ``make_optimizer`` builds it."""
     clip = cfg.grad_clip_norm if cfg.grad_clip_norm > 0 else 0.0
+    decay = cfg.weight_decay if cfg.optimizer == "adamw" else 0.0
     return OptimizerSpec(cfg.optimizer, make_schedule(cfg),
-                         weight_decay=cfg.weight_decay,
-                         momentum=cfg.momentum, clip_norm=clip)
+                         weight_decay=decay, momentum=cfg.momentum,
+                         clip_norm=clip)
 
 
 class OptaxOptimizer(torch.optim.Optimizer):
@@ -339,10 +345,14 @@ class OptaxOptimizer(torch.optim.Optimizer):
             if spec.name == "adamw":
                 torch._foreach_add_(updates, params, alpha=spec.weight_decay)
         elif spec.name == "momentum":
+            if spec.weight_decay:
+                grads = torch._foreach_add(grads, params,
+                                           alpha=spec.weight_decay)
             trace = [self.state[p]["momentum_buffer"] for p in params]
             torch._foreach_mul_(trace, spec.momentum)
             torch._foreach_add_(trace, grads)
-            updates = trace
+            updates = (torch._foreach_add(grads, trace, alpha=spec.momentum)
+                       if spec.nesterov else trace)
         else:
             updates = grads
         _add_scaled_(params, updates, sc["neg_lr"], self._host["neg_lr"])

@@ -289,3 +289,14 @@ def test_imports_only_torch_numpy_and_stdlib(path):
     at_load = {r for r in imported_roots(path, lazy=False)
                if r not in sys.stdlib_module_names}
     assert at_load <= allowed, at_load - allowed
+
+
+def test_agcn_reference_stands_alone():
+    """The benchmark's plain 2s-AGCN imports no JAX, nothing of the JAX
+    package and nothing of the port: torch, numpy and the standard library
+    only."""
+    path = ROOT / "stgcn_bench" / "reference" / "agcn.py"
+    roots = {r for r in imported_roots(path)
+             if r not in sys.stdlib_module_names}
+    assert roots <= {"torch", "numpy"}, roots
+    assert not roots & (set(FORBIDDEN) | {"stgcn_tpu_torch", "stgcn_bench"})

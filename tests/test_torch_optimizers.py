@@ -274,3 +274,80 @@ def test_spec_validates_and_keeps_constant_layout():
     assert sorted(port_keyed(tree)) == ["0/count", "0/mu/w", "0/nu/w"]
     spec = dataclasses.replace(opt.flat_adam(), learning_rate=lambda c: c)
     assert spec.lr(0) == 1 and opt.adam(lambda c: c).lr(0) == 0
+
+
+# ---- momentum with Nesterov and weight decay, torch.optim.SGD's form -------
+
+SGD_CASES = [(nesterov, wd) for nesterov in (False, True)
+             for wd in (0.0, 1e-2)]
+
+
+def _sgd_pair(nesterov, wd, dtype=torch.float64):
+    params = tree_map(lambda a: torch.tensor(a, dtype=dtype,
+                                             requires_grad=True),
+                      init_tree(np.float64))
+    spec = opt.OptimizerSpec("momentum", 0.1, momentum=0.8,
+                             weight_decay=wd, nesterov=nesterov)
+    leaves = [p.detach().clone().requires_grad_(True)
+              for p in tree_leaves(params)]
+    ref = torch.optim.SGD(leaves, lr=0.1, momentum=0.8, nesterov=nesterov,
+                          weight_decay=wd)
+    return params, spec(tree_leaves(params)), leaves, ref
+
+
+@pytest.mark.parametrize("nesterov,wd", SGD_CASES,
+                         ids=[f"{'nesterov' if n else 'plain'}-wd{w}"
+                              for n, w in SGD_CASES])
+def test_momentum_matches_torch_sgd(nesterov, wd):
+    """Five updates in float64 against torch.optim.SGD(momentum, nesterov,
+    weight_decay), dampening 0: the parameters after each and the trace."""
+    params, port, leaves, ref = _sgd_pair(nesterov, wd)
+    for grads in grad_trees(np.float64):
+        for p, q, g in zip(tree_leaves(params), leaves, tree_leaves(grads)):
+            p.grad = torch.from_numpy(g.copy())
+            q.grad = torch.from_numpy(g.copy())
+        port.step()
+        ref.step()
+        for p, q in zip(tree_leaves(params), leaves):
+            torch.testing.assert_close(p.detach(), q.detach(), rtol=1e-12,
+                                       atol=1e-14)
+    for p, q in zip(tree_leaves(params), leaves):
+        torch.testing.assert_close(port.state[p]["momentum_buffer"],
+                                   ref.state[q]["momentum_buffer"],
+                                   rtol=1e-12, atol=1e-14)
+
+
+def test_nesterov_trace_round_trips_opt_state():
+    """The trace of a Nesterov step with decay through opt_state_tree and
+    load_opt_state: a fresh optimizer takes the same next update."""
+    params, port, _, _ = _sgd_pair(True, 1e-2)
+    grads = grad_trees(np.float64, 4)
+
+    def update(optim, tree, g):
+        for p, a in zip(tree_leaves(tree), tree_leaves(g)):
+            p.grad = torch.from_numpy(a.copy())
+        optim.step()
+
+    for g in grads[:3]:
+        update(port, params, g)
+    saved = opt.opt_state_tree(port, params)
+    assert sorted(port_keyed(saved)) == sorted(
+        port_keyed(opt.opt_state_tree(port, params)))
+    fresh = tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                     params)
+    again = port.spec(tree_leaves(fresh))
+    opt.load_opt_state(again, fresh, saved)
+    update(port, params, grads[3])
+    update(again, fresh, grads[3])
+    for p, q in zip(tree_leaves(params), tree_leaves(fresh)):
+        torch.testing.assert_close(p.detach(), q.detach(), rtol=0, atol=0)
+
+
+def test_make_optimizer_decays_adamw_only():
+    for name in ("momentum", "sgd", "adam"):
+        assert opt.make_optimizer(train_section(optimizer=name)
+                                  ).weight_decay == 0.0
+    assert opt.make_optimizer(train_section(optimizer="adamw")
+                              ).weight_decay == 0.3
+    assert not opt.make_optimizer(train_section(optimizer="momentum")
+                                  ).nesterov

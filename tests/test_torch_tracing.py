@@ -408,7 +408,7 @@ class TestReaders:
         assert claimers == ["roofline.spatial.train",
                             "roofline.temporal.train",
                             "roofline.block_eval.serve", "nccl_ms.train",
-                            "bn_stats_ms.train"]
+                            "bn_stats_ms.train", "roofline.adaptive.train"]
         got = reader("bn_stats_ms.train").claims(ctx)
         assert got and all("stgcn_phase_mark<" in k[0] for k in got)
         assert len(got) == sum("stgcn_phase_mark<" in o[0] for o in tr.ops)
@@ -453,14 +453,25 @@ class TestReaders:
 def test_benchmark_lists_the_new_metrics_where_they_read():
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     by_name = {m["name"]: m for m in bench["per_layer"]}
-    train = ["train-kth-b64", "train-ntu-b64", "train-ntu-b256-dp4"]
+    train = ["train-kth-b64", "train-ntu-b64", "train-ntu-b256-dp4",
+             "train-agcn-ntu-b64"]
     for name, wl in (("bn_stats_ms.train", train), ("tail_ms.train", train),
                      ("optimizer_ms.train", train),
                      ("grad_sync_ms.train", ["train-ntu-b256-dp4"]),
-                     ("collate_ms.serve", ["serve-kth-clips"])):
+                     ("collate_ms.serve",
+                      ["serve-kth-clips", "serve-kth-single"])):
         m = by_name[name]
         assert m["workloads"] == wl and m["source"] == "program_span"
         assert (METRICS / f"{name}.py").exists()
-    assert [m["name"] for m in bench["per_layer"]][-5:] == [
+    names = [m["name"] for m in bench["per_layer"]]
+    first = names.index("bn_stats_ms.train")
+    assert names[first:first + 5] == [
         "bn_stats_ms.train", "tail_ms.train", "optimizer_ms.train",
         "grad_sync_ms.train", "collate_ms.serve"]
+    # the adaptive graph's phase, its kernels' roofline and the AGCN
+    # step's share of the peak: the AGCN cell alone, appended after them
+    assert names[first + 5:] == ["adaptive_ms.train",
+                                 "roofline.adaptive.train", "mfu.agcn.train"]
+    for name in names[first + 5:]:
+        assert by_name[name]["workloads"] == ["train-agcn-ntu-b64"]
+        assert (METRICS / f"{name}.py").exists()
