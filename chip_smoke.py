@@ -5649,7 +5649,9 @@ AGCN_STEP_LAUNCHES = {"adaptive_graph": (10, 10), "sample_aggregate": (10, 10),
 def agcn_case(gen, nm, t, c_in, c_out, dev, timed: bool) -> list:
     """The two ops' kernels against their plain versions on the same bf16
     inputs (check_tight's rule; the float32 outputs C, dW, db and dA within
-    TIGHT_GRAD_REL of the largest), the forward against float64, and with
+    TIGHT_GRAD_REL of the largest), and where ``c_in == c_out`` the tail
+    op's kernels in its three ways (scaled, identity and no shortcut),
+    the forward against float64, and with
     ``timed`` each way's device ms beside its bound.  Returns the failed
     checks' messages."""
     import torch
@@ -5692,19 +5694,26 @@ def agcn_case(gen, nm, t, c_in, c_out, dev, timed: bool) -> list:
     tight("sample_aggregate", "backward", got_a,
           ag.sample_aggregate_backward_reference(x, a, dz))
     if c_in == c_out:
-        # the tail op on the unit's shape: BN_g(g) + x, then ReLU
+        # the tail op on the unit's shape, in each of the ways the model
+        # calls it: a scaled shortcut (BN(down(x)) or BN(res(x))), the
+        # identity shortcut x, and none (unit 0's TCN tail)
         from stgcn_tpu_torch.kernels import affine_relu as ar
 
         gx = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
         sa, t_, sb = (torch.randn((c_in,), generator=gen, device=dev)
                       for _ in range(3))
-        out = ar.affine_relu_forward(gx, sa, t_, x, sb)
-        tight("affine_relu", "forward", out,
-              ar.affine_relu_forward_reference(gx, sa, t_, x, sb))
         dout = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
-        tight("affine_relu", "backward",
-              ar.affine_relu_backward(gx, sa, out, dout, x, sb),
-              ar.affine_relu_backward_reference(gx, sa, out, dout, x, sb))
+        for variant, bb, sbb in (("scaled", x, sb), ("identity", x, None),
+                                 ("none", None, None)):
+            out = ar.affine_relu_forward(gx, sa, t_, bb, sbb)
+            tight(f"affine_relu[{variant}]", "forward", out,
+                  ar.affine_relu_forward_reference(gx, sa, t_, bb, sbb))
+            tight(f"affine_relu[{variant}]", "backward",
+                  tuple(d for d in ar.affine_relu_backward(
+                      gx, sa, out, dout, bb, sbb) if d is not None),
+                  tuple(d for d in ar.affine_relu_backward_reference(
+                      gx, sa, out, dout, bb, sbb) if d is not None))
+        out = ar.affine_relu_forward(gx, sa, t_, x, sb)
         if timed:
             tail_ms = {
                 "fwd": graph_time_ms(lambda: ar.affine_relu_forward(

@@ -14,8 +14,8 @@ out (``A_k + B_k`` only), and the parameters or the running statistics
 left where they began.  One JSON line each; the benchmark's own runs never
 compute these.
 
-``--program-f32`` runs the program in float32 (its plain versions of the
-adaptive ops, the scalar temporal kernels) with TF32 off, a witness of
+``--program-f32`` runs the program in float32 on its witness path
+(``block_impl: "ops"``, plain PyTorch ops) with TF32 off, a witness of
 what its bfloat16 rounding alone moves.
 """
 
@@ -35,7 +35,8 @@ from stgcn_bench import calibrate, harness, training  # noqa: E402
 from stgcn_bench.reference import agcn as ref  # noqa: E402
 from stgcn_bench.reference.stgcn import fp8_rounding  # noqa: E402
 
-KEEP = calibrate.KEEP + ("stats_median",)
+KEEP = calibrate.KEEP + ("stats_median", "grad_gap_live", "grad_leaf_live",
+                         "grad_leaf", "change_leaf", "nought")
 
 
 def planted(cell, inp: dict) -> list:
@@ -71,6 +72,7 @@ def main(argv=None) -> int:
     cell = harness.load_cell(args.workload, REPO)
     if args.program_f32:
         cell.config["agcn_config"]["compute_dtype"] = "float32"
+        cell.config["agcn_config"]["block_impl"] = "ops"
         cell.config["tf32"] = {"matmul": False, "cudnn": False}
     device = torch.device("cuda", 0)
     env = {"device": device, "rank": 0, "rendezvous": None,

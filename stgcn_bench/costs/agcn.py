@@ -1,14 +1,15 @@
 """What a 2s-AGCN step must compute and move: the analytic operation count
 of the whole step (for ``mfu.agcn.train``) and the least time of the
 adaptive graph and per-sample aggregation ops (for
-``roofline.adaptive.train``), from the configuration's shapes, counted
+``roofline.adaptive.train``) and of the 9x1 temporal convs (for
+``roofline.temporal.agcn.train``), from the configuration's shapes, counted
 from the equations of ``model/agcn.py`` (2 operations a multiply-add).
 Each input byte is counted read once and each output byte written once;
 activations in bf16, the adjacency and its gradient in float32."""
 
 from __future__ import annotations
 
-from stgcn_bench.costs.kernels import bound_ms
+from stgcn_bench.costs.kernels import bound_ms, temporal_cost
 
 K = 3
 
@@ -92,3 +93,16 @@ def adaptive_bound_ms(config: dict, batch: int, frames: int, bodies: int,
                      *aggregate_cost(n, t, c_in, v)):
             total += bound_ms(cost, peak_flops, peak_bytes)["bound_ms"]
     return total
+
+
+def temporal_bound_ms(config: dict, batch: int, frames: int, bodies: int,
+                      peak_flops: float, peak_bytes: float) -> float:
+    """The least time of a step's temporal ops (each unit's 9x1 conv of
+    ``C_out`` channels, strided, with the op's affine prologue), forward
+    and backward, as ``costs.kernels.temporal_cost`` counts one."""
+    g, v = config["agcn_config"], config["graph"]["num_joints"]
+    n = batch * bodies
+    return sum(bound_ms(cost, peak_flops, peak_bytes)["bound_ms"]
+               for _, c_out, stride, t in units(config, frames)
+               for cost in temporal_cost(n, t, c_out, stride, g["gamma"],
+                                         v=v))

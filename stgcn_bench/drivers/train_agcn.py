@@ -180,11 +180,21 @@ def reference_train(cell, inp: dict, *, rows=None, rounding=None,
 
 def readings(got: dict, want: dict, inp: dict) -> dict:
     """``check.train_numbers`` of ``got`` against ``want``, both from the
-    starting weights of ``inp``, with ``stats_median``."""
+    starting weights of ``inp``, with ``stats_median`` and
+    ``grad_gap_live``: the worst leaf's gradient gap over the leaves whose
+    reference gradient is not nought (no element reaches ``check``'s
+    quiet floor).  The nought ones are the conv biases before a BatchNorm
+    and theta's bias, whose shift along a column the softmax over i takes
+    out; ``change_gap`` leaves them out already."""
     nums = check.train_numbers(got, want, ref.leaves(inp["params"]),
                                ref.leaves(inp["state"]))
     nums["stats_median"] = statistics.median(
         nums["leaves"]["stats"].values())
+    nought = {k for k, n in nums["quiet"].items()
+              if n == want["first_grads"][k].numel()}
+    nums["grad_gap_live"], nums["grad_leaf_live"] = check.worst(
+        {k: v for k, v in nums["leaves"]["grad"].items() if k not in nought})
+    nums["nought"] = sorted(nought)
     return nums
 
 

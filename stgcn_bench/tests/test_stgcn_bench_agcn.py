@@ -154,6 +154,37 @@ def test_planted_faults_read_beyond_the_limits():
                    cell.limits.items() if name in readings[kind]), kind
 
 
+@pytest.mark.parametrize("name,kernel,after,bound", [
+    ("roofline.adaptive.train", "agcn_gram_kernel(GramArgs)",
+     "void at::native::reduce_kernel<512, 1>(R)", "adaptive_bound_ms"),
+    ("roofline.temporal.agcn.train",
+     "void (anonymous namespace)::tap_gemm_kernel<128>(TapArgs)",
+     "void reduce_partials<float>(P)", "temporal_bound_ms")])
+def test_kernel_readers_share_of_their_bound(name, kernel, after, bound):
+    """Each AGCN roofline reader claims its own kernels (and the
+    reduction behind them) and reads the cell's bound over their device
+    time; without them, or outside a train cell, it reads nothing."""
+    from stgcn_bench import trace as tracing
+    from stgcn_bench.costs import agcn, kernels
+
+    cell = harness.load_cell(WORKLOAD)
+    ops = [(kernel, 0, 400, 7, "kernel"), (after, 400, 500, 7, "kernel"),
+           ("other_kernel", 500, 600, 7, "kernel"),
+           (after, 600, 650, 7, "kernel")]
+    tr = tracing.Trace(ops, [], [], (0, 1000))
+    ctx = {"trace": tr, "steps": 2, "batch": 64, "frames": 300,
+           "bodies": 2, "cell": cell, "chips": 1,
+           "device_name": "NVIDIA H100 80GB HBM3"}
+    r = harness.metric_reader(cell, name)
+    assert [k[0] for k in r.claims(ctx)] == [kernel, after]
+    _, pf, pb = kernels.card_peaks("NVIDIA H100 80GB HBM3")
+    want = getattr(agcn, bound)(cell.config, 64, 300, 2, pf, pb)
+    assert r.read(ctx) == pytest.approx(100 * 2 * want / 0.5)
+    bare = tracing.Trace(ops[2:3], [], [], (0, 1000))
+    assert r.read(dict(ctx, trace=bare)) is None
+    assert r.read({"trace": tr}) is None
+
+
 def git_blob(data: bytes) -> str:
     return hashlib.sha1(b"blob %d\0" % len(data) + data).hexdigest()
 

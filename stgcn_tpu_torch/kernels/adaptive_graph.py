@@ -21,12 +21,13 @@ the bodies of every clip, each its own sample):
   one ``(K, V, V)`` for the batch and sums ``dA`` over it).
 
 The embeddings are float32 sums rounded to the activations' dtype; the
-Gram, the softmax and the adjacency stay float32.  For a bfloat16 CUDA
-tensor each op runs the hand-written kernels of ``csrc/adaptive_graph.cu``
-(the embedding, its dx and its dW on the tensor cores; the Gram and
-softmax, their backward and the aggregation on the CUDA cores); for any
-other tensor (the CPU, or float32 and float64 on the card) it runs the
-plain versions ``*_reference``, which round at the same points.
+Gram, the softmax and the adjacency stay float32.  On CUDA each op runs
+the hand-written kernels of ``csrc/adaptive_graph.cu`` (the embedding, its
+dx and its dW on the tensor cores; the Gram and softmax, their backward and
+the aggregation on the CUDA cores), which take bfloat16 activations and
+refuse any other dtype; on the CPU it runs the plain versions
+``*_reference``, which round at the same points (call them by name for
+float32 or float64 on the card).
 
 ``adaptive_graph_forward.launches``, ``adaptive_graph_backward.launches``,
 ``sample_aggregate_forward.launches`` and
@@ -129,7 +130,14 @@ def sample_aggregate_backward_reference(x, a, dz):
 # ---- kernel launches ---------------------------------------------------------
 
 def _on_kernels(x) -> bool:
-    return x.device.type == "cuda" and x.dtype == torch.bfloat16
+    """True for a CUDA tensor, False for a CPU one; the kernels take
+    bfloat16 only."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise ValueError(f"the adaptive graph kernels take bfloat16 on cuda, "
+                         f"got {x.dtype} on {x.device}")
+    return True
 
 
 def _stream(device):
@@ -184,8 +192,8 @@ def _check_kernel_shapes(v: int, k: int):
 
 
 def adaptive_graph_forward(x, w, b, k: int):
-    """Forward wrapper: ``(C, E)``; kernels for bf16 on CUDA, else the
-    plain version."""
+    """Forward wrapper: ``(C, E)``; plain version on the CPU, kernels on
+    CUDA."""
     if not _on_kernels(x):
         return adaptive_graph_forward_reference(x, w, b, k)
     from stgcn_tpu_torch.kernels._build import load_library
@@ -212,8 +220,8 @@ adaptive_graph_forward.launches = 0
 
 
 def adaptive_graph_backward(x, w, e, c, dc, k: int):
-    """Backward wrapper: ``(dx, dw, db)``; kernels for bf16 on CUDA, else
-    the plain version."""
+    """Backward wrapper: ``(dx, dw, db)``; plain version on the CPU,
+    kernels on CUDA."""
     if not _on_kernels(x):
         return adaptive_graph_backward_reference(x, w, e, c, dc, k)
     from stgcn_tpu_torch.kernels._build import load_library
@@ -250,8 +258,8 @@ adaptive_graph_backward.launches = 0
 
 
 def sample_aggregate_forward(x, a):
-    """Forward wrapper: ``z``; kernel for bf16 on CUDA, else the plain
-    version."""
+    """Forward wrapper: ``z``; plain version on the CPU, kernel on
+    CUDA."""
     if not _on_kernels(x):
         return sample_aggregate_forward_reference(x, a)
     from stgcn_tpu_torch.kernels._build import load_library
@@ -275,8 +283,8 @@ sample_aggregate_forward.launches = 0
 
 
 def sample_aggregate_backward(x, a, dz):
-    """Backward wrapper: ``(dx, da)``; kernels for bf16 on CUDA, else the
-    plain version."""
+    """Backward wrapper: ``(dx, da)``; plain version on the CPU, kernels
+    on CUDA."""
     if not _on_kernels(x):
         return sample_aggregate_backward_reference(x, a, dz)
     from stgcn_tpu_torch.kernels._build import load_library

@@ -19,15 +19,16 @@ The network, for input ``(N, M, T, V, C)`` (M bodies a clip):
 * the mean over T and V, then over the bodies, and ``fc``.
 
 Activations run V-major, ``(V, N M, T, C)``, as the port's train ops take
-them.  ``block_impl`` picks the path: "ops" runs the adaptive graph, the
-aggregation, the 9x1 conv and the tails as plain PyTorch ops under
-autograd (what the CPU tests hold against the benchmark's plain
-reference); "kernels" runs them on the ops of
+them.  ``block_impl`` picks the path: "kernels" (the default) runs the
+adaptive graph, the aggregation, the 9x1 conv and the tails on the ops of
 :mod:`stgcn_tpu_torch.kernels.adaptive_graph`,
 :func:`~stgcn_tpu_torch.kernels.temporal_block.temporal_block` and
 :func:`~stgcn_tpu_torch.kernels.affine_relu.affine_add_relu`, whose
-backwards are written out (their CUDA kernels on the card, their plain
-versions elsewhere).  Every train
+backwards are written out (their CUDA kernels on the card, bfloat16 only
+for the adaptive graph's; their plain versions on the CPU).  "ops" is the
+witness path: the same as plain PyTorch ops under autograd, in any dtype
+on any device, which the CPU tests hold against the benchmark's plain
+reference and which runs the model in float32 on the card.  Every train
 BatchNorm takes its statistics from ``bn_moments``, and the 1x1 convs
 (``Wd``, ``down``, ``res``) are matrix products on both paths.
 
@@ -93,7 +94,7 @@ class AGCNConfig:
     coff_embedding: int = 4
     gamma: int = 9
     compute_dtype: torch.dtype | None = None
-    block_impl: str = "ops"
+    block_impl: str = "kernels"
     dropout_rate: float = 0.0
 
     def __post_init__(self):

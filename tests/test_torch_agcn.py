@@ -4,11 +4,11 @@
 
 * the NTU graph's three subsets against ``normalize_digraph`` computed by
   hand from the edge list;
-* the op path at a small size (4 narrow units, T=16, N=2, M=2): logits,
-  every parameter's gradient, the new BatchNorm statistics, and the
-  parameters after one step of Nesterov SGD with weight decay;
-* the kernel path (the ops' plain versions) against the op path through
-  three captured-step calls;
+* the op path and the kernel path (the ops' plain versions) at a small
+  size (4 narrow units, T=16, N=2, M=2): logits, every parameter's
+  gradient, the new BatchNorm statistics, and the parameters after one
+  and three steps of Nesterov SGD with weight decay;
+* the kernel wrappers' refusal of what the bf16 kernels cannot take;
 * the adaptive graph and the per-sample aggregation ops against the
   reference's per-subset loop, values and gradients;
 * the C signatures of the new entry points against their ctypes
@@ -89,9 +89,19 @@ def test_ntu_subsets_by_hand():
 
 
 def test_op_path_against_reference():
+    _check_path_against_reference("ops")
+
+
+def test_kernel_path_against_reference():
+    """The default path, its ops' plain versions on the CPU."""
+    assert AGCNConfig().block_impl == "kernels"
+    _check_path_against_reference("kernels")
+
+
+def _check_path_against_reference(impl):
     params, state = _params()
     x, y = _batch()
-    model = _program("ops")
+    model = _program(impl)
     leaves = tree_map(lambda t: t.clone().requires_grad_(True), params)
     logits, new_state = model.apply(leaves, state, x, train=True)
     loss = torch.nn.functional.cross_entropy(logits, y)
@@ -207,6 +217,25 @@ def test_aggregate_plain_versions_round_like_the_kernels():
     dz = torch.randn(z.shape, generator=gen).to(torch.bfloat16)
     dx, da = ag.sample_aggregate_backward_reference(x, a, dz)
     assert dx.dtype == torch.bfloat16 and da.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_wrappers_refuse_what_the_kernels_cannot_take(dtype):
+    """Off the CPU the wrappers launch the bf16 kernels or raise: no
+    silent fall-back to the plain versions."""
+    x = torch.empty(V, 2, 5, 8, dtype=dtype, device="meta")
+    w, b = torch.empty(8, 12, device="meta"), torch.empty(12, device="meta")
+    a = torch.empty(2, 3, V, V, device="meta")
+    before = (ag.adaptive_graph_forward.launches,
+              ag.sample_aggregate_forward.launches)
+    with pytest.raises(ValueError, match="bfloat16 on cuda"):
+        ag.adaptive_graph_forward(x, w, b, 3)
+    with pytest.raises(ValueError, match="bfloat16 on cuda"):
+        ag.sample_aggregate_forward(x, a)
+    with pytest.raises(ValueError, match="bfloat16 on cuda"):
+        ag.sample_aggregate_backward(x, a, torch.empty_like(x))
+    assert before == (ag.adaptive_graph_forward.launches,
+                      ag.sample_aggregate_forward.launches)
 
 
 ENTRY = [("adaptive_graph.cu", name) for name in (

@@ -408,7 +408,8 @@ class TestReaders:
         assert claimers == ["roofline.spatial.train",
                             "roofline.temporal.train",
                             "roofline.block_eval.serve", "nccl_ms.train",
-                            "bn_stats_ms.train", "roofline.adaptive.train"]
+                            "bn_stats_ms.train", "roofline.adaptive.train",
+                            "roofline.temporal.agcn.train"]
         got = reader("bn_stats_ms.train").claims(ctx)
         assert got and all("stgcn_phase_mark<" in k[0] for k in got)
         assert len(got) == sum("stgcn_phase_mark<" in o[0] for o in tr.ops)
@@ -468,10 +469,12 @@ def test_benchmark_lists_the_new_metrics_where_they_read():
     assert names[first:first + 5] == [
         "bn_stats_ms.train", "tail_ms.train", "optimizer_ms.train",
         "grad_sync_ms.train", "collate_ms.serve"]
-    # the adaptive graph's phase, its kernels' roofline and the AGCN
-    # step's share of the peak: the AGCN cell alone, appended after them
+    # the adaptive graph's phase, its kernels' roofline, the AGCN step's
+    # share of the peak and its temporal kernels' roofline: the AGCN cell
+    # alone, appended after them
     assert names[first + 5:] == ["adaptive_ms.train",
-                                 "roofline.adaptive.train", "mfu.agcn.train"]
+                                 "roofline.adaptive.train", "mfu.agcn.train",
+                                 "roofline.temporal.agcn.train"]
     for name in names[first + 5:]:
         assert by_name[name]["workloads"] == ["train-agcn-ntu-b64"]
         assert (METRICS / f"{name}.py").exists()
