@@ -53,6 +53,10 @@ non-zero exit code:
                    cells' BatchNorm shapes (bf16 and float32) and at small
                    odd ones (float64 too) against float64 and the plain
                    versions, each twice bitwise, timed beside the bound.
+   Then ``unit_tail``: the units' tail op's kernels bitwise against
+                   PyTorch's chain and its autograd on the same draw at
+                   the cells' unit shapes and small odd ones, timed beside
+                   the bound (``--unit-tail`` below).
 7. train        -- ``bench.py``'s train step through ``make_train_step``:
                    full-width DEFAULT_PLAN, bf16, dropout 0.5, the hybrid
                    with blocks 0-6 fused, Adam 1e-3, B=64, T=304; 28 op
@@ -315,13 +319,25 @@ patterns claim inside its own phase (spatial or temporal).  Its
 ``{"phase": "trace"}`` line gives the per-phase ms a step, the markers'
 device us a step, each call's host ms (the second captures both
 graphs) and the BatchNorm statistics op's launches a replay, which must
-be 2 a unit forward and one fewer backward.
+be 2 a unit forward and one fewer backward, and the tail op's, one a unit
+each way, its kernels all in the tail phase.
 
 ``python3 chip_smoke.py --bn-moments`` checks that op alone
 (``kernels/bn_moments.py``): its kernels as in phase 6, the plain
 formula's device operations by the aten op that launched them, its
 launches a replay of the captured KTH and NTU train steps (20 + 19,
 18 + 17), two runs of each bitwise, and none in a serving request.
+
+``python3 chip_smoke.py --unit-tail`` checks the units' tail op alone
+(``kernels/unit_tail.py``): its two kernels bitwise against PyTorch's
+chain (the plain version) and its autograd on the same draw, at the ST-GCN
+cells' unit shapes (bf16; float32 at one) and small odd ones (C=40, an
+element count that is no multiple of 8, views off the 16-byte boundary),
+dropout "exact" and "bits8" at rates 0.5 and 0.3 and none, with and
+without the shortcut, each kernel twice bitwise; each kernel's device ms
+through a CUDA graph beside its byte bound and the chain's; its launches
+a replay of the captured KTH and NTU train steps (10 + 10, 9 + 9), two
+runs of each bitwise; none in a serving request or a 2s-AGCN step.
 """
 
 from __future__ import annotations
@@ -4820,15 +4836,15 @@ def plain_moments_profile(dev) -> dict:
     return dict(sorted(by_op.items(), key=lambda kv: -kv[1]))
 
 
-def bn_step_launches(dev, cfg, c_in: int, classes: int, steps: int = 3
-                     ) -> dict:
-    """The op's launches a replay of the captured fused train step at
-    B=64, T=304 (after the warm-up and the capture), and the same steps
-    from fresh objects a second time: the loss, parameters and BN
+def replay_launches(dev, cfg, c_in: int, classes: int, counters: dict,
+                    steps: int = 3) -> dict:
+    """Each counted op's ``[forward, backward]`` launches a replay of the
+    captured fused train step at B=64, T=304 (after the warm-up and the
+    capture; ``counters`` maps a name to the two wrappers), and the same
+    steps from fresh objects a second time: the loss, parameters and BN
     statistics bitwise equal."""
     import torch
 
-    from stgcn_tpu_torch.kernels import bn_moments as bm
     from stgcn_tpu_torch.models.stgcn import STGCN
     from stgcn_tpu_torch.training.loop import make_train_step
     from stgcn_tpu_torch.training.optimizers import adam
@@ -4848,38 +4864,47 @@ def bn_step_launches(dev, cfg, c_in: int, classes: int, steps: int = 3
         for x, y in batches[:2]:
             step(ts, x, y)
         torch.cuda.synchronize()
-        before = (bm.bn_moments_forward.launches,
-                  bm.bn_moments_backward.launches)
+        before = {n: (f.launches, g.launches)
+                  for n, (f, g) in counters.items()}
         losses = [step(ts, x, y)["loss"].clone() for x, y in batches[2:]]
         torch.cuda.synchronize()
-        counts = (bm.bn_moments_forward.launches - before[0],
-                  bm.bn_moments_backward.launches - before[1])
+        counts = {n: [(f.launches - before[n][0]) / steps,
+                      (g.launches - before[n][1]) / steps]
+                  for n, (f, g) in counters.items()}
         tensors = [t.detach().clone() for t in tree_leaves(ts.params)
                    + tree_leaves(ts.model_state)]
         return losses, tensors, counts, step.cache_size
 
     first, second = run(), run()
-    units = len(cfg.plan)
-    out = {"units": units, "replays": steps,
-           "fwd_a_replay": first[2][0] / steps,
-           "bwd_a_replay": first[2][1] / steps,
-           "graphs": first[3],
-           "bitwise_two_runs": (
-               all(torch.equal(a, b) for a, b in zip(first[0], second[0]))
-               and all(torch.equal(a, b) for a, b in zip(first[1],
-                                                         second[1])))}
+    return {"units": len(cfg.plan), "replays": steps,
+            "launches_a_replay": first[2], "graphs": first[3],
+            "bitwise_two_runs": (
+                all(torch.equal(a, b) for a, b in zip(first[0], second[0]))
+                and all(torch.equal(a, b) for a, b in zip(first[1],
+                                                          second[1])))}
+
+
+def bn_step_launches(dev, cfg, c_in: int, classes: int) -> dict:
+    """The BatchNorm statistics op's launches a replay of the captured
+    fused train step (:func:`replay_launches`)."""
+    from stgcn_tpu_torch.kernels import bn_moments as bm
+
+    out = replay_launches(dev, cfg, c_in, classes, {
+        "bn_moments": (bm.bn_moments_forward, bm.bn_moments_backward)})
+    fwd, bwd = out.pop("launches_a_replay")["bn_moments"]
+    out.update(fwd_a_replay=fwd, bwd_a_replay=bwd)
+    units = out["units"]
     # unit 0's first BatchNorm reads the batch, which takes no gradient
-    out["ok"] = bool(out["fwd_a_replay"] == 2 * units
-                     and out["bwd_a_replay"] == 2 * units - 1
-                     and first[3] == 1 and out["bitwise_two_runs"])
+    out["ok"] = bool(fwd == 2 * units and bwd == 2 * units - 1
+                     and out["graphs"] == 1 and out["bitwise_two_runs"])
     return out
 
 
-def bn_serving_launches(dev) -> dict:
-    """A serving request at the KTH width: no BatchNorm statistics."""
+def serving_launches(dev, counters: dict) -> dict:
+    """A serving request at the KTH width: each counted op's launches
+    (``counters`` maps a name to its wrappers), all 0 for ``ok``."""
     import torch
 
-    from stgcn_tpu_torch.kernels import bn_moments as bm
     from stgcn_tpu_torch.models.stgcn import STGCN
     from stgcn_tpu_torch.serving import Predictor
 
@@ -4889,13 +4914,23 @@ def bn_serving_launches(dev) -> dict:
     rng = np.random.default_rng(SEED + 42)
     seqs = [rng.normal(0, 1, (int(t), V, 2)).astype(np.float32)
             for t in rng.integers(40, T + 1, 100)]
-    before = (bm.bn_moments_forward.launches,
-              bm.bn_moments_backward.launches)
+    before = {n: [f.launches for f in fs] for n, fs in counters.items()}
     pred.predict(seqs)
     torch.cuda.synchronize()
-    counts = [bm.bn_moments_forward.launches - before[0],
-              bm.bn_moments_backward.launches - before[1]]
-    return {"clips": len(seqs), "launches": counts, "ok": counts == [0, 0]}
+    counts = {n: [f.launches - b for f, b in zip(fs, before[n])]
+              for n, fs in counters.items()}
+    return {"clips": len(seqs), "launches": counts,
+            "ok": all(c == [0, 0] for c in counts.values())}
+
+
+def bn_serving_launches(dev) -> dict:
+    """A serving request at the KTH width: no BatchNorm statistics."""
+    from stgcn_tpu_torch.kernels import bn_moments as bm
+
+    out = serving_launches(dev, {"bn_moments": (bm.bn_moments_forward,
+                                                bm.bn_moments_backward)})
+    out["launches"] = out["launches"]["bn_moments"]
+    return out
 
 
 def bn_moments_phase(dev) -> None:
@@ -4960,10 +4995,213 @@ def bn_moments_main() -> int:
     return 0 if ok else 1
 
 
+# ---- --unit-tail: the units' tail op -----------------------------------------
+# (V, N, T, C) of the ST-GCN cells' unit outputs at B=64: the widths 64 /
+# 128 / 256 at KTH's T 304 / 152 / 76 and NTU's 300 / 150 / 75
+TAIL_SHAPES = tuple((V, B, (t - 1) // s + 1, c) for t in (T, 300)
+                    for s, c in ((1, 64), (2, 128), (4, 256)))
+# small cases off the cells: the odd width, an element count that is no
+# multiple of 8 (the last mask byte partial), and views two bytes off the
+# 16-byte boundary (the scalar loads)
+TAIL_ODD = (((V, 4, ODD_T, ODD_C), False), ((V, 3, ODD_T, 3), False),
+            ((V, 2, ODD_T, ODD_C), True))
+# dropout's (impl, rate): the cells' 0.5, a rate whose reciprocal float32
+# cannot hold (0.3), both draws, and no draw
+TAIL_MODES = (("exact", 0.5), ("exact", 0.3), ("bits8", 0.5),
+              ("bits8", 0.3), ("exact", 0.0))
+
+
+def pack_bits(bit):
+    """A bool mask packed 8 to a byte along the flat index, bit j of byte
+    b for element 8b + j: the kernels' mask layout."""
+    import torch
+
+    flat = bit.flatten().to(torch.uint8)
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
+    weights = torch.tensor([1 << j for j in range(8)], dtype=torch.uint8,
+                           device=bit.device)
+    return (flat.view(-1, 8) * weights).sum(dim=1, dtype=torch.uint8)
+
+
+def off_boundary(t):
+    """``t`` as a contiguous view two bytes off its storage's start."""
+    import torch
+
+    pad = torch.cat([t.new_zeros(1), t.flatten()])
+    return pad[1:].view(t.shape)
+
+
+def unit_tail_case(gen, shape, dt, dev, short_on: bool, impl: str,
+                   rate: float, offset: bool) -> dict:
+    """The op on one input against PyTorch's chain on CUDA (the plain
+    version) and its autograd on the same draw: the output, the packed
+    mask and the gradients of u and short bitwise equal; each kernel run
+    twice, bitwise."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import unit_tail as ut
+    from stgcn_tpu_torch.ops.common import dropout_draw
+
+    u = torch.randn(shape, generator=gen, device=dev).to(dt)
+    short = (torch.randn(shape, generator=gen, device=dev).to(dt)
+             if short_on else None)
+    draw = (dropout_draw(shape, rate, generator=gen, device=dev, impl=impl)
+            if rate > 0 else (None, None, None))
+    dout = torch.randn(shape, generator=gen, device=dev).to(dt)
+    if offset:
+        u, dout = off_boundary(u), off_boundary(dout)
+        short = None if short is None else off_boundary(short)
+        draw = (off_boundary(draw[0]), *draw[1:]) if rate > 0 else draw
+    ins = [u.detach().requires_grad_()]
+    if short is not None:
+        ins.append(short.detach().requires_grad_())
+    want, want_bit = ut.unit_tail_forward_reference(
+        ins[0], ins[1] if short_on else None, *draw)
+    want_grads = torch.autograd.grad(want, ins, dout)
+    got_ins = [t.detach().requires_grad_() for t in ins]
+    got = ut.unit_tail(got_ins[0], got_ins[1] if short_on else None, *draw)
+    got_grads = torch.autograd.grad(got, got_ins, dout)
+    out, bits = ut.unit_tail_forward(u, short, *draw)
+    out2, bits2 = ut.unit_tail_forward(u, short, *draw)
+    du = ut.unit_tail_backward(bits, dout, draw[2])
+    du2 = ut.unit_tail_backward(bits2, dout, draw[2])
+    line = {"shape": list(shape), "dtype": str(dt).removeprefix("torch."),
+            "short": short_on, "impl": impl if rate > 0 else None,
+            "rate": rate, "off_boundary": offset,
+            "out_differ": int((got.detach() != want.detach()).sum()),
+            "mask_differ": int((bits != pack_bits(want_bit)).sum()),
+            "grad_differ": [int((g != w).sum())
+                            for g, w in zip(got_grads, want_grads)],
+            "kept_share": float(want_bit.float().mean()),
+            "bitwise_repeat": (torch.equal(out, out2)
+                               and torch.equal(bits, bits2)
+                               and torch.equal(du, du2))}
+    line["ok"] = bool(line["out_differ"] == 0 and line["mask_differ"] == 0
+                      and not any(line["grad_differ"])
+                      and line["bitwise_repeat"]
+                      and torch.equal(du, got_grads[0]))
+    return line
+
+
+def unit_tail_time(gen, shape, dev, impl: str) -> dict:
+    """Device ms of the op's two kernels at a cell's shape (bf16, the
+    shortcut, rate 0.5) through a CUDA graph beside their byte bounds, and
+    of PyTorch's chain forward and backward on the same draw."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import unit_tail as ut
+    from stgcn_tpu_torch.ops.common import dropout_draw
+
+    _, _, peak_bytes = card_peaks(torch.cuda.get_device_name())
+    u, short, dout = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    draw = dropout_draw(shape, 0.5, generator=gen, device=dev, impl=impl)
+    _, bits = ut.unit_tail_forward(u, short, *draw)
+    n = u.numel()
+    fwd_bytes = n * (2 + 2 + draw[0].element_size() + 2) + bits.numel()
+    bwd_bytes = n * (2 + 2) + bits.numel()
+    ins = [u.detach().requires_grad_(), short.detach().requires_grad_()]
+
+    def chain():
+        out, _ = ut.unit_tail_forward_reference(*ins, *draw)
+        torch.autograd.grad(out, ins, dout)
+
+    return {"shape": list(shape), "impl": impl,
+            "fwd_ms": graph_time_ms(
+                lambda: ut.unit_tail_forward(u, short, *draw)),
+            "bwd_ms": graph_time_ms(
+                lambda: ut.unit_tail_backward(bits, dout, draw[2])),
+            "fwd_bound_ms": fwd_bytes / peak_bytes * 1e3,
+            "bwd_bound_ms": bwd_bytes / peak_bytes * 1e3,
+            "chain_fwd_bwd_ms": cuda_time_ms(chain, reps=BN_TIME_REPS)}
+
+
+def unit_tail_phase(dev) -> None:
+    """The op's kernels against the chain at the cells' shapes (bf16, both
+    draws at both rates, with and without the shortcut; float32 at KTH's
+    first width) and at the small odd cases (both dtypes), then timed at
+    the cells' shapes; raises on a failure."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    failed = []
+    cases = [(shape, torch.bfloat16, False) for shape in TAIL_SHAPES]
+    cases.append((TAIL_SHAPES[0], torch.float32, False))
+    cases += [(shape, dt, off) for shape, off in TAIL_ODD
+              for dt in (torch.bfloat16, torch.float32)]
+    for shape, dt, off in cases:
+        for short_on in (True, False):
+            for impl, rate in TAIL_MODES:
+                line = unit_tail_case(gen, shape, dt, dev, short_on, impl,
+                                      rate, off)
+                emit("unit_tail", **line)
+                if not line["ok"]:
+                    failed.append(line)
+        torch.cuda.empty_cache()
+    for shape in TAIL_SHAPES:
+        for impl in ("exact", "bits8"):
+            emit("unit_tail_time", **unit_tail_time(gen, shape, dev, impl))
+    if failed:
+        raise AssertionError(f"unit_tail: {len(failed)} cases failed, "
+                             f"first {failed[0]}")
+
+
+def unit_tail_main() -> int:
+    """``python3 chip_smoke.py --unit-tail``: the units' tail op alone:
+    its kernels bitwise against PyTorch's chain and its autograd on the
+    same draw at the cells' shapes and small odd ones, timed beside the
+    bound; its launches a replay of the captured KTH and NTU train steps
+    (10 + 10, 9 + 9), two runs of each bitwise; none in a serving request
+    or a 2s-AGCN step."""
+    import torch
+
+    from stgcn_tpu_torch.kernels import _build
+    from stgcn_tpu_torch.kernels import unit_tail as ut
+    from stgcn_tpu_torch.models.stgcn import PLAN_9
+
+    start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    emit("device", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda)
+    lib_path, build_s = _build.build()
+    _build.load_library()
+    emit("build", library=lib_path.name, seconds=build_s)
+    unit_tail_phase(dev)
+    counters = {"unit_tail": (ut.unit_tail_forward, ut.unit_tail_backward)}
+    ok = True
+    for name, cfg, c_in, classes in (
+            ("kth", bench_config(block_impl="fused"), 2, 6),
+            ("ntu", bench_config(block_impl="fused", plan=PLAN_9, c_in=3,
+                                 num_classes=60), 3, 60)):
+        line = replay_launches(dev, cfg, c_in, classes, counters)
+        units = line["units"]
+        line["ok"] = bool(line["launches_a_replay"]["unit_tail"]
+                          == [units, units] and line["graphs"] == 1
+                          and line["bitwise_two_runs"])
+        emit("unit_tail_step", cell=name, **line)
+        ok &= line["ok"]
+    line = serving_launches(dev, counters)
+    emit("unit_tail_serve", **line)
+    ok &= line["ok"]
+    line = agcn_step(dev)
+    emit("unit_tail_agcn_step", **line)
+    ok &= line["ok"]
+    emit("run", run_seconds=time.perf_counter() - start, ok=bool(ok))
+    return 0 if ok else 1
+
+
 # ---- --trace: the phase marks of the captured train step -------------------
 
 TRACE_STEPS = 3
 PHASE_MARK = re.compile(r"\bstgcn_phase_mark<stgcn_phase::(\w+)>")
+# the tail op's kernels (csrc/unit_tail.cu), one each way a unit
+UNIT_TAIL_KERNEL = re.compile(r"\bunit_tail_(fwd|bwd)_kernel\b")
 # the benchmark's pattern files, read as data
 BENCH_METRICS = Path(__file__).resolve().parent / "stgcn_bench" / "metrics"
 
@@ -5036,6 +5274,7 @@ def trace_check(dev, mesh=None) -> dict:
     import torch
 
     from stgcn_tpu_torch.kernels import bn_moments as bm
+    from stgcn_tpu_torch.kernels import unit_tail as ut
     from stgcn_tpu_torch.models.stgcn import STGCN
     from stgcn_tpu_torch.parallel.train import make_sharded_train_step
     from stgcn_tpu_torch.training.loop import make_train_step
@@ -5065,6 +5304,8 @@ def trace_check(dev, mesh=None) -> dict:
         losses, call_ms = [], []
         bn_before = (bm.bn_moments_forward.launches,
                      bm.bn_moments_backward.launches)
+        tail_before = (ut.unit_tail_forward.launches,
+                       ut.unit_tail_backward.launches)
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         prof = torch.profiler.profile(activities=acts) if traced else None
@@ -5091,6 +5332,11 @@ def trace_check(dev, mesh=None) -> dict:
                    (bm.bn_moments_forward.launches - bn_before[0])
                    / TRACE_STEPS,
                    (bm.bn_moments_backward.launches - bn_before[1])
+                   / TRACE_STEPS],
+               "unit_tail_a_step": [
+                   (ut.unit_tail_forward.launches - tail_before[0])
+                   / TRACE_STEPS,
+                   (ut.unit_tail_backward.launches - tail_before[1])
                    / TRACE_STEPS]}
         if prof is not None:
             with tempfile.NamedTemporaryFile(suffix=".json") as f:
@@ -5130,6 +5376,11 @@ def trace_check(dev, mesh=None) -> dict:
         wrong = sorted({f"{phase_of[id(k)]}: {k[0][:80]}" for k in claimed
                         if phase_of[id(k)] != home})
         misplaced[metric] = {"claimed": len(claimed), "outside": wrong[:8]}
+    # the tail op's kernels, which no metric's patterns claim, in the tail
+    tail_op = [k for k in kernels if UNIT_TAIL_KERNEL.search(k[0])]
+    tail_op_outside = sorted({f"{phase_of[id(k)]}: {k[0][:80]}"
+                              for k in tail_op
+                              if phase_of[id(k)] != "tail"})
     unclaimed = {id(k) for k in kernels} - {
         id(k) for metric in ("roofline.spatial.train",
                              "roofline.temporal.train", "nccl_ms.train")
@@ -5166,6 +5417,12 @@ def trace_check(dev, mesh=None) -> dict:
         # replay, plain and marked (unit 0's first BN takes no gradient)
         "bn_moments_a_step": [plain["bn_moments_a_step"],
                               marked["bn_moments_a_step"]],
+        # the tail op: launches a replay, plain and marked; its kernels a
+        # step and those outside the tail phase
+        "unit_tail_a_step": [plain["unit_tail_a_step"],
+                             marked["unit_tail_a_step"]],
+        "unit_tail_kernels_a_step": len(tail_op) / TRACE_STEPS,
+        "unit_tail_outside_tail": tail_op_outside[:8],
     }
     units = len(cfg.plan)
     out["ok"] = bool(
@@ -5177,7 +5434,10 @@ def trace_check(dev, mesh=None) -> dict:
         and all(m["claimed"] and not m["outside"]
                 for m in misplaced.values())
         and all(n == [2 * units, 2 * units - 1]
-                for n in out["bn_moments_a_step"]))
+                for n in out["bn_moments_a_step"])
+        and all(n == [units, units] for n in out["unit_tail_a_step"])
+        and out["unit_tail_kernels_a_step"] == 2 * units
+        and not tail_op_outside)
     if not out["marks_in_order"]:
         out["kinds_head"] = kinds[:12]
         out["want_head"] = want[:12]
@@ -5520,6 +5780,7 @@ def main() -> int:
     # ---- 6. train_kernel ----------------------------------------------------
     train_errors = train_kernel_phase(dev, gen, odd_gen)
     bn_moments_phase(dev)
+    unit_tail_phase(dev)
 
     memory_checkpoint("train")
     # ---- 7. train, 8. train_time: the train path ---------------------------
@@ -5643,7 +5904,7 @@ AGCN_K = 3
 # gradient)
 AGCN_STEP_LAUNCHES = {"adaptive_graph": (10, 10), "sample_aggregate": (10, 10),
                       "temporal_block": (10, 10), "affine_relu": (20, 20),
-                      "bn_moments": (26, 25)}
+                      "bn_moments": (26, 25), "unit_tail": (0, 0)}
 
 
 def agcn_case(gen, nm, t, c_in, c_out, dev, timed: bool) -> list:
@@ -5778,6 +6039,7 @@ def agcn_step(dev, steps: int = 3) -> dict:
     from stgcn_tpu_torch.kernels import affine_relu as ar
     from stgcn_tpu_torch.kernels import bn_moments as bm
     from stgcn_tpu_torch.kernels import temporal_block as tb
+    from stgcn_tpu_torch.kernels import unit_tail as ut
     from stgcn_tpu_torch.models.agcn import AGCN, AGCNConfig
     from stgcn_tpu_torch.training.loop import make_train_step
     from stgcn_tpu_torch.training.optimizers import OptimizerSpec
@@ -5792,7 +6054,8 @@ def agcn_step(dev, steps: int = 3) -> dict:
                 "affine_relu": (ar.affine_relu_forward,
                                 ar.affine_relu_backward),
                 "bn_moments": (bm.bn_moments_forward,
-                               bm.bn_moments_backward)}
+                               bm.bn_moments_backward),
+                "unit_tail": (ut.unit_tail_forward, ut.unit_tail_backward)}
     model = AGCN(AGCNConfig(block_impl="kernels",
                             compute_dtype=torch.bfloat16)).to(dev)
     params, state = model.init_params(SEED)
@@ -5871,6 +6134,8 @@ if __name__ == "__main__":
         sys.exit(trace_main("--parallel-cards" in sys.argv[2:]))
     if sys.argv[1:2] == ["--bn-moments"]:
         sys.exit(bn_moments_main())
+    if sys.argv[1:2] == ["--unit-tail"]:
+        sys.exit(unit_tail_main())
     if sys.argv[1:2] == ["--agcn"]:
         sys.exit(agcn_main())
     if sys.argv[1:2] == ["--parallel-cards"]:

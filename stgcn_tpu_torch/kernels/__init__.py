@@ -58,6 +58,11 @@ forward and backward)  softmax) and its aggregation through one adjacency
 ``affine_relu``        no Pallas kernel: 2s-AGCN's post-activation tail,
 (``csrc/affine_relu.   ``relu(a sa + b sb + t)``, one pass each way
 cu``)
+``unit_tail``          no Pallas kernel: XLA's fusion of the ST-GCN unit's
+(``csrc/unit_tail.cu``, tail in ``stgcn_tpu/models/fused.py``
+forward and backward)  ``block_forward_fused_train``: the shortcut add,
+                       ReLU and dropout on a given draw, one bit an
+                       element saved for the backward
 =====================  =====================================================
 
 The bfloat16 kernels of every op run on Hopper's tensor cores:
@@ -95,6 +100,9 @@ their backward and the aggregation run on the CUDA cores with 16-byte
 shared-memory reads (bf16 only; float32 and float64 take the plain
 versions).  ``affine_relu`` is memory-bound, 16-byte loads, its channel
 sums in per-CTA partial slices added in order.
+
+``unit_tail`` is memory-bound, bf16 and float32: a thread 8 elements and
+one mask byte a step, 16-byte loads; bitwise PyTorch's chain on CUDA.
 
 ``bn_moments`` is memory-bound and runs on the CUDA cores in every dtype:
 the forward reads ``x`` once with 16-byte loads into per-thread float32

@@ -87,6 +87,12 @@ AGCN_AGG_ARGTYPES = [_P] * 3 + [_I] * 6 + [_P]
 AFFINE_RELU_FWD_ARGTYPES = [_P] * 6 + [_L] + [_I] * 3 + [_P]
 # affine_relu_bwd_launch(10 pointers, rows, 3 ints, stream)
 AFFINE_RELU_BWD_ARGTYPES = [_P] * 10 + [_L] + [_I] * 3 + [_P]
+# unit_tail_fwd_launch(5 pointers, elements, dtype, draw kind, keep_below,
+# scale, ctas, stream)
+UNIT_TAIL_FWD_ARGTYPES = [_P] * 5 + [_L] + [_I] * 2 + [_F] * 2 + [_I, _P]
+# unit_tail_bwd_launch(3 pointers, elements, dtype, scaled, scale, ctas,
+# stream)
+UNIT_TAIL_BWD_ARGTYPES = [_P] * 3 + [_L] + [_I] * 2 + [_F, _I, _P]
 # every C entry point and its argument kinds; each returns a cudaError_t
 ENTRY_POINTS = {
     "block_eval_launch": BLOCK_EVAL_ARGTYPES,
@@ -114,6 +120,8 @@ ENTRY_POINTS = {
     "agcn_agg_launch": AGCN_AGG_ARGTYPES,
     "affine_relu_fwd_launch": AFFINE_RELU_FWD_ARGTYPES,
     "affine_relu_bwd_launch": AFFINE_RELU_BWD_ARGTYPES,
+    "unit_tail_fwd_launch": UNIT_TAIL_FWD_ARGTYPES,
+    "unit_tail_bwd_launch": UNIT_TAIL_BWD_ARGTYPES,
 }
 
 

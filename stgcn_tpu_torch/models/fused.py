@@ -22,12 +22,14 @@ differentiable ops, ``kernels.spatial_block.spatial_block`` (or
 JAX package routes it) and ``kernels.temporal_block.temporal_block``, with
 the BatchNorm batch statistics outside them as a differentiable per-channel
 affine, so the whole BN gradient flows through the ops' ``ds``/``dt``.  The
-shortcut add, the final ReLU and dropout stay plain PyTorch.  The hybrid
-runs the blocks of ``hybrid_fused_set`` fused on V-major ``(V, N, T, C)``
-activations and the others on the ``(N, T, V, C)`` op chain, transposing
-only where the regime changes.  The parameters are the JAX package's
-dictionaries (:meth:`STGCN.init_params`), with the mask mode's ``mask``
-kept apart from the fixed adjacency.
+shortcut add, the final ReLU and dropout are one op,
+``kernels.unit_tail.unit_tail``, on dropout's draw from the generator (one
+draw a unit, in unit order); the shortcut's projection stays a PyTorch
+matmul.  The hybrid runs the blocks of ``hybrid_fused_set`` fused on
+V-major ``(V, N, T, C)`` activations and the others on the ``(N, T, V,
+C)`` op chain, transposing only where the regime changes.  The parameters
+are the JAX package's dictionaries (:meth:`STGCN.init_params`), with the
+mask mode's ``mask`` kept apart from the fixed adjacency.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from stgcn_tpu_torch.kernels.spatial_block import (
     spatial_block_save,
 )
 from stgcn_tpu_torch.kernels.temporal_block import temporal_block
+from stgcn_tpu_torch.kernels.unit_tail import unit_tail
 from stgcn_tpu_torch.ops.batchnorm import (
     batch_moments,
     batchnorm_train,
@@ -52,7 +55,7 @@ from stgcn_tpu_torch.ops.block import (
     block_forward_train,
     effective_adjacency,
 )
-from stgcn_tpu_torch.ops.common import dropout, linear
+from stgcn_tpu_torch.ops.common import dropout_draw, linear
 from stgcn_tpu_torch.models.stgcn import _cast_tree
 from stgcn_tpu_torch.utils.profiling import boundary, mark
 
@@ -201,7 +204,9 @@ def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
                               ) -> tuple[torch.Tensor, dict]:
     """One train-mode block on V-major ``(V, N, T, C_in)``: the spatial and
     temporal ops, BN statistics (over ``bn_group``'s ranks with one),
-    shortcut, ReLU and dropout.  Returns ``(out, new_state)``.
+    shortcut, and the tail's add, ReLU and dropout as one op
+    (:func:`~stgcn_tpu_torch.kernels.unit_tail.unit_tail`).  Returns
+    ``(out, new_state)``.
 
     While a profiler records, the tensors between the phases pass through
     :func:`~stgcn_tpu_torch.utils.profiling.boundary`, which marks
@@ -225,7 +230,6 @@ def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
     else:
         z = spatial_block(x, s1, t1, w, b, a, relu1=residual,
                           need_da=need_da)
-    acc = stat_dtype(x)
     if residual:
         z = boundary("bn_stats", "spatial", z)
         s2, t2, new_state["bn2"] = bn_affine_train(bp["bn2"], bs["bn2"], z,
@@ -236,13 +240,12 @@ def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
         u = temporal_block(z, s2, t2, wt, bt, stride=stride, relu2=True)
         u = boundary("tail", "temporal", u)
         if "residual_proj" in bp:
-            rp = bp["residual_proj"]
+            rp, acc = bp["residual_proj"], stat_dtype(x)
             xs = x[:, :, ::stride] if stride != 1 else x
             short = ((xs.to(acc) @ rp["w"].to(cd).to(acc)).to(cd)
                      + rp["b"].to(cd))
         else:
             short = x
-        out = torch.relu(u.to(acc) + short.to(acc)).to(cd)
     else:
         z = boundary("temporal", "spatial", z)
         wt = bp["temporal"]["w"][:, 0].to(cd)
@@ -254,15 +257,16 @@ def block_forward_fused_train(bp: dict, bs: dict, x: torch.Tensor,
         u = boundary("bn_stats", "temporal", u)
         out, new_state["bn2"] = batchnorm_train(bp["bn2"], bs["bn2"], u,
                                                 group=bn_group)
-        out = boundary("tail", "bn_stats", out)
-        out = torch.relu(out)
+        u, short = boundary("tail", "bn_stats", out), None
+    draw = keep_below = scale = None
     if dropout_rate > 0.0:
         if generator is None:
             raise ValueError("dropout_rate > 0 in train mode needs a "
                              "generator")
-        out = dropout(out, dropout_rate, generator=generator,
-                      impl=dropout_impl)
-    return out, new_state
+        draw, keep_below, scale = dropout_draw(
+            u.shape, dropout_rate, generator=generator, device=u.device,
+            impl=dropout_impl)
+    return unit_tail(u, short, draw, keep_below, scale), new_state
 
 
 def hybrid_fused_set(cfg) -> frozenset:

@@ -22,7 +22,8 @@ def dropout(x: torch.Tensor, rate: float, *, generator: torch.Generator,
     """Inverted dropout, torch's train-time scaling by ``1/(1-rate)``.
 
     The keep mask is drawn from ``generator``, which must live on ``x``'s
-    device.  ``impl="exact"`` keeps an element where a float32 uniform
+    device (:func:`dropout_draw`), and applied by :func:`apply_dropout`.
+    ``impl="exact"`` keeps an element where a float32 uniform
     falls below ``1 - rate``.  ``impl="bits8"`` (port of the JAX
     ``impl="bits8"``) draws one random byte per element instead and keeps
     it below ``round(keep * 256)``: the keep probability quantizes to
@@ -31,21 +32,44 @@ def dropout(x: torch.Tensor, rate: float, *, generator: torch.Generator,
     rate; a threshold of 0 or 256 takes the exact path.  The two packages'
     random bits differ, so the masks agree in distribution only.
     """
+    _check_impl(impl)
+    if not train or rate == 0.0:
+        return x
+    return apply_dropout(x, *dropout_draw(x.shape, rate, generator=generator,
+                                          device=x.device, impl=impl))
+
+
+def _check_impl(impl: str) -> None:
     if impl not in DROPOUT_IMPLS:
         raise ValueError(f"dropout impl must be one of {DROPOUT_IMPLS}, got "
                          f"{impl!r}")
-    if not train or rate == 0.0:
-        return x
+
+
+def dropout_draw(shape, rate: float, *, generator: torch.Generator, device,
+                 impl: str = "exact") -> tuple[torch.Tensor, float, float]:
+    """Dropout's draw for an output of ``shape`` at ``0 < rate < 1``:
+    ``(draw, keep_below, scale)``, an element kept where ``draw <
+    keep_below`` and then divided by ``scale``.  ``impl="exact"``: a
+    float32 uniform an element, ``1 - rate`` twice; ``"bits8"``: a random
+    byte an element, ``thresh`` and ``thresh / 256`` (see
+    :func:`dropout`)."""
+    _check_impl(impl)
     keep = 1.0 - rate
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
     if impl == "bits8":
         thresh = int(round(keep * 256))
         if 0 < thresh < 256:
-            bits = torch.randint(0, 256, x.shape, generator=generator,
-                                 dtype=torch.uint8, device=x.device)
-            return torch.where(bits < thresh, x / (thresh / 256.0), zero)
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, zero)
+            bits = torch.randint(0, 256, shape, generator=generator,
+                                 dtype=torch.uint8, device=device)
+            return bits, thresh, thresh / 256.0
+    return torch.rand(shape, generator=generator, device=device), keep, keep
+
+
+def apply_dropout(x: torch.Tensor, draw: torch.Tensor, keep_below,
+                  scale: float) -> torch.Tensor:
+    """``x / scale`` where ``draw < keep_below``, else 0, in ``x``'s dtype
+    (the draw of :func:`dropout_draw`)."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.where(draw < keep_below, x / scale, zero)
 
 
 def global_avg_pool(x: torch.Tensor,

@@ -100,7 +100,7 @@ from stgcn_tpu_torch.utils.profiling import forced_marks, span, tracing
 # the kernel modules whose wrappers count their launches
 _KERNEL_MODULES = ("adaptive_graph", "affine_relu", "block_eval",
                    "bn_moments", "spatial_block", "spatial_conv",
-                   "temporal_block", "temporal_conv")
+                   "temporal_block", "temporal_conv", "unit_tail")
 
 
 def launch_counters() -> list[Callable]:
